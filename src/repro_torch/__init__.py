@@ -1,0 +1,21 @@
+"""CDLM decoding in PyTorch and CUDA, a port of the JAX package ``repro``.
+
+The port imports nothing of the JAX package. Its entry points run on the
+CUDA device unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. ``"cuda"`` (the default) needs a
+    CUDA device; the CPU is used only when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,140 @@
+"""Params of the port: seeded random init, and conversion from the JAX
+package's param tree or its npz checkpoints.
+
+The port's params are the JAX tree's structure as nested dicts of tensors:
+``{"embed": {"tok", ["head"]}, "final_norm": {"w"}, "slots": (slot, ...)}``
+with every slot leaf stacked over ``cfg.n_periods``. Weights keep the JAX
+``(in, out)`` layout except the untied head, which is stored ``(V, d)``
+(the transpose of the JAX ``(d, V)``) so that ``lm_head`` and the fused
+select kernel read the same rows for tied and untied models.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import check_dense
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``ModelConfig.dtype`` string (or a torch dtype) -> torch dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[str(name)]
+
+
+def _specs(cfg: ModelConfig):
+    """Nested dict of leaf -> (shape, init) with init one of "ones",
+    "zeros" or a normal's standard deviation; the distributions of the JAX
+    package's ``init_model`` (dense_init: std = 1/sqrt(fan_in))."""
+    check_dense(cfg)
+    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_periods
+    nq, nkv, V = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_size
+    attn = {"wq": ((n, d, nq), 1 / math.sqrt(d)),
+            "wk": ((n, d, nkv), 1 / math.sqrt(d)),
+            "wv": ((n, d, nkv), 1 / math.sqrt(d)),
+            "wo": ((n, nq, d), 1 / math.sqrt(nq))}
+    if cfg.qkv_bias:
+        attn.update(bq=((n, nq), "zeros"), bk=((n, nkv), "zeros"),
+                    bv=((n, nkv), "zeros"))
+    slot = {"norm1": {"w": ((n, d), "ones")},
+            "norm2": {"w": ((n, d), "ones")},
+            "attn": attn,
+            "mlp": {"wi_gate": ((n, d, cfg.d_ff), 1 / math.sqrt(d)),
+                    "wi_up": ((n, d, cfg.d_ff), 1 / math.sqrt(d)),
+                    "wo": ((n, cfg.d_ff, d), 1 / math.sqrt(cfg.d_ff))}}
+    embed = {"tok": ((V, d), 0.02)}
+    if not cfg.tie_embeddings:
+        embed["head"] = ((V, d), 1 / math.sqrt(d))
+    return {"embed": embed, "final_norm": {"w": ((d,), "ones")},
+            "slots": (slot,) * len(cfg.layer_period)}
+
+
+def _map(fn, spec, *trees):
+    if isinstance(spec, dict):
+        return {k: _map(fn, spec[k], *(t[k] for t in trees)) for k in spec}
+    if isinstance(spec, tuple) and isinstance(spec[0], dict):
+        return tuple(_map(fn, s, *(t[i] for t in trees))
+                     for i, s in enumerate(spec))
+    return fn(spec, *trees)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda", dtype=None):
+    """Seeded random params, drawn (in fp32, on the generator's device) from
+    the distributions of the JAX package's ``init_model``. The numbers are
+    not JAX's: tests that compare the two build params with numpy and pass
+    them through :func:`params_from_jax`."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+
+    def draw(spec):
+        shape, init = spec
+        if init == "ones":
+            return torch.ones(shape, dtype=dt, device=dev)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * init).to(device=dev, dtype=dt)
+
+    return _map(draw, _specs(cfg))
+
+
+def _nest(flat: Mapping[str, np.ndarray]):
+    """Flat ``checkpoint/io.py`` keys ("slots/0/attn/wq") -> nested tree."""
+    tree: Dict = {}
+    for key, val in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    if "slots" in tree:
+        tree["slots"] = tuple(tree["slots"][str(i)]
+                              for i in range(len(tree["slots"])))
+    return tree
+
+
+def params_from_jax(tree_or_npz, cfg: ModelConfig, device="cuda",
+                    dtype=None):
+    """The port's params from the JAX param tree (leaves as numpy arrays) or
+    from the flat ``"embed/tok"``, ``"slots/0/attn/wq"``, ... keys of a
+    ``checkpoint/io.py`` npz. Shapes are checked against ``cfg``."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    tree = tree_or_npz
+    if "embed/tok" in tree:
+        tree = _nest({k: tree[k] for k in tree})
+
+    def convert(spec, leaf):
+        arr = np.asarray(leaf)
+        if arr.dtype.name == "bfloat16":   # numpy cannot hand bf16 to torch
+            arr = arr.astype(np.float32)
+        return torch.tensor(arr)
+
+    out = _map(convert, _specs(cfg), tree)
+    if not cfg.tie_embeddings:
+        out["embed"]["head"] = out["embed"]["head"].t()   # (d, V) -> (V, d)
+
+    def place(spec, leaf):
+        if tuple(leaf.shape) != spec[0]:
+            raise ValueError(f"param shape {tuple(leaf.shape)} does not "
+                             f"match {cfg.name}'s {spec[0]}")
+        return leaf.to(device=dev, dtype=dt).contiguous()
+
+    return _map(place, _specs(cfg), out)
+
+
+def param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, tuple):
+        return sum(param_count(v) for v in params)
+    return params.numel()

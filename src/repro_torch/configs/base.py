@@ -1,0 +1,181 @@
+"""Configuration dataclasses of the PyTorch port.
+
+A copy of the JAX package's ``configs/base.py``, limited to what the port
+uses: the layer kinds, ``ModelConfig`` (with ``reduced()``) and
+``ServeConfig``. The port keeps its own copy so that it imports nothing of
+the JAX package; the field names, defaults and derived properties are the
+same, so a config built on either side describes the same model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# Layer kinds of the per-period layer program (see models/transformer.py).
+ATTN = "attn"          # self attention (mode decided at call time)
+ATTN_LOCAL = "attn_local"  # sliding-window self attention (gemma2 local)
+MAMBA = "mamba"        # selective SSM block (jamba)
+RWKV = "rwkv"          # RWKV6 time-mix block
+
+MLP = "mlp"            # dense FFN
+MOE = "moe"            # mixture-of-experts FFN
+RWKV_CM = "rwkv_cm"    # RWKV6 channel-mix (token-shifted FFN)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. One instance per architecture."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+
+    # Core dims
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None   # default d_model // n_heads
+
+    # Attention flavor
+    qkv_bias: bool = False           # qwen-style QKV bias
+    rope_theta: float = 10_000.0
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None         # window for ATTN_LOCAL layers
+    query_pre_attn_scalar: Optional[float] = None
+    # sliding-window decode variant: caps the attended cache length
+    long_context_window: Optional[int] = None
+
+    # FFN flavor
+    activation: str = "silu"         # silu (SwiGLU)
+
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: Optional[int] = None
+    n_shared_experts: int = 0
+    router_aux_weight: float = 0.01
+    capacity_factor: float = 1.25
+
+    # SSM (mamba)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+
+    # RWKV6
+    rwkv_head_size: int = 64
+
+    # Layer program: layer i uses layer_period[i % len(layer_period)];
+    # each slot is (mixer_kind, ffn_kind).
+    layer_period: Tuple[Tuple[str, str], ...] = ((ATTN, MLP),)
+
+    pos_embed: str = "rope"
+
+    # Norms / embeddings
+    norm_eps: float = 1e-6
+    norm_type: str = "rmsnorm"
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # scale embeddings by sqrt(d_model)
+
+    # Encoder-decoder
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq_len: int = 0
+
+    # Prefix embedding positions supplied pre-computed (VLM patches)
+    n_prefix_embeds: int = 0
+
+    # Diffusion
+    mask_token_id: int = 0
+    eos_token_id: int = 1
+
+    # Numerics: param / activation / KV-cache dtype
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.n_experts and self.moe_d_ff is None:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
+        if self.n_heads % max(self.n_kv_heads, 1) != 0 and self.family != "ssm":
+            raise ValueError(f"{self.name}: n_heads={self.n_heads} not a "
+                             f"multiple of n_kv_heads={self.n_kv_heads}")
+        if self.n_layers % len(self.layer_period) != 0:
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} not a "
+                             f"multiple of period {len(self.layer_period)}")
+
+    # ---- derived -----------------------------------------------------------
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.layer_period)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + layers + head) of a dense
+        ``ATTN``/``MLP`` model."""
+        d, hd = self.d_model, self.head_dim
+        total = self.vocab_size * d
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        mlp = 3 * d * self.d_ff
+        total += (attn + mlp + 2 * d) * self.n_layers
+        return int(total)
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """Smoke-test variant: <=2 periods, d_model<=256, tiny vocab."""
+        period = self.layer_period
+        small = dict(
+            n_layers=len(period) * min(2, self.n_periods),
+            d_model=256 if self.d_model >= 256 else self.d_model,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2),
+            head_dim=64,
+            d_ff=512,
+            vocab_size=512,
+            mask_token_id=511,
+            eos_token_id=1,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_per_token=(min(self.experts_per_token, 2)
+                               if self.n_experts else 0),
+            moe_d_ff=256 if self.n_experts else None,
+            n_shared_experts=min(self.n_shared_experts, 1),
+            sliding_window=64 if self.sliding_window else None,
+            long_context_window=128 if self.long_context_window else None,
+            n_encoder_layers=2 if self.is_encoder_decoder else 0,
+            encoder_seq_len=16 if self.is_encoder_decoder else 0,
+            n_prefix_embeds=8 if self.n_prefix_embeds else 0,
+            query_pre_attn_scalar=(64.0 if self.query_pre_attn_scalar
+                                   else None),
+            dtype="float32",
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 8
+    block_size: int = 32
+    gen_length: int = 256
+    # engine defaults; requests may override them per request through
+    # repro_torch.serving.SamplingParams
+    conf_threshold: float = 0.9
+    temperature: float = 0.0
+    sampler: str = "cdlm"
+    cache_refresh_interval: int = 8
+    scheduler: str = "static"        # static | continuous
+    cache_layout: str = "dense"      # dense | paged
+    page_pool_pages: Optional[int] = None
+    # fused unembed + online-softmax candidate selection: decode forwards
+    # skip the lm_head and no (b, ., V) logits tensor is built
+    fused_select: bool = False
+    http_host: str = "127.0.0.1"
+    http_port: int = 8000

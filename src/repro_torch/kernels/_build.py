@@ -1,0 +1,105 @@
+"""Builds the port's CUDA kernels and binds them with ``ctypes``.
+
+Every ``*/csrc/*.cu`` file of this package has a plain C entry point (no
+PyTorch headers), so each compiles in seconds. On first use, :func:`build`
+runs one ``nvcc`` per source, all at once, then links the objects into one
+shared library under ``<checkout>/build/kernels/``. The library's name
+carries a hash of the sources and flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. A failed build raises with nvcc's
+stderr.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+BUILD_DIR = PKG_DIR.parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_lib = None
+_functions: dict = {}
+
+
+def sources():
+    return sorted(PKG_DIR.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "are built on the machine that has the GPU")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source (in parallel) and link one shared library;
+    returns its path. ``verbose`` prints ptxas' register and shared-memory
+    report of each kernel."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources():
+            obj = Path(tmp) / f"{src.parent.parent.name}_{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                   "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        errors = []
+        for src, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode:
+                errors.append(f"{src} (exit {proc.returncode}):\n{out}{err}")
+            elif verbose:
+                print(f"[nvcc] {src.name}\n{err}", end="", flush=True)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *(str(o) for _, o, _ in jobs),
+             "-o", str(tmp_so)], capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp_so, so)
+    return so
+
+
+def function(name: str, argtypes):
+    """The C entry point ``name`` of the kernel library (built on first
+    use), with its ``argtypes`` declared and an int (cudaError_t) result."""
+    global _lib
+    if name not in _functions:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        fn = getattr(_lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return _functions[name]
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError_t {rc}")

@@ -1,0 +1,100 @@
+"""Plain PyTorch version of the decode attention kernel.
+
+The same math as the JAX package's ``kernels/decode_attn``: online-softmax
+partials of the block's queries over the cache rows below each lane's
+``cache_len`` (``decode_attention_partial``), the in-block part
+(``_block_partial``), and their merge (``softmax_combine``). The GQA group
+is folded into the query rows: row ``r = qpos * G + g``.
+
+Where the JAX package takes one scalar ``cache_len`` (its engine vmaps over
+lanes), this version takes ``cache_lens (b,)``, and reads the cache in its
+``(b, S, Kv, hd)`` model layout.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def decode_attention_partial(q, k_cache, v_cache, cache_lens, *,
+                             scale: float = 1.0,
+                             softcap: Optional[float] = None,
+                             window: Optional[int] = None, g: int = 1):
+    """q: (b, Kv, R, hd) with R = Bq*G; cache: (b, S, Kv, hd);
+    cache_lens: (b,) int. Returns unnormalized fp32 partials
+    (acc (b, Kv, R, hd), m (b, Kv, R, 1), l (b, Kv, R, 1)) over cache slots
+    below ``cache_lens``; a row that sees no slot gets m = -inf, l = 0."""
+    b, Kv, R, hd = q.shape
+    S = k_cache.shape[1]
+    s = torch.einsum("bkrh,bskh->bkrs", q.float() * scale, k_cache.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(S, device=q.device)
+    lens = cache_lens.to(q.device).long()[:, None, None, None]
+    vis = kpos < lens                                    # (b, 1, 1, S)
+    if window is not None:
+        qpos = lens + (torch.arange(R, device=q.device) // g)[:, None]
+        vis = vis & (qpos - kpos < window)               # (b, 1, R, S)
+    s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    any_vis = vis.any(-1, keepdim=True)
+    m = torch.where(any_vis, s.amax(-1, keepdim=True),
+                    torch.full_like(s[..., :1], -torch.inf))
+    p = torch.where(vis, torch.exp(s - torch.where(any_vis, m, 0.0)),
+                    torch.zeros_like(s))
+    acc = torch.einsum("bkrs,bskh->bkrh", p, v_cache.float())
+    return acc, m, p.sum(-1, keepdim=True)
+
+
+def _block_partial(q, k_blk, v_blk, *, scale: float,
+                   softcap: Optional[float], window: Optional[int], g: int):
+    """In-block (R x Bq) partials. q: (b, Kv, R, hd); k/v_blk: (b, Bq, Kv,
+    hd). Within the block every position sees every other (CDLM
+    refinement), cut by ``|qpos - kpos| < window``."""
+    s = torch.einsum("bkrh,bskh->bkrs", q.float(), k_blk.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if window is not None:
+        R, Bq = q.shape[2], k_blk.shape[1]
+        qpos = (torch.arange(R, device=q.device) // g)[:, None]
+        kpos = torch.arange(Bq, device=q.device)[None, :]
+        s = torch.where((qpos - kpos).abs() < window, s,
+                        torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    acc = torch.einsum("bkrs,bskh->bkrh", p, v_blk.float())
+    return acc, m, p.sum(-1, keepdim=True)
+
+
+def softmax_combine(parts):
+    """Merge [(acc, m, l), ...] unnormalized online-softmax partials."""
+    m = parts[0][1]
+    for part in parts[1:]:
+        m = torch.maximum(m, part[1])
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    acc = l = 0
+    for p_acc, p_m, p_l in parts:
+        w = torch.where(torch.isfinite(p_m), torch.exp(p_m - m_safe),
+                        torch.zeros_like(p_m))
+        acc = acc + p_acc * w
+        l = l + p_l * w
+    return acc / l.clamp_min(1e-30)
+
+
+def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
+                     scale: float = 1.0, softcap: Optional[float] = None,
+                     window: Optional[int] = None):
+    """q: (b, Bq, Kv, G, hd); k/v_cache: (b, S, Kv, hd); k/v_blk: (b, Bq,
+    Kv, hd); cache_lens: (b,) int. Query i of lane j sits at position
+    ``cache_lens[j] + i``. Returns (b, Bq, Kv, G, hd) fp32."""
+    b, Bq, Kv, G, hd = q.shape
+    qf = q.permute(0, 2, 1, 3, 4).reshape(b, Kv, Bq * G, hd)
+    cache_part = decode_attention_partial(qf, k_cache, v_cache, cache_lens,
+                                          scale=scale, softcap=softcap,
+                                          window=window, g=G)
+    blk_part = _block_partial(qf, k_blk, v_blk, scale=scale, softcap=softcap,
+                              window=window, g=G)
+    out = softmax_combine([cache_part, blk_part])
+    return out.reshape(b, Kv, Bq, G, hd).permute(0, 2, 1, 3, 4)

@@ -1,0 +1,154 @@
+"""The dense decoder stack, ported from the JAX package's
+``models/transformer.py`` for ``ATTN``/``MLP`` slots.
+
+A model is ``cfg.n_periods`` repeats of ``cfg.layer_period``; each slot's
+params are stacked over periods and the stack runs as a Python loop over
+periods (the JAX package scans it). ``forward`` covers:
+
+- the full-sequence forward (prefill), in any mask mode;
+- the cached block decode: a block of queries per lane against that lane's
+  KV cache rows, with a per-lane ``cache_len`` and per-lane positions, so
+  lanes of one batch may decode at different block offsets.
+
+Per-slot emissions ``{"k", "v"}`` come back stacked over periods,
+``(n_periods, b, L, Kv, hd)``, ready for ``core.cache.commit_rows``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ATTN, MLP, ModelConfig
+from repro_torch.core import masks
+from repro_torch.models import layers as L
+
+
+class ModelOutput(NamedTuple):
+    logits: Optional[torch.Tensor]  # (b, Lq, V) fp32; None without logits
+    hidden: torch.Tensor            # (b, Lq, d) last hidden (post final norm)
+    emissions: tuple                # per slot {"k", "v"} stacked over periods
+
+
+def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    """The (V, d) matrix ``lm_head`` multiplies by, handed to the fused
+    unembed + select kernel so decode never builds logits."""
+    return L.unembed_w(params["embed"], cfg)
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    if any(slot != (ATTN, MLP) for slot in cfg.layer_period):
+        raise ValueError(f"{cfg.name}: repro_torch runs ATTN/MLP slots only, "
+                         f"got layer_period={cfg.layer_period}")
+
+
+def _period(tree, p: int):
+    """Period ``p`` of a tree whose leaves are stacked over periods."""
+    if isinstance(tree, dict):
+        return {k: _period(v, p) for k, v in tree.items()}
+    return tree[p]
+
+
+def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
+    """Returns (y, emission)."""
+    h = L.apply_norm(slot["norm1"], x, cfg)
+    q = L.project_q(slot["attn"], h, cfg)
+    k, v = L.project_kv(slot["attn"], h, cfg)
+    q = L.rope(q, ctx["q_pos"], cfg.rope_theta)
+    k = L.rope(k, ctx["q_pos"], cfg.rope_theta)
+    window = (cfg.long_context_window if ctx["use_long_window"] else None)
+    scale, cap = L.attn_scale(cfg), cfg.attn_logit_softcap
+    cache = ctx["cache_slot"]
+
+    if cache is not None and ctx["decode_attention_fn"] is not None:
+        # the decode attention kernel: cache rows below each lane's
+        # cache_len plus the fresh in-block keys, one online softmax
+        out = ctx["decode_attention_fn"](
+            q, cache["k"], cache["v"], k, v, ctx["cache_lens"], scale=scale,
+            softcap=cap, window=window).to(v.dtype)
+    else:
+        q_pos = ctx["q_pos"]
+        if cache is not None:
+            ck, cv = cache["k"], cache["v"]
+            b, S, Lq = ck.shape[0], ck.shape[1], k.shape[1]
+            slots = torch.arange(S, device=x.device)
+            k_all = torch.cat([ck, k.to(ck.dtype)], dim=1)
+            v_all = torch.cat([cv, v.to(cv.dtype)], dim=1)
+            kv_pos = torch.cat([slots.expand(b, S), q_pos.expand(b, Lq)], 1)
+            kv_valid = torch.cat(
+                [slots[None, :] < ctx["cache_lens"][:, None],
+                 torch.ones((b, Lq), dtype=torch.bool, device=x.device)], 1)
+        else:
+            k_all, v_all, kv_pos, kv_valid = k, v, q_pos, None
+        bias_fn = masks.make_bias_fn(mode=ctx["mode"],
+                                     prompt_len=ctx["prompt_len"],
+                                     block_size=ctx["block_size"],
+                                     window=window)
+
+        def bias_with_valid(qp, kp, valid):
+            bias = bias_fn(qp, kp)
+            if valid is not None:
+                bias = torch.where(valid[..., None, :], bias,
+                                   torch.full_like(bias, masks.NEG_INF))
+            return bias
+
+        out = L.attention_core(q, k_all, v_all, q_pos=q_pos, kv_pos=kv_pos,
+                               kv_valid=kv_valid, bias_fn=bias_with_valid,
+                               scale=scale, cap=cap)
+    return x + L.out_proj(slot["attn"], out, cfg), {"k": k, "v": v}
+
+
+def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
+            mode: str = masks.BIDIRECTIONAL, prompt_len: int = 0,
+            block_size: int = 1, positions=None, cache=None, cache_len=None,
+            use_long_window: bool = False, decode_attention_fn=None,
+            return_logits: bool = True) -> ModelOutput:
+    """Run the model.
+
+    tokens: (b, L) int. ``cache`` (a ``core.cache.init_cache`` tuple) with
+    ``cache_len`` (int, or (b,) per lane) runs the cached block decode:
+    query i of lane j sits at ``cache_len[j] + i`` unless ``positions``
+    ((L,) or (b, L)) says otherwise. ``decode_attention_fn``
+    (``kernels.decode_attn.decode_attention``-shaped) replaces the
+    attention of cached forwards. ``return_logits=False`` skips the
+    lm_head (the fused-select decode reads ``hidden``).
+    """
+    check_dense(cfg)
+    dev = resolve_device(device)
+    tokens = torch.as_tensor(tokens, device=dev)
+    if params["embed"]["tok"].device != tokens.device:
+        raise ValueError(f"params live on {params['embed']['tok'].device}, "
+                         f"forward was asked to run on {tokens.device}")
+    b, Lq = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    cache_lens = None
+    if cache is not None:
+        cache_lens = torch.as_tensor(cache_len, dtype=torch.int32,
+                                     device=dev).expand(b).contiguous()
+    if positions is None:
+        base = cache_lens[:, None] if cache is not None else 0
+        positions = base + torch.arange(Lq, device=dev)
+    positions = torch.as_tensor(positions, device=dev)
+
+    ctx = dict(mode=mode, prompt_len=prompt_len, block_size=block_size,
+               q_pos=positions, cache_lens=cache_lens, cache_slot=None,
+               use_long_window=use_long_window,
+               decode_attention_fn=decode_attention_fn)
+    emitted = [[] for _ in cfg.layer_period]
+    for p in range(cfg.n_periods):
+        for i, slot_params in enumerate(params["slots"]):
+            slot = _period(slot_params, p)
+            ctx["cache_slot"] = None if cache is None else _period(cache[i], p)
+            x, em = _self_attention_slot(slot, x, cfg=cfg, ctx=ctx)
+            h = L.apply_norm(slot["norm2"], x, cfg)
+            x = x + L.apply_mlp(slot["mlp"], h, cfg)
+            emitted[i].append(em)
+    emissions = tuple({key: torch.stack([em[key] for em in ems])
+                       for key in ("k", "v")} for ems in emitted)
+
+    hidden = L.apply_norm(params["final_norm"], x, cfg)
+    if not return_logits:
+        return ModelOutput(logits=None, hidden=hidden, emissions=emissions)
+    return ModelOutput(logits=L.lm_head(params["embed"], hidden, cfg),
+                       hidden=hidden, emissions=emissions)

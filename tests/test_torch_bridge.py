@@ -1,0 +1,117 @@
+"""The port's configs and params bridge: the JAX param tree (and its npz
+checkpoint keys) round-trips through ``params_from_jax``; the seeded init
+draws the JAX init's shapes and distributions; configs match the JAX
+package's field for field."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.checkpoint import save  # noqa: E402
+from repro.configs.registry import get_config as jax_get_config  # noqa: E402
+from repro.models import init_model  # noqa: E402
+from repro_torch.bridge import (  # noqa: E402
+    init_params,
+    param_count,
+    params_from_jax,
+)
+from repro_torch.configs import ARCHITECTURES, get_config  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def _flat(tree, prefix=""):
+    """Leaves keyed like ``checkpoint/io.py`` ("slots/0/attn/wq")."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}/"))
+    return out
+
+
+def _jax_tree(name):
+    jcfg = jax_get_config(name).reduced()
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  init_model(jax.random.PRNGKey(0), jcfg))
+    return jcfg, get_config(name).reduced(), tree
+
+
+def _check_round_trip(params, tree):
+    got, want = _flat(params), _flat(tree)
+    assert sorted(got) == sorted(want)
+    for key, leaf in want.items():
+        g = got[key].numpy()
+        if key == "embed/head":            # the port stores (V, d)
+            g = g.T
+        assert g.shape == leaf.shape, key
+        np.testing.assert_array_equal(g, leaf, key)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "dream-7b"])
+def test_round_trip_of_the_jax_tree(name):
+    _, cfg, tree = _jax_tree(name)
+    params = params_from_jax(tree, cfg, "cpu")
+    _check_round_trip(params, tree)
+    assert param_count(params) == sum(a.size for a in _flat(tree).values())
+
+
+def test_npz_checkpoint_keys(tmp_path):
+    jcfg, cfg, tree = _jax_tree("qwen2-0.5b")
+    path = tmp_path / "ckpt.npz"
+    save(init_model(jax.random.PRNGKey(0), jcfg), str(path))
+    with np.load(path) as data:
+        assert "slots/0/attn/wq" in data and "embed/tok" in data
+        params = params_from_jax(data, cfg, "cpu")
+    _check_round_trip(params, tree)
+
+
+def test_shape_mismatch_is_refused():
+    _, cfg, tree = _jax_tree("qwen2-0.5b")
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax(tree, dataclasses.replace(cfg, d_ff=64), "cpu")
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "llada-8b"])
+def test_seeded_init_follows_the_jax_init(name):
+    _, cfg, tree = _jax_tree(name)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    flat = _flat(params)
+    for key, leaf in _flat(tree).items():
+        shape = leaf.shape[::-1] if key == "embed/head" else leaf.shape
+        assert tuple(flat[key].shape) == shape, key
+        assert flat[key].dtype == torch.float32
+        if leaf.std() == 0:                # ones / zeros
+            np.testing.assert_array_equal(flat[key].numpy(), leaf)
+        else:                              # same normal, other draws
+            assert abs(flat[key].std().item() / leaf.std() - 1) < 0.05, key
+    again = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    other = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    tok = params["embed"]["tok"]
+    assert torch.equal(tok, again["embed"]["tok"])
+    assert not torch.equal(tok, other["embed"]["tok"])
+
+
+@pytest.mark.parametrize("name", sorted(ARCHITECTURES))
+def test_configs_match_the_jax_package(name):
+    mine, theirs = get_config(name), jax_get_config(name)
+    for f in dataclasses.fields(mine):
+        assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
+    assert mine.param_count() == theirs.param_count()
+    assert dataclasses.asdict(mine.reduced()) == {
+        f.name: getattr(theirs.reduced(), f.name)
+        for f in dataclasses.fields(mine)}
+
+
+def test_unported_architectures_are_refused():
+    jax_get_config("gemma2-27b")
+    with pytest.raises(KeyError, match="not served by repro_torch"):
+        get_config("gemma2-27b")
