@@ -8,16 +8,26 @@ Phases, each timed, any failure raises and exits non-zero:
 1. card and build: the card's name and power limit, torch and CUDA
    versions, and an nvcc build of every kernel source of the checkout;
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes (and a few small softcap / window cases), each timed with
-   CUDA events beside its plain version and one PyTorch yardstick call;
-3. the main path: ``ContinuousEngine`` serving CDLM decoding of
-   qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
-   random init) with the fused select kernel, 12 requests of mixed
-   ``max_tokens`` through 8 lanes; the kernels' launch counters must equal
-   the engine's call accounting;
+   path's shapes (and small softcap / window / mode cases), each timed with
+   CUDA events beside its plain version and one PyTorch yardstick call; the
+   paged decode kernel also equals the dense one bit for bit on identity
+   and permuted page tables;
+3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
+   of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
+   random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
+   prompt prefill through the block attention kernel, the decode through
+   the dense decode attention and fused select kernels; the kernels' launch
+   counters must equal the engine's call accounting;
+3b. the main path, paged layout, same trace and width: with a
+   dense-equivalent pool, tokens equal phase 3's and every cached forward
+   goes through the paged kernel; with a tight pool (40 pages of 32
+   tokens, the first 8 requests), at least one stall round and one
+   preemption, the pool fully free at the end, tokens equal phase 3's;
 4. kernel path against plain path: the first block of a 2-request trace
-   decoded both ways at fp32, token for token (a divergence is accepted
-   only at a near-tie, printed with its gap).
+   decoded at fp32 with the kernels (block attention prefill, dense and
+   paged decode attention, fused select) and with their plain versions,
+   token for token (a divergence is accepted only at a near-tie, printed
+   with its gap); the dense and paged kernel paths agree bit for bit.
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -31,6 +41,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -41,6 +53,11 @@ DECODE_SRC = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 DECODE_TPU = "src/repro/kernels/decode_attn/decode_attn.py:93"
 SELECT_SRC = "src/repro_torch/kernels/select/csrc/select.cu"
 SELECT_TPU = "src/repro/kernels/select/select.py:88"
+PAGED_TPU = "src/repro/kernels/decode_attn/decode_attn.py:198"
+BLOCK_SRC = "src/repro_torch/kernels/block_attn/csrc/block_attn.cu"
+BLOCK_TPU = "src/repro/kernels/block_attn/block_attn.py:96"
+KERNELS = ("decode_attention", "fused_select", "paged_decode_attention",
+           "block_attention")
 NEAR_TIE = 1e-4
 
 
@@ -167,6 +184,162 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
     return rec
 
 
+def _paged_pool(torch, dev, kc, vc, lens, page, perm_gen):
+    """The dense caches' rows moved page by page into a pool of 3x the pages
+    needed, at shuffled places; table entries past each lane's length are
+    -1. Returns (k_pool, v_pool, table)."""
+    b, S, Kv, hd = kc.shape
+    n_t = S // page
+    n_pages = 3 * b * n_t
+    perm = torch.randperm(n_pages, generator=perm_gen, device=dev)[:b * n_t]
+    kp = torch.randn((n_pages, page, Kv, hd), generator=perm_gen,
+                     device=dev).to(kc.dtype)      # residue of other lanes
+    vp = torch.randn((n_pages, page, Kv, hd), generator=perm_gen,
+                     device=dev).to(kc.dtype)
+    kp[perm] = kc.reshape(b * n_t, page, Kv, hd)
+    vp[perm] = vc.reshape(b * n_t, page, Kv, hd)
+    table = perm.to(torch.int32).reshape(b, n_t).clone()
+    used = torch.arange(n_t, device=dev)[None, :] * page < lens[:, None]
+    table[~used] = -1
+    return kp, vp, table
+
+
+def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
+                softcap=None, window=None, timed=False, name=""):
+    """The paged kernel against its plain version over a shuffled table with
+    -1 tail entries, and bit for bit against the dense kernel on the same
+    contents (identity table, then the shuffled one)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from repro_torch.kernels.decode_attn import ref as dref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(len(name) + 7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa
+    q = rnd(b, Bq, Kv, G, hd)
+    kc, vc = rnd(b, S, Kv, hd), rnd(b, S, Kv, hd)
+    kb, vb = rnd(b, Bq, Kv, hd), rnd(b, Bq, Kv, hd)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    kp, vp, table = _paged_pool(torch, dev, kc, vc, cl, page, g)
+    got = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
+    want = dref.paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
+    dense = decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    ident = torch.arange(b * (S // page), dtype=torch.int32,
+                         device=dev).reshape(b, S // page)
+    same_ident = torch.equal(paged_decode_attention(
+        q, kc.reshape(-1, page, Kv, hd), vc.reshape(-1, page, Kv, hd), kb,
+        vb, ident, cl, **kw), dense)
+    same_perm = torch.equal(got, dense)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    # both sides read the same inputs and accumulate in fp32
+    tol = 1e-4
+    if not err <= tol:
+        raise AssertionError(f"paged_decode_attention {name}: max error "
+                             f"{err} > {tol}")
+    if not (same_ident and same_perm):
+        raise AssertionError(f"paged_decode_attention {name}: not equal to "
+                             f"the dense kernel bit for bit (identity "
+                             f"{same_ident}, shuffled {same_perm})")
+    rec = {"kernel": "paged_decode_attention", "case": name, "dtype": dtype,
+           "shape": dict(b=b, Bq=Bq, Kv=Kv, G=G, hd=hd, page=page,
+                         n_t=S // page, n_pages=kp.shape[0], lens=lens),
+           "max_abs_err": err, "tol": tol,
+           "bitwise_equal_dense": {"identity": same_ident,
+                                   "shuffled": same_perm}}
+    if timed:
+        H, Lk = Kv * G, S + Bq
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, H, Bq, hd)
+        ks = torch.cat([kc, kb], 1).permute(0, 2, 1, 3).contiguous()
+        vs = torch.cat([vc, vb], 1).permute(0, 2, 1, 3).contiguous()
+        slot = torch.arange(Lk, device=dev)
+        mask = ((slot[None, :] < cl[:, None]) | (slot[None, :] >= S))
+        mask = mask[:, None, None, :].expand(b, 1, Bq, Lk)
+        # the yardstick reads the gathered dense view (the gather untimed)
+        library = (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=kw["scale"], enable_gqa=True))
+        times = alternate(
+            torch, lambda: dref.paged_decode_attention(q, kp, vp, kb, vb,
+                                                       table, cl, **kw),
+            lambda: paged_decode_attention(q, kp, vp, kb, vb, table, cl,
+                                           **kw),
+            library, iters=50)
+        item = q.element_size()
+        n_keys = sum(lens) + b * Bq
+        n_bytes = (q.numel() * item + 2 * Kv * hd * item * sum(lens)
+                   + (kb.numel() + vb.numel()) * item + got.numel() * 4
+                   + 4 * b + 4 * sum(-(-n // page) for n in lens))
+        n_ops = 4 * Kv * Bq * G * hd * n_keys
+        bms, by = bound_ms(n_bytes, n_ops, dtype)
+        rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
+                   library_ms=times["library"], bound_ms=bms, bound_by=by,
+                   kernel_device_ms=device_ms(
+                       torch, lambda: paged_decode_attention(
+                           q, kp, vp, kb, vb, table, cl, **kw),
+                       50, ["decode_attn_kernel"]))
+    log(json.dumps(rec))
+    return rec
+
+
+def check_block(torch, dev, *, b, L, Kv, G, hd, dtype, mode, prompt_len=0,
+                block_size=1, window=None, softcap=None, timed=False,
+                name=""):
+    """The block attention kernel against its plain version (both keep
+    scores and probabilities in fp32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.block_attn import flash_block_attention
+    from repro_torch.kernels.block_attn import ref as bref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(len(name) + L)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa
+    q = rnd(b, L, Kv, G, hd)
+    k, v = rnd(b, L, Kv, hd), rnd(b, L, Kv, hd)
+    kw = dict(mode=mode, prompt_len=prompt_len, block_size=block_size,
+              window=window, scale=hd ** -0.5, softcap=softcap)
+    got = flash_block_attention(q, k, v, **kw)
+    want = bref.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 1e-4
+    if not err <= tol:
+        raise AssertionError(f"block_attention {name}: max error {err} > "
+                             f"{tol}")
+    rec = {"kernel": "block_attention", "case": name, "dtype": dtype,
+           "shape": dict(b=b, L=L, Kv=Kv, G=G, hd=hd, mode=mode,
+                         prompt_len=prompt_len, block_size=block_size,
+                         window=window, softcap=softcap),
+           "max_abs_err": err, "tol": tol}
+    if timed:
+        vis = bref.visibility(L, L, mode=mode, prompt_len=prompt_len,
+                              block_size=block_size, window=window,
+                              device=dev)
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, Kv * G, L, hd)
+        ks = k.permute(0, 2, 1, 3).contiguous()
+        vs = v.permute(0, 2, 1, 3).contiguous()
+        library = (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=vis, scale=kw["scale"], enable_gqa=True))
+        times = alternate(
+            torch, lambda: bref.block_attention(q, k, v, **kw),
+            lambda: flash_block_attention(q, k, v, **kw), library, iters=10)
+        item = q.element_size()
+        n_bytes = (q.numel() + k.numel() + v.numel()) * item + got.numel() * 4
+        n_ops = 4 * hd * int(vis.sum()) * b * Kv * G
+        bms, by = bound_ms(n_bytes, n_ops, dtype)
+        rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
+                   library_ms=times["library"], bound_ms=bms, bound_by=by,
+                   visible_pairs=int(vis.sum()),
+                   kernel_device_ms=device_ms(
+                       torch, lambda: flash_block_attention(q, k, v, **kw),
+                       10, ["block_attn_kernel"]))
+    log(json.dumps(rec))
+    return rec
+
+
 U32 = 2.0 ** -24                          # fp32 unit roundoff
 
 
@@ -275,24 +448,49 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
 
 def phase_kernels(torch, dev):
     lens8 = [0, 512, 536, 577, 608, 640, 700, 736]
-    main_attn = None
+    main = {}
     for name, kv, hd in (("qwen2-0.5b", 2, 64), ("dream-7b", 4, 128)):
         for dtype in ("bfloat16", "float32"):
             rec = check_decode(torch, dev, b=8, Bq=32, Kv=kv, G=7, hd=hd,
                                S=768, lens=lens8, dtype=dtype, timed=True,
                                name=f"{name}/{dtype}")
+            prec = check_paged(torch, dev, b=8, Bq=32, Kv=kv, G=7, hd=hd,
+                               S=768, lens=lens8, dtype=dtype, timed=True,
+                               name=f"{name}/{dtype}")
             if name == "qwen2-0.5b" and dtype == "bfloat16":
-                main_attn = rec
+                main["decode_attention"] = rec
+                main["paged_decode_attention"] = prec
     small = dict(b=2, Bq=8, Kv=2, G=2, hd=64, S=64, lens=[5, 40])
-    check_decode(torch, dev, **small, dtype="float32", softcap=5.0,
-                 name="softcap")
-    check_decode(torch, dev, **small, dtype="float32", window=6,
-                 name="window")
-    check_decode(torch, dev, **small, dtype="bfloat16", softcap=5.0,
-                 window=6, name="softcap+window")
-    main_sel = check_select(torch, dev, T=256, d=896, V=151_936,
-                            dtype="bfloat16", scale=0.02, timed=True,
-                            name="qwen2-0.5b tied")
+    for check in (check_decode, check_paged):
+        check(torch, dev, **small, dtype="float32", softcap=5.0,
+              name="softcap")
+        check(torch, dev, **small, dtype="float32", window=6, name="window")
+        check(torch, dev, **small, dtype="bfloat16", softcap=5.0, window=6,
+              name="softcap+window")
+    check_paged(torch, dev, **dict(small, S=60), dtype="float32", page=5,
+                window=9, name="page 5")
+    # the prefill of every admission: 8 lanes of a 512-token prompt, all
+    # of it block -1, so every key is visible
+    prefill = dict(b=8, L=512, G=7, dtype="bfloat16", mode="block_causal",
+                   prompt_len=512, block_size=32, timed=True)
+    main["block_attention"] = check_block(torch, dev, Kv=2, hd=64, **prefill,
+                                          name="qwen2-0.5b prefill")
+    check_block(torch, dev, Kv=4, hd=128, **prefill, name="dream-7b prefill")
+    small = dict(b=2, Kv=2, G=3, hd=64, dtype="float32")
+    check_block(torch, dev, L=100, mode="causal", **small, name="causal")
+    check_block(torch, dev, L=77, mode="bidirectional", **small,
+                name="bidirectional ragged")
+    check_block(torch, dev, L=90, mode="block_causal", prompt_len=40,
+                block_size=16, **small, name="block_causal P<L ragged")
+    check_block(torch, dev, L=96, mode="block_causal", prompt_len=32,
+                block_size=16, window=20, **small, name="window")
+    check_block(torch, dev, L=64, mode="causal", softcap=3.0, window=9,
+                **small, name="causal softcap+window")
+    check_block(torch, dev, b=2, L=70, Kv=2, G=7, hd=128, dtype="bfloat16",
+                mode="bidirectional", softcap=5.0, name="bf16 softcap")
+    main["fused_select"] = check_select(
+        torch, dev, T=256, d=896, V=151_936, dtype="bfloat16", scale=0.02,
+        timed=True, name="qwen2-0.5b tied")
     check_select(torch, dev, T=256, d=3584, V=152_064, dtype="bfloat16",
                  scale=0.02, timed=True, name="dream-7b untied")
     check_select(torch, dev, T=256, d=896, V=151_936, dtype="float32",
@@ -300,7 +498,7 @@ def phase_kernels(torch, dev):
     for dtype in ("bfloat16", "float32"):
         check_select(torch, dev, T=256, d=896, V=151_936, dtype=dtype,
                      scale=1.0, name=f"qwen2-0.5b sharp {dtype}")
-    return main_attn, main_sel
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -316,12 +514,63 @@ def _random_params(torch, cfg, dev, dtype):
     return params
 
 
-def phase_serving(torch, dev):
-    import numpy as np
-
-    from repro_torch.configs import ServeConfig, get_config
-    from repro_torch.kernels.decode_attn import decode_attention
+def kernel_wrappers():
+    from repro_torch.kernels.block_attn import flash_block_attention
+    from repro_torch.kernels.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
     from repro_torch.kernels.select import fused_select
+    return {"decode_attention": decode_attention,
+            "fused_select": fused_select,
+            "paged_decode_attention": paged_decode_attention,
+            "block_attention": flash_block_attention}
+
+
+def serve_counted(torch, dev, eng, reqs):
+    """``eng.generate(reqs)`` with every kernel's launch count set to 0 just
+    before and read just after. Returns (outputs by id, wall s, launches)."""
+    fns = kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    return {o.id: o for o in outs}, wall, launches
+
+
+def check_launches(cfg, calls, launches, layout):
+    """Each kernel launched exactly as often as the engine's call accounting
+    says: select once per refinement iteration, block attention once per
+    layer and admission, the layout's decode attention once per layer and
+    cached forward, the other layout's never."""
+    cached = cfg.n_layers * (calls["refine"] + calls["commit"])
+    want = {"decode_attention": cached if layout == "dense" else 0,
+            "fused_select": calls["refine"],
+            "paged_decode_attention": cached if layout == "paged" else 0,
+            "block_attention": cfg.n_layers * calls["admit"]}
+    if launches != want:
+        raise AssertionError(f"{layout}: launches {launches} != the call "
+                             f"accounting {want} ({calls})")
+
+
+def check_outputs(cfg, outs, caps, B):
+    if sorted(outs) != sorted(caps):
+        raise AssertionError("not every request completed")
+    for rid, o in outs.items():
+        cap = caps[rid]
+        if np.any(o.tokens == cfg.mask_token_id):
+            raise AssertionError(f"request {rid}: mask token left")
+        n_blocks = -(-cap // B)
+        if not (1 <= o.steps <= n_blocks * B and o.gen_length <= cap):
+            raise AssertionError(f"request {rid}: steps {o.steps} / "
+                                 f"gen_length {o.gen_length} out of bounds")
+
+
+def phase_serving(torch, dev):
+    from repro_torch.configs import ServeConfig, get_config
     from repro_torch.serving import ContinuousEngine, Request
 
     cfg = get_config("qwen2-0.5b")
@@ -338,54 +587,91 @@ def phase_serving(torch, dev):
     reqs = [Request(prompt=p, id=i, max_tokens=c)
             for i, (p, c) in enumerate(zip(prompts, caps))]
     torch.cuda.reset_peak_memory_stats(dev)
-    decode_attention.launches = 0
-    fused_select.launches = 0
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    launches = {"decode_attention": decode_attention.launches,
-                "fused_select": fused_select.launches}
+    outs, wall, launches = serve_counted(torch, dev, eng, reqs)
     calls = eng.call_counts()
-
-    if sorted(o.id for o in outs) != list(range(len(caps))):
-        raise AssertionError("not every request completed")
-    for o in outs:
-        cap = caps[o.id]
-        if np.any(o.tokens == cfg.mask_token_id):
-            raise AssertionError(f"request {o.id}: mask token left")
-        n_blocks = -(-cap // B)
-        if not (1 <= o.steps <= n_blocks * B and o.gen_length <= cap):
-            raise AssertionError(f"request {o.id}: steps {o.steps} / "
-                                 f"gen_length {o.gen_length} out of bounds")
-    if launches["fused_select"] != calls["refine"]:
-        raise AssertionError(f"select launches {launches} != refinement "
-                             f"iterations {calls}")
-    if launches["decode_attention"] != cfg.n_layers * (calls["refine"]
-                                                       + calls["commit"]):
-        raise AssertionError(f"decode attention launches {launches} != "
-                             f"{cfg.n_layers} x (iterations + commits) "
-                             f"{calls}")
-    tokens = sum(o.gen_length for o in outs)
+    check_outputs(cfg, outs, dict(enumerate(caps)), B)
+    check_launches(cfg, calls, launches, "dense")
+    tokens = sum(o.gen_length for o in outs.values())
     rec = {"phase": "serving", "config": "qwen2-0.5b", "dtype": "bfloat16",
-           "requests": len(outs), "max_batch": 8, "block": B, "gen": G,
-           "prompt_len": P, "tau": 0.9, "tokens": tokens, "wall_s": wall,
-           "tps": tokens / wall,
-           "mean_latency_s": float(np.mean([o.latency_s for o in outs])),
-           "mean_steps": float(np.mean([o.steps for o in outs])),
+           "layout": "dense", "requests": len(outs), "max_batch": 8,
+           "block": B, "gen": G, "prompt_len": P, "tau": 0.9,
+           "tokens": tokens, "wall_s": wall, "tps": tokens / wall,
+           "mean_latency_s": float(np.mean([o.latency_s
+                                            for o in outs.values()])),
+           "mean_steps": float(np.mean([o.steps for o in outs.values()])),
            "calls": calls, "launches": launches,
            "concurrency": eng.concurrency_stats(),
            "max_memory_allocated_bytes":
                torch.cuda.max_memory_allocated(dev)}
     log(json.dumps(rec))
     log(json.dumps(profile_block(torch, dev, eng, prompts[:8], B)))
+    return {"cfg": cfg, "params": params, "serve": serve, "P": P, "B": B,
+            "caps": caps, "prompts": prompts, "outs": outs,
+            "launches": launches}
+
+
+def phase_paged(torch, dev, ctx):
+    """The dense phase's trace on the paged layout: a dense-equivalent pool
+    (8 x 24 pages), then a tight one (40 pages, the first 8 requests) that
+    stalls and preempts. The layouts run bit-identical arithmetic per lane
+    (the paged kernel equals the dense one bit for bit, and a lane's rows
+    never meet another lane's), so tokens must equal the dense run's
+    exactly."""
+    import dataclasses
+
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    caps, prompts = ctx["caps"], ctx["prompts"]
+    launches = {}
+    for case, pool, n_req in (("dense-equivalent", None, len(caps)),
+                              ("tight", 40, 8)):
+        serve = dataclasses.replace(ctx["serve"], cache_layout="paged",
+                                    page_pool_pages=pool)
+        eng = ContinuousEngine(ctx["params"], cfg, serve, prompt_len=P,
+                               device=dev)
+        eng.warmup()
+        reqs = [Request(prompt=prompts[i], id=i, max_tokens=caps[i])
+                for i in range(n_req)]
+        outs, wall, counts = serve_counted(torch, dev, eng, reqs)
+        calls = eng.call_counts()
+        check_outputs(cfg, outs, {i: caps[i] for i in range(n_req)}, B)
+        check_launches(cfg, calls, counts, "paged")
+        for rid, o in outs.items():
+            want = ctx["outs"][rid]
+            if not (np.array_equal(o.tokens, want.tokens)
+                    and o.steps == want.steps):
+                diff = np.flatnonzero(o.tokens != want.tokens)
+                raise AssertionError(
+                    f"paged {case}: request {rid} differs from the dense "
+                    f"layout (steps {o.steps} vs {want.steps}, first token "
+                    f"positions {diff[:5].tolist()})")
+        stats = eng.page_pool_stats()
+        accounting = eng.page_accounting()
+        if accounting != (eng.n_pages, eng.n_pages):
+            raise AssertionError(f"paged {case}: pool not fully free at the "
+                                 f"end: {accounting} of {eng.n_pages}")
+        if pool is not None and not (stats["stall_rounds"] >= 1
+                                     and stats["preemptions"] >= 1):
+            raise AssertionError(f"paged {case}: no stall or no preemption "
+                                 f"{stats}")
+        tokens = sum(o.gen_length for o in outs.values())
+        log(json.dumps({
+            "phase": "paged serving", "case": case, "config": "qwen2-0.5b",
+            "dtype": "bfloat16", "requests": len(outs), "tokens": tokens,
+            "wall_s": wall, "tps": tokens / wall, "calls": calls,
+            "launches": counts, "page_pool_stats": stats,
+            "concurrency": eng.concurrency_stats(),
+            "page_accounting": accounting, "tokens_equal_dense": True}))
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
     return launches
 
 
 def profile_block(torch, dev, eng, prompts, B):
-    """Where the time goes: 8 one-block requests (32 refinement iterations,
-    one commit pass) under the profiler; device time by kernel, grouped,
-    and the share of the wall time the device was busy."""
+    """Where the time goes: 8 one-block requests (one admission, 32
+    refinement iterations, one commit pass) under the profiler; device time
+    by kernel, grouped, and the share of the wall time the device was
+    busy."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
@@ -403,11 +689,13 @@ def profile_block(torch, dev, eng, prompts, B):
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us:
             by_kernel[ev.key] = (us / 1e3, ev.count)
-    groups = {"decode_attention": 0.0, "fused_select": 0.0, "matmul": 0.0,
-              "other": 0.0}
+    groups = {"decode_attention": 0.0, "block_attention": 0.0,
+              "fused_select": 0.0, "matmul": 0.0, "other": 0.0}
     for key, (ms, _) in by_kernel.items():
         if "decode_attn" in key:
             groups["decode_attention"] += ms
+        elif "block_attn" in key:
+            groups["block_attention"] += ms
         elif "select_" in key:
             groups["fused_select"] += ms
         elif any(s in key.lower() for s in ("gemm", "cutlass", "xmma",
@@ -428,8 +716,6 @@ def profile_block(torch, dev, eng, prompts, B):
 # phase 4: kernel path against plain path
 # ---------------------------------------------------------------------------
 def phase_paths(torch, dev):
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.core import cache as C
     from repro_torch.core import diffusion as D
@@ -439,7 +725,12 @@ def phase_paths(torch, dev):
         init_canvas,
         lane_block_forward,
     )
-    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.block_attn import flash_block_attention
+    from repro_torch.kernels.block_attn import ref as bref
+    from repro_torch.kernels.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
     from repro_torch.kernels.decode_attn import ref as dref
     from repro_torch.kernels.select import fused_select
     from repro_torch.kernels.select import ref as sref
@@ -453,11 +744,30 @@ def phase_paths(torch, dev):
     rng = np.random.default_rng(1)
     prompts = torch.as_tensor(rng.integers(0, cfg.mask_token_id, (2, P)),
                               device=dev)
-    cache = C.init_cache(cfg, 2, P + B, dtype="float32", device=dev)
-    out = forward(params, prompts, cfg=cfg, device=dev,
-                  mode=masks.BLOCK_CAUSAL, prompt_len=P, block_size=B,
-                  return_logits=False)
-    C.commit_rows(cache, out.emissions, 0, [True, True])
+    rows = np.ones((2,), bool)
+
+    def prefill(attn):
+        return forward(params, prompts, cfg=cfg, device=dev,
+                       mode=masks.BLOCK_CAUSAL, prompt_len=P, block_size=B,
+                       return_logits=False,
+                       prefill_attention_fn=attn).emissions
+
+    em_kernel, em_plain = prefill(flash_block_attention), prefill(
+        bref.block_attention)
+    prefill_err = max((a[k] - b[k]).abs().max().item()
+                      for a, b in zip(em_kernel, em_plain) for k in a)
+    dense_k = C.commit_rows(C.init_cache(cfg, 2, P + B, dtype="float32",
+                                         device=dev), em_kernel, 0, rows)
+    dense_p = C.commit_rows(C.init_cache(cfg, 2, P + B, dtype="float32",
+                                         device=dev), em_plain, 0, rows)
+    # the paged cache: lane 1's pages first and reversed, spare pages
+    paged = C.init_paged_cache(cfg, 2, P + B, n_pages=3 * (P + B) // B,
+                               page_size=B, dtype="float32", device=dev)
+    C.alloc(paged, np.array([False, True]), 0, P)
+    paged.page_table[1, :P // B] = paged.page_table[1, :P // B][::-1].copy()
+    C.alloc(paged, np.array([True, False]), 0, P)
+    paged.touch()
+    C.commit_rows(paged, em_kernel, 0, rows)
     tokens = init_canvas(prompts, spec, cfg)
     starts = [P, P]
     w = unembed_matrix(params, cfg)
@@ -468,22 +778,30 @@ def phase_paths(torch, dev):
                                      masked.reshape(-1))
         return c.reshape(masked.shape), f.reshape(masked.shape)
 
-    paths = {"kernel": (decode_attention, fused_select),
-             "plain": (dref.decode_attention, plain_select)}
+    # each path's attention goes to both decode hooks; the cache's layout
+    # picks the one that runs
+    paths = {"kernel": (dense_k, decode_attention, fused_select),
+             "paged": (paged, paged_decode_attention, fused_select),
+             "plain": (dense_p, dref.decode_attention, plain_select)}
     iters, divergence = 0, None
     while iters < B:
         bt = tokens[:, P:P + B]
         if not (bt == cfg.mask_token_id).any():
             break
         res = {}
-        for name, (attn, select) in paths.items():
+        for name, (cache, attn, select) in paths.items():
             h, _ = lane_block_forward(params, tokens, starts, cache, cfg=cfg,
                                       spec=spec, return_hidden=True,
-                                      decode_attention_fn=attn)
+                                      decode_attention_fn=attn,
+                                      paged_decode_attention_fn=attn)
             cand, conf = select(h, w, bt == cfg.mask_token_id)
             sel = D.select_threshold_in_block(conf, all_block, tau)
             res[name] = (h, cand, conf, sel,
                          torch.where(sel, cand.to(bt.dtype), bt))
+        if not all(torch.equal(a, b) for a, b in zip(res["paged"],
+                                                      res["kernel"])):
+            raise AssertionError(f"iteration {iters}: the paged kernel path "
+                                 "differs from the dense kernel path")
         if not torch.equal(res["kernel"][4], res["plain"][4]):
             h, cand, conf, sel, _ = res["plain"]
             kc, ksel, kconf = res["kernel"][1], res["kernel"][3], \
@@ -513,6 +831,8 @@ def phase_paths(torch, dev):
         iters += 1
     log(json.dumps({"phase": "paths", "config": "qwen2-0.5b",
                     "dtype": "float32", "iterations_compared": iters,
+                    "prefill_emissions_max_abs_diff": prefill_err,
+                    "paged_equals_dense_kernel_path": True,
                     "equal": divergence is None,
                     "divergence": divergence}))
 
@@ -537,26 +857,38 @@ def main():
     log(f"phase 1 (card, build): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    attn, sel = phase_kernels(torch, dev)
+    main_recs = phase_kernels(torch, dev)
     log(f"phase 2 (kernels vs plain): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    launches = phase_serving(torch, dev)
-    log(f"phase 3 (serving): {time.perf_counter() - t:.1f} s")
+    ctx = phase_serving(torch, dev)
+    log(f"phase 3 (serving, dense): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    paged_launches = phase_paged(torch, dev, ctx)
+    log(f"phase 3b (serving, paged): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     phase_paths(torch, dev)
     log(f"phase 4 (kernel vs plain path): {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
+    # launches: summed over the main-path runs (phase 3 and both runs of
+    # phase 3b), each counted from 0
+    sources = {"decode_attention": (DECODE_SRC, DECODE_TPU),
+               "fused_select": (SELECT_SRC, SELECT_TPU),
+               "paged_decode_attention": (DECODE_SRC, PAGED_TPU),
+               "block_attention": (BLOCK_SRC, BLOCK_TPU)}
     summary = []
-    for rec, name, src, tpu in ((attn, "decode_attention", DECODE_SRC,
-                                 DECODE_TPU),
-                                (sel, "fused_select", SELECT_SRC,
-                                 SELECT_TPU)):
+    for name in KERNELS:
+        rec = main_recs[name]
+        launches = ctx["launches"][name] + paged_launches[name]
+        if launches == 0:
+            raise AssertionError(f"{name}: never launched on the main path")
+        src, tpu = sources[name]
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})

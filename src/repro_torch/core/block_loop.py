@@ -10,7 +10,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masks
-from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.kernels.decode_attn import (
+    decode_attention,
+    paged_decode_attention,
+)
 from repro_torch.models import forward
 
 
@@ -49,20 +52,24 @@ def _gen_lengths(tokens: torch.Tensor, spec: SamplerSpec, cfg: ModelConfig,
 def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                        spec: SamplerSpec, return_hidden: bool = False,
                        decode_attention_fn=decode_attention,
+                       paged_decode_attention_fn=paged_decode_attention,
                        use_long_window: bool = False):
     """Block-causal cached forward where each lane decodes its own block.
 
     tokens: (b, T) canvases; starts: (b,) canvas coordinate of each lane's
     active block, which is also the lane's valid cache length; kv_cache: a
-    dense ``core.cache.init_cache`` tuple. Returns ``(logits (b, B, V),
-    emissions)``, or the post-norm hidden ``(b, B, d)`` in place of the
-    logits with ``return_hidden`` (the lm_head is then skipped).
+    dense ``core.cache.init_cache`` tuple or a ``core.cache.PagedCache``.
+    Returns ``(logits (b, B, V), emissions)``, or the post-norm hidden
+    ``(b, B, d)`` in place of the logits with ``return_hidden`` (the
+    lm_head is then skipped).
 
     The JAX package vmaps a one-lane forward; here the lanes form one batch
-    with per-lane positions and cache lengths. ``decode_attention_fn``
-    (default: the CUDA kernel's wrapper) is the attention of every cached
-    forward; ``None`` takes the generic masked attention instead.
-    ``use_long_window`` caps attention at ``cfg.long_context_window``.
+    with per-lane positions and cache lengths. ``decode_attention_fn`` and
+    ``paged_decode_attention_fn`` (default: the CUDA kernels' wrappers) are
+    the attention of every cached forward on a dense and a paged cache;
+    ``None`` takes the generic masked attention instead (on a paged cache,
+    over the gathered dense view). ``use_long_window`` caps attention at
+    ``cfg.long_context_window``.
 
     Exactness: under the block-causal mask a lane's output depends only on
     its own cache rows and its own block, so lanes at different block
@@ -76,6 +83,7 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                   prompt_len=spec.prompt_len, block_size=B, positions=pos,
                   cache=kv_cache, cache_len=starts,
                   decode_attention_fn=decode_attention_fn,
+                  paged_decode_attention_fn=paged_decode_attention_fn,
                   use_long_window=use_long_window,
                   return_logits=not return_hidden)
     return (out.hidden if return_hidden else out.logits), out.emissions

@@ -1,15 +1,26 @@
-"""Exact block-wise KV cache, dense layout (paper §4.3), ported from the JAX
-package's ``core/cache.py``.
+"""Exact block-wise KV cache (paper §4.3), ported from the JAX package's
+``core/cache.py``, in its two memory layouts:
 
-The cache mirrors the transformer's per-slot emission structure: a tuple
-over period slots of dicts whose leaves are stacked over periods,
-``{"k": (n_periods, b, max_len, Kv, hd), "v": ...}``.
+- **dense** (:func:`init_cache`): a tuple over period slots of dicts whose
+  leaves are stacked over periods, ``{"k": (n_periods, b, max_len, Kv,
+  hd), "v": ...}``; every lane preallocates ``max_len`` rows.
+- **paged** (:func:`init_paged_cache`): the K/V leaves are pools
+  ``(n_periods, n_pages, page, Kv, hd)`` shared by all lanes, plus a
+  per-lane page table mapping sequence-block index -> pool page. Page ``j``
+  of a lane holds positions ``[j*page, (j+1)*page)``; entries are ``FREE``
+  (-1) until :func:`alloc` assigns a page, so a lane holds pages only for
+  the positions it commits.
 
 Unlike the JAX package, whose functions return new buffers, ``reset`` and
 ``commit_rows`` update the cache **in place** and return it: a copy of the
 whole cache per block boundary would cost more than the block's decode.
 Both touch only the selected lanes, so a scheduler can recycle one lane
-while the others keep decoding.
+while the others keep decoding, and both dispatch on the layout.
+
+The paged layout keeps its allocator on the host: ``page_table`` and
+``page_owner`` are numpy arrays, and the device holds an int32 copy of the
+table that is uploaded when the table has changed. Allocation is a loop
+over at most ``batch`` lanes and never reads the device.
 """
 from __future__ import annotations
 
@@ -19,6 +30,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.bridge import torch_dtype
 from repro_torch.configs.base import ModelConfig
+
+DENSE = "dense"
+PAGED = "paged"
+CACHE_LAYOUTS = (DENSE, PAGED)
+
+FREE = -1  # unallocated page-table entry / unowned pool page
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -43,8 +60,12 @@ def _lanes(rows, batch: int) -> np.ndarray:
     return np.unique(rows.astype(np.int64))
 
 
-def reset(cache: tuple, rows) -> tuple:
-    """Zero the selected lanes of every buffer, in place."""
+def reset(cache, rows):
+    """Zero the selected lanes of every buffer, in place. A
+    :class:`PagedCache` returns the lanes' pages to the pool instead
+    (:func:`free`)."""
+    if isinstance(cache, PagedCache):
+        return free(cache, rows)
     batch = cache[0]["k"].shape[1]
     lanes = torch.as_tensor(_lanes(rows, batch), device=cache[0]["k"].device)
     if lanes.numel():
@@ -54,10 +75,13 @@ def reset(cache: tuple, rows) -> tuple:
     return cache
 
 
-def commit_rows(cache: tuple, emissions: tuple, offsets, rows) -> tuple:
+def commit_rows(cache, emissions: tuple, offsets, rows):
     """Write the selected lanes' KV emissions ``(n_periods, b, L, Kv, hd)``
     into their cache rows, each lane at its own sequence offset, in place.
-    Lanes outside ``rows`` keep their contents bit for bit."""
+    Lanes outside ``rows`` keep their contents bit for bit. A
+    :class:`PagedCache` writes through each lane's page table."""
+    if isinstance(cache, PagedCache):
+        return _commit_rows_paged(cache, emissions, offsets, rows)
     batch, max_len = cache[0]["k"].shape[1:3]
     offsets = np.broadcast_to(np.asarray(offsets, np.int64), (batch,))
     for lane in _lanes(rows, batch):
@@ -70,3 +94,177 @@ def commit_rows(cache: tuple, emissions: tuple, offsets, rows) -> tuple:
                                      f"outside a cache of {max_len}")
                 buf[:, lane, off:off + val.shape[1]] = val.to(buf.dtype)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Paged layout
+# ---------------------------------------------------------------------------
+class PagedCache:
+    """Block-paged KV cache: device page pools plus host page tables.
+
+    ``slots``: per period slot ``{"k", "v"}`` pools ``(n_periods, n_pages,
+    page, Kv, hd)``. ``page_table`` (b, n_tables) int32 maps a lane's
+    sequence-block index to a pool page (``FREE`` = unallocated);
+    ``page_owner`` (n_pages,) int32 records the lane holding each page
+    (``FREE`` = available). Both are numpy arrays, changed in place by
+    :func:`alloc` and :func:`free`; :meth:`device_table` is the table on the
+    pools' device, uploaded again only after a change.
+    """
+
+    def __init__(self, slots: tuple, page_table: np.ndarray,
+                 page_owner: np.ndarray):
+        self.slots = slots
+        self.page_table = page_table
+        self.page_owner = page_owner
+        self._table_dev = None
+
+    @property
+    def page_size(self) -> int:
+        return self.slots[0]["k"].shape[2]
+
+    @property
+    def n_pages(self) -> int:
+        return self.page_owner.shape[0]
+
+    @property
+    def n_lanes(self) -> int:
+        return self.page_table.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.slots[0]["k"].device
+
+    def touch(self) -> None:
+        """Mark the host table changed: the next :meth:`device_table`
+        uploads it."""
+        self._table_dev = None
+
+    def device_table(self) -> torch.Tensor:
+        """The page table as a (b, n_tables) int32 tensor on the pools'
+        device (a host-to-device copy when the table changed, else the
+        cached tensor)."""
+        if self._table_dev is None:
+            self._table_dev = torch.as_tensor(self.page_table,
+                                              device=self.device)
+        return self._table_dev
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                     n_pages: int, page_size: int, dtype=None,
+                     device="cuda") -> PagedCache:
+    """A zeroed pool of ``n_pages`` pages, sized independently of
+    ``batch * max_len``; ``max_len`` only sets the table width."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    n_tables = -(-max_len // page_size)
+    shape = (cfg.n_periods, n_pages, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    slots = tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
+                   "v": torch.zeros(shape, dtype=dt, device=dev)}
+                  for _ in cfg.layer_period)
+    return PagedCache(slots, np.full((batch, n_tables), FREE, np.int32),
+                      np.full((n_pages,), FREE, np.int32))
+
+
+def pages_for_span(start: int, stop: int, page_size: int) -> int:
+    """Number of page-table slots covering positions [start, stop)."""
+    if stop <= start:
+        return 0
+    return -(-stop // page_size) - start // page_size
+
+
+def alloc(paged: PagedCache, rows, starts, stops):
+    """Ensure pages covering ``[start, stop)`` are allocated per lane, in
+    place. Lanes are served in index order, each all-or-nothing, and take
+    the lowest-index free pages first: the JAX allocator's decisions.
+
+    Returns ``(paged, ok)``: ``ok`` (b,) bool marks the selected lanes whose
+    span is now fully backed; a lane that could not get every page it
+    needed keeps its table row unchanged."""
+    b, n_t = paged.page_table.shape
+    page = paged.page_size
+    lanes = _lanes(rows, b)
+    starts = np.broadcast_to(np.asarray(starts, np.int64), (b,))
+    stops = np.broadcast_to(np.asarray(stops, np.int64), (b,))
+    tids = np.arange(n_t)
+    ok = np.zeros((b,), bool)
+    changed = False
+    for lane in lanes:
+        row = paged.page_table[lane]
+        covers = (tids * page < stops[lane]) & ((tids + 1) * page
+                                                > starts[lane])
+        need = np.flatnonzero(covers & (row == FREE))
+        free_pages = np.flatnonzero(paged.page_owner == FREE)
+        if len(need) > len(free_pages):
+            continue
+        take = free_pages[:len(need)]
+        row[need] = take
+        paged.page_owner[take] = lane
+        ok[lane] = True
+        changed |= len(need) > 0
+    if changed:
+        paged.touch()
+    return paged, ok
+
+
+def free(paged: PagedCache, rows) -> PagedCache:
+    """Return the selected lanes' pages to the pool, in place. Page contents
+    are left as they are: a page is read only below its new owner's
+    ``cache_len``, and every such position is committed again first."""
+    lanes = _lanes(rows, paged.n_lanes)
+    if len(lanes):
+        paged.page_owner[np.isin(paged.page_owner, lanes)] = FREE
+        paged.page_table[lanes] = FREE
+        paged.touch()
+    return paged
+
+
+def _commit_rows_paged(paged: PagedCache, emissions: tuple, offsets,
+                       rows) -> PagedCache:
+    """Paged :func:`commit_rows`: the KV emissions of the selected lanes are
+    written through their page tables, one indexed write per slot and key.
+    Positions on unallocated pages are dropped, as in the JAX package (the
+    engine allocates before it commits)."""
+    b, n_t = paged.page_table.shape
+    page = paged.page_size
+    lanes = _lanes(rows, b)
+    if not len(lanes):
+        return paged
+    offsets = np.broadcast_to(np.asarray(offsets, np.int64), (b,))
+    Lb = emissions[0]["k"].shape[2]
+    pos = offsets[lanes, None] + np.arange(Lb)[None, :]     # (n, Lb)
+    if pos.min() < 0 or pos.max() >= n_t * page:
+        raise ValueError(f"rows [{pos.min()}, {pos.max() + 1}) outside a "
+                         f"page table of {n_t * page} positions")
+    pid = paged.page_table[lanes[:, None], pos // page]
+    li, ji = np.nonzero(pid != FREE)
+    dev = paged.device
+    idx = [torch.as_tensor(a, device=dev) for a in
+           (pid[li, ji], pos[li, ji] % page, lanes[li], ji)]
+    for cslot, eslot in zip(paged.slots, emissions):
+        for key, pool in cslot.items():
+            pool[:, idx[0], idx[1]] = eslot[key][:, idx[2], idx[3]].to(
+                pool.dtype)
+    return paged
+
+
+def gather_dense(paged: PagedCache) -> tuple:
+    """The dense-layout view of a paged cache: pools gathered through the
+    page tables into ``(n_periods, b, n_tables*page, Kv, hd)`` buffers.
+    Positions on unallocated pages hold another page's bytes; they are
+    only read below ``cache_len``. A test and debugging helper: the decode
+    reads the pools through the tables."""
+    table = torch.as_tensor(np.clip(paged.page_table, 0, paged.n_pages - 1),
+                            device=paged.device, dtype=torch.int64)
+    b, n_t = table.shape
+
+    def view(pool):
+        g = pool[:, table]                    # (np, b, n_t, page, Kv, hd)
+        return g.reshape(g.shape[0], b, n_t * paged.page_size, *g.shape[4:])
+
+    return tuple({k: view(v) for k, v in slot.items()}
+                 for slot in paged.slots)
+
+
+def free_page_count(paged: PagedCache) -> int:
+    return int(np.sum(paged.page_owner == FREE))

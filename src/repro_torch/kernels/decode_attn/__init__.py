@@ -1,1 +1,4 @@
-from repro_torch.kernels.decode_attn.ops import decode_attention  # noqa: F401
+from repro_torch.kernels.decode_attn.ops import (  # noqa: F401
+    decode_attention,
+    paged_decode_attention,
+)

@@ -28,6 +28,20 @@
 // the cache a key is visible when kpos < cache_len and, with a window,
 // qpos - kpos < window where qpos = cache_len + row / G; inside the block
 // when |row / G - kpos| < window.
+//
+// The paged variant (PAGED = true) also replaces the TPU kernel
+// decode_attn.py::paged_decode_attention_partial (body
+// _paged_decode_kernel) and the jnp merge around it in ops.py::
+// paged_decode_attention. The cache is a pool (n_pages, page, Kv, hd) shared
+// by the lanes, and key kp of lane lb lives at row kp % page of pool page
+// page_table[lb, kp / page]. That address is the only difference from the
+// dense kernel: the keys run in the same 32-key tiles in the same order
+// through the same arithmetic, so on an identity table (and equal contents)
+// the two kernels give the same bits, for any page size. Only keys below
+// cache_len are loaded, and a FREE (-1) entry is never dereferenced: its
+// keys are skipped, as the TPU kernel skips such pages. Pool pages are not
+// zeroed when freed; nothing at or past cache_len is read, so their
+// residue never reaches the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,21 +70,26 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid: (ceil(Bq*G / ROWS), Kv, b); block: kThreads.
-template <typename T, int HD, int ROWS>
+// grid: (ceil(Bq*G / ROWS), Kv, b); block: kThreads. Dense: the cache is
+// (b, S, Kv, hd) with strides (c_sb, c_ss, c_sk, 1). Paged: the pool is
+// (n_pages, page, Kv, hd) with strides (c_sb, c_ss, c_sk, 1), page_table is
+// (b, n_t) int32 and S = n_t * page.
+template <typename T, int HD, int ROWS, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                    const T* __restrict__ vc, const T* __restrict__ kb,
                    const T* __restrict__ vb,
                    const int* __restrict__ cache_lens,
+                   const int* __restrict__ page_table,
                    float* __restrict__ out, int Bq, int Kv, int G, int S,
-                   long long c_sb, long long c_ss, long long c_sk,
-                   float scale, float softcap, int window) {
+                   int n_t, int page, long long c_sb, long long c_ss,
+                   long long c_sk, float scale, float softcap, int window) {
   constexpr int kRowsPerWarp = ROWS / kWarps;
   constexpr int kColsPerLane = HD / 32;
   __shared__ float sq[ROWS][HD];
   __shared__ float sk[kTileK][HD + 1];  // +1: lane j reads row j conflict-free
   __shared__ float sv[kTileK][HD];
+  __shared__ bool s_ok[kTileK];  // paged: the key's page is allocated
 
   const int rows = Bq * G;
   const int row0 = blockIdx.x * ROWS;
@@ -113,9 +132,20 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float xk = 0.f, xv = 0.f;
       if (kp < klimit) {
         if (in_cache) {
-          const long long off = lb * c_sb + kp * c_ss + kvh * c_sk + d;
-          xk = to_float(kc[off]);
-          xv = to_float(vc[off]);
+          long long off;
+          bool ok = true;
+          if constexpr (PAGED) {
+            const int pid = page_table[(long long)lb * n_t + kp / page];
+            ok = pid >= 0;
+            off = pid * c_sb + (kp % page) * c_ss + kvh * c_sk + d;
+            if (d == 0) s_ok[j] = ok;
+          } else {
+            off = lb * c_sb + kp * c_ss + kvh * c_sk + d;
+          }
+          if (ok) {
+            xk = to_float(kc[off]);
+            xv = to_float(vc[off]);
+          }
         } else {
           const long long off = (((long long)lb * Bq + kp) * Kv + kvh) * HD + d;
           xk = to_float(kb[off]);
@@ -139,6 +169,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       for (int d = 0; d < HD; ++d) s += sq[r][d] * sk[lane][d];
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       bool vis = kp < klimit;
+      if constexpr (PAGED) vis = vis && (!in_cache || s_ok[lane]);
       if (window > 0)
         vis = vis && (in_cache ? (clen + qrel) - kp < window
                                : abs(qrel - kp) < window);
@@ -175,38 +206,37 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int HD, int ROWS>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* kb, const void* vb, const void* cache_lens,
-                   void* out, int b, int Bq, int Kv, int G, int S,
-                   long long c_sb, long long c_ss, long long c_sk, float scale,
-                   float softcap, int window, cudaStream_t stream) {
-  const dim3 grid((Bq * G + ROWS - 1) / ROWS, Kv, b);
-  decode_attn_kernel<T, HD, ROWS><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const T*>(kb),
-      static_cast<const T*>(vb), static_cast<const int*>(cache_lens),
-      static_cast<float*>(out), Bq, Kv, G, S, c_sb, c_ss, c_sk, scale,
-      softcap, window);
+struct Args {
+  const void *q, *kc, *vc, *kb, *vb, *cache_lens, *page_table;
+  void* out;
+  int b, Bq, Kv, G, S, n_t, page;
+  long long c_sb, c_ss, c_sk;
+  float scale, softcap;
+  int window;
+};
+
+template <typename T, int HD, int ROWS, bool PAGED>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.Bq * a.G + ROWS - 1) / ROWS, a.Kv, a.b);
+  decode_attn_kernel<T, HD, ROWS, PAGED><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), static_cast<const T*>(a.kb),
+      static_cast<const T*>(a.vb), static_cast<const int*>(a.cache_lens),
+      static_cast<const int*>(a.page_table), static_cast<float*>(a.out),
+      a.Bq, a.Kv, a.G, a.S, a.n_t, a.page, a.c_sb, a.c_ss, a.c_sk, a.scale,
+      a.softcap, a.window);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* kc, const void* vc,
-                     const void* kb, const void* vb, const void* cache_lens,
-                     void* out, int b, int Bq, int Kv, int G, int S,
-                     long long c_sb, long long c_ss, long long c_sk,
-                     float scale, float softcap, int window,
-                     cudaStream_t stream) {
+template <bool PAGED>
+cudaError_t dispatch(int hd, int is_bf16, const Args& a, cudaStream_t s) {
   // shared memory: ROWS*HD + 32*(HD+1) + 32*HD floats stays under 48 KB
   if (hd == 64)
-    return launch<T, 64, 32>(q, kc, vc, kb, vb, cache_lens, out, b, Bq, Kv,
-                             G, S, c_sb, c_ss, c_sk, scale, softcap, window,
-                             stream);
+    return is_bf16 ? launch<__nv_bfloat16, 64, 32, PAGED>(a, s)
+                   : launch<float, 64, 32, PAGED>(a, s);
   if (hd == 128)
-    return launch<T, 128, 16>(q, kc, vc, kb, vb, cache_lens, out, b, Bq, Kv,
-                              G, S, c_sb, c_ss, c_sk, scale, softcap, window,
-                              stream);
+    return is_bf16 ? launch<__nv_bfloat16, 128, 16, PAGED>(a, s)
+                   : launch<float, 128, 16, PAGED>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -225,11 +255,23 @@ extern "C" int decode_attn_forward(const void* q, const void* kc,
                                    long long c_ss, long long c_sk, float scale,
                                    float softcap, int window, int is_bf16,
                                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(hd, q, kc, vc, kb, vb, cache_lens, out, b,
-                                   Bq, Kv, G, S, c_sb, c_ss, c_sk, scale,
-                                   softcap, window, s);
-  return dispatch<float>(hd, q, kc, vc, kb, vb, cache_lens, out, b, Bq, Kv, G,
-                         S, c_sb, c_ss, c_sk, scale, softcap, window, s);
+  const Args a{q,  kc, vc, kb,   vb,   cache_lens, nullptr, out,
+               b,  Bq, Kv, G,    S,    0,          1,       c_sb,
+               c_ss, c_sk, scale, softcap, window};
+  return dispatch<false>(hd, is_bf16, a, static_cast<cudaStream_t>(stream));
+}
+
+// The paged variant: k/v pool (n_pages, page, Kv, hd) with element strides
+// (p_sp, p_ss, p_sk, 1) (a period slice of the stacked pool); page_table
+// (b, n_t) int32, -1 = unallocated; the rest as decode_attn_forward.
+extern "C" int paged_decode_attn_forward(
+    const void* q, const void* kp, const void* vp, const void* kb,
+    const void* vb, const void* page_table, const void* cache_lens, void* out,
+    int b, int Bq, int Kv, int G, int hd, int n_t, int page, long long p_sp,
+    long long p_ss, long long p_sk, float scale, float softcap, int window,
+    int is_bf16, void* stream) {
+  const Args a{q,  kp, vp, kb,        vb,  cache_lens, page_table, out,
+               b,  Bq, Kv, G,         n_t * page, n_t,  page,       p_sp,
+               p_ss, p_sk, scale, softcap, window};
+  return dispatch<true>(hd, is_bf16, a, static_cast<cudaStream_t>(stream));
 }

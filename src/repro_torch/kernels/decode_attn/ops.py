@@ -1,11 +1,13 @@
-"""Decode attention: the wrapper of the CUDA kernel ``csrc/decode_attn.cu``.
+"""Decode attention: the wrappers of the CUDA kernel ``csrc/decode_attn.cu``.
 
 ``decode_attention`` computes what the JAX package's
 ``kernels/decode_attn/ops.py::decode_attention`` computes: the active
 block's queries against the cache rows below each lane's ``cache_len``
 plus the block's own fresh keys, under one fp32 online softmax,
-normalized. A CPU tensor takes the plain version (``ref.py``); a CUDA
-tensor launches the kernel or raises.
+normalized. ``paged_decode_attention`` does the same over a block-paged
+pool read through per-lane page tables (the JAX
+``ops.py::paged_decode_attention``). A CPU tensor takes the plain version
+(``ref.py``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ from repro_torch.kernels.decode_attn import ref
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -36,36 +41,12 @@ def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
                                     window=window)
     b, Bq, Kv, G, hd = q.shape
     S = k_cache.shape[1]
-    tensors = (q, k_cache, v_cache, k_blk, v_blk)
-    if any(t.device != q.device for t in (*tensors, cache_lens)):
-        raise ValueError("decode_attention: tensors on different devices")
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for {q.device}")
-    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in tensors):
-        raise ValueError("decode_attention: q, caches and block k/v must "
-                         f"share one dtype of {DTYPES}")
-    if (softcap is not None and softcap <= 0) or (window is not None
-                                                  and window <= 0):
-        raise ValueError("decode_attention: softcap and window must be "
-                         "positive when given")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if (k_cache.shape != (b, S, Kv, hd) or v_cache.shape != k_cache.shape
-            or k_blk.shape != (b, Bq, Kv, hd) or v_blk.shape != k_blk.shape):
+    _check("decode_attention", q, k_cache, v_cache, k_blk, v_blk,
+           cache_lens, softcap, window)
+    if k_cache.shape != (b, S, Kv, hd) or v_cache.shape != k_cache.shape:
         raise ValueError("decode_attention: shapes q "
-                         f"{tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
-                         f"block {tuple(k_blk.shape)} do not match")
-    if k_cache.stride() != v_cache.stride() or k_cache.stride(-1) != 1:
-        raise ValueError("decode_attention: k/v caches need equal strides "
-                         "and a unit stride on head_dim")
-    if not all(t.is_contiguous() for t in (q, k_blk, v_blk)):
-        raise ValueError("decode_attention: q and block k/v must be "
-                         "contiguous")
-    if (cache_lens.shape != (b,) or cache_lens.dtype != torch.int32
-            or not cache_lens.is_contiguous()):
-        raise ValueError("decode_attention: cache_lens must be a "
-                         f"contiguous ({b},) int32 tensor")
+                         f"{tuple(q.shape)}, cache {tuple(k_cache.shape)} "
+                         "do not match")
     out = torch.empty((b, Bq, Kv, G, hd), dtype=torch.float32,
                       device=q.device)
     if out.numel() == 0:
@@ -85,3 +66,84 @@ def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
 
 
 decode_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
+                           cache_lens, *, scale: float = 1.0,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """q: (b, Bq, Kv, G, hd); k/v_pages: (n_pages, page, Kv, hd) pools, any
+    strides with a unit last one (a period slice of the stacked pool);
+    k/v_blk: (b, Bq, Kv, hd); page_table: (b, n_t) int32, -1 = unallocated;
+    cache_lens: (b,) int32, each at most n_t * page. Returns (b, Bq, Kv, G,
+    hd) fp32."""
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention(
+            q, k_pages, v_pages, k_blk, v_blk, page_table, cache_lens,
+            scale=scale, softcap=softcap, window=window)
+    b, Bq, Kv, G, hd = q.shape
+    _check("paged_decode_attention", q, k_pages, v_pages, k_blk, v_blk,
+           cache_lens, softcap, window)
+    n_pages, page = k_pages.shape[:2]
+    if (k_pages.shape != (n_pages, page, Kv, hd)
+            or v_pages.shape != k_pages.shape):
+        raise ValueError("paged_decode_attention: shapes q "
+                         f"{tuple(q.shape)}, pool {tuple(k_pages.shape)} "
+                         "do not match")
+    if (page_table.device != q.device or page_table.dtype != torch.int32
+            or page_table.ndim != 2 or page_table.shape[0] != b
+            or not page_table.is_contiguous()):
+        raise ValueError("paged_decode_attention: page_table must be a "
+                         f"contiguous ({b}, n_t) int32 tensor on {q.device}")
+    n_t = page_table.shape[1]
+    out = torch.empty((b, Bq, Kv, G, hd), dtype=torch.float32,
+                      device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("paged_decode_attn_forward", _PAGED_ARGTYPES)
+    sp, ss, sk, _ = k_pages.stride()
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_blk.data_ptr(), v_blk.data_ptr(), page_table.data_ptr(),
+            cache_lens.data_ptr(), out.data_ptr(), b, Bq, Kv, G, hd, n_t,
+            page, sp, ss, sk, scale, 0.0 if softcap is None else softcap,
+            0 if window is None else window, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_decode_attn_forward")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def _check(name, q, k_cache, v_cache, k_blk, v_blk, cache_lens, softcap,
+           window) -> None:
+    """What both kernels refuse: mixed devices or dtypes, a head_dim or
+    layout they do not take, non-positive softcap or window."""
+    b, Bq, Kv, G, hd = q.shape
+    tensors = (q, k_cache, v_cache, k_blk, v_blk)
+    if any(t.device != q.device for t in (*tensors, cache_lens)):
+        raise ValueError(f"{name}: tensors on different devices")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{name}: q, caches and block k/v must share one "
+                         f"dtype of {DTYPES}")
+    if (softcap is not None and softcap <= 0) or (window is not None
+                                                  and window <= 0):
+        raise ValueError(f"{name}: softcap and window must be positive "
+                         "when given")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if k_blk.shape != (b, Bq, Kv, hd) or v_blk.shape != k_blk.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, block "
+                         f"{tuple(k_blk.shape)} do not match")
+    if k_cache.stride() != v_cache.stride() or k_cache.stride(-1) != 1:
+        raise ValueError(f"{name}: k/v caches need equal strides and a unit "
+                         "stride on head_dim")
+    if not all(t.is_contiguous() for t in (q, k_blk, v_blk)):
+        raise ValueError(f"{name}: q and block k/v must be contiguous")
+    if (cache_lens.shape != (b,) or cache_lens.dtype != torch.int32
+            or not cache_lens.is_contiguous()):
+        raise ValueError(f"{name}: cache_lens must be a contiguous ({b},) "
+                         "int32 tensor")

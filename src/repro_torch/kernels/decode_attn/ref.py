@@ -8,7 +8,9 @@ is folded into the query rows: row ``r = qpos * G + g``.
 
 Where the JAX package takes one scalar ``cache_len`` (its engine vmaps over
 lanes), this version takes ``cache_lens (b,)``, and reads the cache in its
-``(b, S, Kv, hd)`` model layout.
+``(b, S, Kv, hd)`` model layout. ``paged_decode_attention`` is the plain
+version of the paged kernel: the JAX oracle's gather into the dense view,
+then the dense math.
 """
 from __future__ import annotations
 
@@ -98,3 +100,28 @@ def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
                               window=window, g=G)
     out = softmax_combine([cache_part, blk_part])
     return out.reshape(b, Kv, Bq, G, hd).permute(0, 2, 1, 3, 4)
+
+
+def gather_pages(pool, page_table):
+    """Dense per-lane view of one period's page pool. pool: (n_pages, page,
+    Kv, hd); page_table: (b, n_t) int (-1 = unallocated). Returns (b,
+    n_t*page, Kv, hd); unallocated entries read page 0, which is only ever
+    at or past the lane's ``cache_len``."""
+    b, n_t = page_table.shape
+    g = pool[page_table.long().clamp(0, pool.shape[0] - 1)]
+    return g.reshape(b, n_t * pool.shape[1], *pool.shape[2:])
+
+
+def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
+                           cache_lens, *, scale: float = 1.0,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None):
+    """Decode attention over a block-paged pool: each lane's pages gathered
+    into the dense view, then :func:`decode_attention`, so that on an
+    identity table it equals the dense version bit for bit. q: (b, Bq, Kv,
+    G, hd); k/v_pages: (n_pages, page, Kv, hd); page_table: (b, n_t) int;
+    cache_lens: (b,) int. Returns (b, Bq, Kv, G, hd) fp32."""
+    return decode_attention(q, gather_pages(k_pages, page_table),
+                            gather_pages(v_pages, page_table), k_blk, v_blk,
+                            cache_lens, scale=scale, softcap=softcap,
+                            window=window)

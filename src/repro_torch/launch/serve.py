@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --fused-select
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-0.5b \\
         --reduced --device cpu --prompt-len 16 --gen-length 32 --fused-select
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+        --prompt-len 16 --gen-length 32 --block-size 8 --cache-layout paged \\
+        --pool-pages 8
 
 Params come from ``--ckpt`` (an npz written by the JAX package's
 ``checkpoint/io.py``, converted by ``repro_torch.bridge``) or, without it,
 from a seeded random init on the device. Prompts are random tokens drawn
 from ``--seed``. Prints one ``TPS=... latency=... steps=... gen_len=...``
-line, as the JAX package's ``launch/serve.py`` does.
+line, as the JAX package's ``launch/serve.py`` does, and on the paged
+layout its ``page pool:`` occupancy line.
 """
 from __future__ import annotations
 
@@ -39,6 +43,14 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen-length", type=int, default=256)
     ap.add_argument("--block-size", type=int, default=32)
+    ap.add_argument("--cache-layout", default="dense",
+                    choices=["dense", "paged"],
+                    help="KV memory layout: dense per-lane buffers, or a "
+                         "global page pool + per-lane page tables "
+                         "(page size = block size)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="paged layout: page-pool size in pages "
+                         "(default: dense-equivalent capacity)")
     args = ap.parse_args(argv)
 
     from repro_torch import resolve_device
@@ -64,6 +76,8 @@ def main(argv=None):
                         gen_length=args.gen_length,
                         conf_threshold=args.threshold,
                         scheduler="continuous",
+                        cache_layout=args.cache_layout,
+                        page_pool_pages=args.pool_pages,
                         fused_select=True)
     eng = ContinuousEngine(params, cfg, serve, prompt_len=args.prompt_len,
                            device=dev)
@@ -82,6 +96,12 @@ def main(argv=None):
           f"latency={rep['latency_s'] * 1e3:.1f}ms steps={rep['steps']:.1f} "
           f"gen_len={rep['gen_length']:.1f}  ({len(resp)} requests on "
           f"{dev})")
+    if args.cache_layout == "paged":
+        ps = eng.page_pool_stats()
+        print(f"page pool: {ps['peak_pages']:.0f}/{ps['n_pages']:.0f} pages "
+              f"peak ({ps['peak_occupancy']:.0%}), "
+              f"{ps['preemptions']:.0f} preemptions, "
+              f"{ps['stall_rounds']:.0f} stall rounds")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ periods (the JAX package scans it). ``forward`` covers:
 - the full-sequence forward (prefill), in any mask mode;
 - the cached block decode: a block of queries per lane against that lane's
   KV cache rows, with a per-lane ``cache_len`` and per-lane positions, so
-  lanes of one batch may decode at different block offsets.
+  lanes of one batch may decode at different block offsets; the cache is
+  dense or block-paged (``core.cache.PagedCache``).
 
 Per-slot emissions ``{"k", "v"}`` come back stacked over periods,
 ``(n_periods, b, L, Kv, hd)``, ready for ``core.cache.commit_rows``.
@@ -22,6 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, MLP, ModelConfig
 from repro_torch.core import masks
+from repro_torch.kernels.decode_attn.ref import gather_pages
 from repro_torch.models import layers as L
 
 
@@ -60,17 +62,36 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
     window = (cfg.long_context_window if ctx["use_long_window"] else None)
     scale, cap = L.attn_scale(cfg), cfg.attn_logit_softcap
     cache = ctx["cache_slot"]
+    pages = ctx["pages"]
 
-    if cache is not None and ctx["decode_attention_fn"] is not None:
+    if (cache is not None and pages is not None
+            and ctx["paged_decode_attention_fn"] is not None):
+        # the paged decode attention kernel walks the page tables: no dense
+        # view of the pool is built
+        out = ctx["paged_decode_attention_fn"](
+            q, cache["k"], cache["v"], k, v, pages, ctx["cache_lens"],
+            scale=scale, softcap=cap, window=window).to(v.dtype)
+    elif (cache is not None and pages is None
+            and ctx["decode_attention_fn"] is not None):
         # the decode attention kernel: cache rows below each lane's
         # cache_len plus the fresh in-block keys, one online softmax
         out = ctx["decode_attention_fn"](
             q, cache["k"], cache["v"], k, v, ctx["cache_lens"], scale=scale,
             softcap=cap, window=window).to(v.dtype)
+    elif cache is None and ctx["prefill_attention_fn"] is not None:
+        # the full-sequence kernel: visibility from row and column indices
+        out = ctx["prefill_attention_fn"](
+            q, k, v, mode=ctx["mode"], prompt_len=ctx["prompt_len"],
+            block_size=ctx["block_size"], window=window, scale=scale,
+            softcap=cap).to(v.dtype)
     else:
         q_pos = ctx["q_pos"]
         if cache is not None:
             ck, cv = cache["k"], cache["v"]
+            if pages is not None:
+                # the generic path reads the pool through the gathered
+                # dense view; positions past cache_len are masked below
+                ck, cv = gather_pages(ck, pages), gather_pages(cv, pages)
             b, S, Lq = ck.shape[0], ck.shape[1], k.shape[1]
             slots = torch.arange(S, device=x.device)
             k_all = torch.cat([ck, k.to(ck.dtype)], dim=1)
@@ -102,17 +123,29 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
 def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             mode: str = masks.BIDIRECTIONAL, prompt_len: int = 0,
             block_size: int = 1, positions=None, cache=None, cache_len=None,
-            use_long_window: bool = False, decode_attention_fn=None,
+            use_long_window: bool = False,
+            decode_attention_fn=None, paged_decode_attention_fn=None,
+            prefill_attention_fn=None,
             return_logits: bool = True) -> ModelOutput:
     """Run the model.
 
-    tokens: (b, L) int. ``cache`` (a ``core.cache.init_cache`` tuple) with
-    ``cache_len`` (int, or (b,) per lane) runs the cached block decode:
-    query i of lane j sits at ``cache_len[j] + i`` unless ``positions``
-    ((L,) or (b, L)) says otherwise. ``decode_attention_fn``
-    (``kernels.decode_attn.decode_attention``-shaped) replaces the
-    attention of cached forwards. ``return_logits=False`` skips the
-    lm_head (the fused-select decode reads ``hidden``).
+    tokens: (b, L) int. ``cache`` (a ``core.cache.init_cache`` tuple or a
+    ``core.cache.PagedCache``) with ``cache_len`` (int, or (b,) per lane)
+    runs the cached block decode: query i of lane j sits at
+    ``cache_len[j] + i`` unless ``positions`` ((L,) or (b, L)) says
+    otherwise. A ``PagedCache`` is read as page pools through its tables.
+
+    The attention of a forward is the generic masked attention unless a
+    kernel is given: ``decode_attention_fn``
+    (``kernels.decode_attn.decode_attention``-shaped) for cached forwards
+    on a dense cache, ``paged_decode_attention_fn``
+    (``kernels.decode_attn.paged_decode_attention``-shaped) for cached
+    forwards on a paged one, ``prefill_attention_fn``
+    (``kernels.block_attn.flash_block_attention``-shaped) for cache-less
+    forwards at the default positions ``arange(L)`` (the kernel derives
+    visibility from indices, so given ``positions`` take the generic
+    path). ``return_logits=False`` skips the lm_head (the fused-select
+    decode reads ``hidden``).
     """
     check_dense(cfg)
     dev = resolve_device(device)
@@ -122,6 +155,14 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
                          f"forward was asked to run on {tokens.device}")
     b, Lq = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, cfg)
+    pages = None
+    if cache is not None and not isinstance(cache, tuple):
+        # a core.cache.PagedCache (not imported here: core.cache imports
+        # the bridge, which imports this module)
+        pages = cache.device_table()
+        cache = cache.slots
+    if positions is not None:
+        prefill_attention_fn = None
     cache_lens = None
     if cache is not None:
         cache_lens = torch.as_tensor(cache_len, dtype=torch.int32,
@@ -133,8 +174,10 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
 
     ctx = dict(mode=mode, prompt_len=prompt_len, block_size=block_size,
                q_pos=positions, cache_lens=cache_lens, cache_slot=None,
-               use_long_window=use_long_window,
-               decode_attention_fn=decode_attention_fn)
+               pages=pages, use_long_window=use_long_window,
+               decode_attention_fn=decode_attention_fn,
+               paged_decode_attention_fn=paged_decode_attention_fn,
+               prefill_attention_fn=prefill_attention_fn)
     emitted = [[] for _ in cfg.layer_period]
     for p in range(cfg.n_periods):
         for i, slot_params in enumerate(params["slots"]):

@@ -1,8 +1,8 @@
 """Continuous block-level batching engine, ported from the JAX package's
 ``serving/engine.py`` for the configuration the port serves: the ``cdlm``
-strategy, the dense KV layout, greedy decoding through the fused
-unembed + select kernel (``ServeConfig.fused_select=True``; the dense-logits
-decode path is not ported yet).
+strategy, the dense or block-paged KV layout, greedy decoding through the
+fused unembed + select kernel (``ServeConfig.fused_select=True``; the
+dense-logits decode path is not ported yet).
 
 A persistent batch of ``max_batch`` lanes advances one *block* per
 ``step()``, each lane at its own block offset
@@ -18,6 +18,21 @@ any running lane still has a mask token in its block and fewer than
 ``block_size`` iterations ran; each iteration is one call and adds 1 to
 the steps of every lane that was active; the commit pass is one more
 call, and an admission one call.
+
+Prompt prefill at admission goes through the block attention kernel
+(``kernels.block_attn``); cached forwards through the dense or the paged
+decode attention kernel, by layout.
+
+Paged layout (``ServeConfig(cache_layout="paged", page_pool_pages=N)``):
+KV lives in a pool of ``N`` pages of ``block_size`` tokens shared by the
+lanes (``core.cache.PagedCache``), and ``step`` follows the JAX engine's
+order exactly, so that stalls and preemptions match it: the in-flight
+lanes' current blocks are backed first (when none can be, the youngest
+lane is preempted and its request requeued at the front), admission is
+budgeted by free pages (prompt + first block per request), the survivors'
+next blocks are claimed right after the decode, and finished lanes'
+pages are freed at once. The allocator lives on the host, so no
+allocation result is ever read off the device.
 """
 from __future__ import annotations
 
@@ -39,6 +54,7 @@ from repro_torch.core.block_loop import (
     init_canvas,
     lane_block_forward,
 )
+from repro_torch.kernels.block_attn import flash_block_attention
 from repro_torch.models import forward, unembed_matrix
 from repro_torch.models.transformer import check_dense
 from repro_torch.serving.api import (
@@ -142,7 +158,7 @@ class _Slots:
     def __init__(self, tokens, cache, n_blocks: int, tau: float, eos: int):
         N = tokens.shape[0]
         self.tokens = tokens                       # (N, P+G) on the device
-        self.cache = cache                         # dense KV cache
+        self.cache = cache                         # dense tuple or paged
         self.blk = np.zeros((N,), np.int64)        # current block per lane
         self.lane_nblocks = np.full((N,), n_blocks, np.int64)
         self.live = np.zeros((N,), bool)           # occupied and unfinished
@@ -154,8 +170,9 @@ class _Slots:
 
 class ContinuousEngine(_RequestStepper):
     """Slot-based continuous batching over the CDLM exact-cache strategy
-    (dense layout, greedy). ``device`` defaults to the CUDA device; pass
-    ``device="cpu"`` to run on the CPU (the kernels' plain versions)."""
+    (dense or paged layout, greedy). ``device`` defaults to the CUDA
+    device; pass ``device="cpu"`` to run on the CPU (the kernels' plain
+    versions)."""
 
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
                  prompt_len: int, *, device="cuda"):
@@ -163,9 +180,14 @@ class ContinuousEngine(_RequestStepper):
             raise ValueError(
                 "ContinuousEngine requires the 'cdlm' strategy (exact "
                 f"block-causal cache); got sampler={serve.sampler!r}")
-        if serve.cache_layout != "dense" or serve.page_pool_pages is not None:
-            raise ValueError("repro_torch serves the dense cache layout only "
-                             f"(got cache_layout={serve.cache_layout!r})")
+        if serve.cache_layout not in C.CACHE_LAYOUTS:
+            raise ValueError(f"unknown cache layout {serve.cache_layout!r} "
+                             f"(expected one of {C.CACHE_LAYOUTS})")
+        if (serve.cache_layout != C.PAGED
+                and serve.page_pool_pages is not None):
+            raise ValueError("page_pool_pages requires cache_layout='paged' "
+                             "— the dense layout preallocates per-lane "
+                             "buffers and would silently ignore the budget")
         if serve.temperature > 0:
             raise ValueError("repro_torch serves greedy decoding only: the "
                              "engine default temperature must be 0")
@@ -184,6 +206,23 @@ class ContinuousEngine(_RequestStepper):
             prompt_len=prompt_len, gen_len=serve.gen_length,
             block_size=serve.block_size, conf_threshold=serve.conf_threshold)
         self.n_lanes = serve.max_batch
+        self.paged = serve.cache_layout == C.PAGED
+        P, B = prompt_len, serve.block_size
+        if self.paged:
+            self._n_tables = -(-(P + serve.gen_length) // B)
+            self.n_pages = (serve.page_pool_pages
+                            if serve.page_pool_pages is not None
+                            else self.n_lanes * self._n_tables)
+            if self.n_pages < self._n_tables:
+                raise ValueError(
+                    f"page pool of {self.n_pages} pages cannot back one "
+                    f"full request ({self._n_tables} pages of {B} tokens "
+                    f"for prompt {P} + gen {serve.gen_length}) — this is "
+                    "the deadlock-free minimum")
+            # pages a fresh request needs at admission: prompt + first block
+            self._admit_pages = C.pages_for_span(0, P + B, B)
+        else:
+            self.n_pages = 0
         self._next_id = 0
         self._reset()
 
@@ -193,16 +232,22 @@ class ContinuousEngine(_RequestStepper):
         T = self.spec.prompt_len + self.spec.gen_len
         tokens = torch.full((N, T), self.cfg.mask_token_id, dtype=torch.int64,
                             device=self.device)
-        return _Slots(tokens, C.init_cache(self.cfg, N, T,
-                                           device=self.device),
-                      self.spec.n_blocks, self.spec.conf_threshold,
-                      self.cfg.eos_token_id)
+        if self.paged:
+            cache = C.init_paged_cache(
+                self.cfg, N, self._n_tables * self.spec.block_size,
+                n_pages=self.n_pages, page_size=self.spec.block_size,
+                device=self.device)
+        else:
+            cache = C.init_cache(self.cfg, N, T, device=self.device)
+        return _Slots(tokens, cache, self.spec.n_blocks,
+                      self.spec.conf_threshold, self.cfg.eos_token_id)
 
     def _admit(self, state: _Slots, prompts, admit, nblocks, taus, eos):
-        """Write the admitted lanes' canvases, reset their cache rows,
-        prefill the prompts under the block-causal mask and commit them into
-        those rows (the prefill runs every lane, as the JAX engine's does,
-        and commits only the admitted ones)."""
+        """Write the admitted lanes' canvases, reset their cache rows (paged:
+        allocate prompt + first-block pages), prefill the prompts under the
+        block-causal mask through the block attention kernel and commit them
+        into those rows (the prefill runs every lane, as the JAX engine's
+        does, and commits only the admitted ones)."""
         spec = self.spec
         canvas = init_canvas(torch.as_tensor(prompts, dtype=torch.int64,
                                              device=self.device), spec,
@@ -210,10 +255,17 @@ class ContinuousEngine(_RequestStepper):
         rows = torch.as_tensor(admit, device=self.device)
         state.tokens = torch.where(rows[:, None], canvas, state.tokens)
         C.reset(state.cache, admit)
+        if self.paged:
+            _, ok = C.alloc(state.cache, admit, 0,
+                            spec.prompt_len + spec.block_size)
+            if not ok[admit].all():
+                raise RuntimeError("admission outside the free-page budget: "
+                                   "scheduler invariant violated")
         out = forward(self.params, state.tokens[:, :spec.prompt_len],
                       cfg=self.cfg, device=self.device,
                       mode=masks.BLOCK_CAUSAL, prompt_len=spec.prompt_len,
-                      block_size=spec.block_size, return_logits=False)
+                      block_size=spec.block_size, return_logits=False,
+                      prefill_attention_fn=flash_block_attention)
         C.commit_rows(state.cache, out.emissions, 0, admit)
         state.blk[admit] = 0
         state.lane_nblocks[admit] = nblocks[admit]
@@ -224,8 +276,19 @@ class ContinuousEngine(_RequestStepper):
         state.calls["admit"] += 1
 
     def _evict(self, state: _Slots, rows) -> None:
+        """Release lanes: mark them dead and reset their cache rows (paged:
+        return their pages to the pool)."""
         C.reset(state.cache, rows)
         state.live &= ~rows
+
+    def _alloc_block(self, state: _Slots) -> np.ndarray:
+        """Paged: back every live lane's current block with pages. Returns
+        the per-lane ok mask; a live lane without ok stalls this round (its
+        table is untouched: all-or-nothing per lane)."""
+        P, B = self.spec.prompt_len, self.spec.block_size
+        starts = P + np.clip(state.blk, 0, self.spec.n_blocks - 1) * B
+        _, ok = C.alloc(state.cache, state.live, starts, starts + B)
+        return ok
 
     def _decode_block(self, state: _Slots, run) -> None:
         """Advance the lanes in ``run`` by one block: threshold refinement
@@ -285,18 +348,27 @@ class ContinuousEngine(_RequestStepper):
         self._flights: List[Optional[_Flight]] = [None] * self.n_lanes
         self._resolved: Dict[int, ResolvedSamplingParams] = {}
         self._arrival: Dict[int, float] = {}
+        # blocks already streamed per request id: a preempted request
+        # decodes again from scratch (bit-identically), and its re-decoded
+        # blocks must not be streamed twice
+        self._emitted: Dict[int, int] = {}
         self._t0 = time.perf_counter()
+        self._pool_samples: List[int] = []
         self._live_samples: List[int] = []
+        self._preemptions = 0
+        self._stall_rounds = 0
 
     def warmup(self) -> None:
         """Build and load the kernels and run one admission and one block
         decode on a throwaway state."""
         state = self._init_state()
         N, P = self.n_lanes, self.spec.prompt_len
-        everyone = np.ones((N,), bool)
-        self._admit(state, np.zeros((N, P), np.int64), everyone,
+        lanes = np.ones((N,), bool)
+        if self.paged:     # as many lanes as the pool admits at once
+            lanes[self.n_pages // self._admit_pages:] = False
+        self._admit(state, np.zeros((N, P), np.int64), lanes,
                     state.lane_nblocks, state.taus, state.eos)
-        self._decode_block(state, everyone)
+        self._decode_block(state, lanes)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -313,9 +385,20 @@ class ContinuousEngine(_RequestStepper):
         calls["total"] = sum(calls.values())
         return calls
 
+    def page_accounting(self):
+        """(free pages by the owner list, free pages by the device copy of
+        the page tables): equal when every owned page sits in exactly one
+        table entry and the device copy is current. The second reads the
+        device (it synchronizes): for tests and debugging only."""
+        if not self.paged:
+            return 0, 0
+        cache = self._state.cache
+        used = int((cache.device_table() != C.FREE).sum())
+        return C.free_page_count(cache), cache.n_pages - used
+
     def add_request(self, request: GenerationRequest) -> int:
         """Enqueue one request (admitted at the next block boundary with a
-        free lane); returns its unique id."""
+        free lane and, paged, enough free pages); returns its unique id."""
         if request.extras:
             raise ValueError("repro_torch's ContinuousEngine does not take "
                              "request extras")
@@ -333,11 +416,13 @@ class ContinuousEngine(_RequestStepper):
 
     def abort(self, request_id: int) -> bool:
         """Drop a queued or in-flight request; an in-flight lane is evicted
-        at once without touching any other lane."""
+        at once (paged: its pages return to the pool) without touching any
+        other lane."""
         for i, r in enumerate(self._queue):
             if r.id == request_id:
                 del self._queue[i]
                 self._resolved.pop(request_id, None)
+                self._emitted.pop(request_id, None)
                 self._arrival.pop(request_id, None)
                 return True
         for lane, fl in enumerate(self._flights):
@@ -347,20 +432,52 @@ class ContinuousEngine(_RequestStepper):
                 self._evict(self._state, row)
                 self._flights[lane] = None
                 self._resolved.pop(request_id, None)
+                self._emitted.pop(request_id, None)
                 self._arrival.pop(request_id, None)
                 return True
         return False
 
     def step(self) -> List[BlockEvent]:
-        """Advance one block boundary: admit arrived requests into free
-        lanes, decode one block for every running lane, evict finished
-        lanes. Returns one :class:`BlockEvent` per block finalized (final
-        blocks carry the request's :class:`GenerationOutput`)."""
+        """Advance one block boundary: (paged) back the in-flight lanes'
+        current blocks with pages, admit arrived requests into free lanes,
+        decode one block for every runnable lane, (paged) claim the
+        survivors' next blocks, evict finished lanes. Returns one
+        :class:`BlockEvent` per block finalized (final blocks carry the
+        request's :class:`GenerationOutput`)."""
         N, P, B = self.n_lanes, self.spec.prompt_len, self.spec.block_size
         state = self._state
         now = time.perf_counter() - self._t0
-        run = np.asarray([f is not None for f in self._flights])
 
+        # ---- paged: back the in-flight lanes' current blocks first ----
+        live = np.asarray([f is not None for f in self._flights])
+        run = live.copy()
+        if self.paged and live.any():
+            run = self._alloc_block(state) & live
+            while not run.any():
+                # every live lane is page-starved: preempt the youngest (its
+                # pages return to the pool, its request re-enters the queue
+                # at the front and decodes again, bit-identically)
+                victims = [i for i in range(N) if live[i]]
+                if len(victims) == 1:
+                    raise RuntimeError(
+                        "page pool exhausted with a single live lane — "
+                        "pool sizing invariant violated")
+                victim = max(victims,
+                             key=lambda i: (self._flights[i].admit_t, i))
+                vrow = np.zeros((N,), bool)
+                vrow[victim] = True
+                self._evict(state, vrow)
+                self._queue.insert(0, self._flights[victim].req)
+                self._flights[victim] = None
+                self._preemptions += 1
+                live[victim] = False
+                run = self._alloc_block(state) & live
+            if (live & ~run).any():
+                self._stall_rounds += 1
+
+        # ---- admission at the block boundary (paged: budgeted by free
+        # pages for prompt + first block, not by whole-sequence reservation)
+        budget = C.free_page_count(state.cache) if self.paged else 0
         admit = np.zeros((N,), bool)
         prompts = np.zeros((N, P), np.int64)
         nblocks = np.zeros((N,), np.int64)
@@ -370,6 +487,8 @@ class ContinuousEngine(_RequestStepper):
             if self._flights[lane] is not None:
                 continue
             if not self._queue or self._queue[0].arrival_s > now:
+                break
+            if self.paged and budget < self._admit_pages:
                 break
             req = self._queue.pop(0)
             rp = self._resolved[req.id]
@@ -381,6 +500,8 @@ class ContinuousEngine(_RequestStepper):
             nblocks[lane] = self._lane_nblocks(rp)
             taus[lane] = rp.conf_threshold
             eos[lane] = rp.eos_token_id
+            if self.paged:
+                budget -= self._admit_pages
         if admit.any():
             self._admit(state, prompts, admit, nblocks, taus, eos)
             run = run | admit
@@ -393,13 +514,22 @@ class ContinuousEngine(_RequestStepper):
                 if wait > 0:
                     time.sleep(wait)
             return []
+        if self.paged:
+            self._pool_samples.append(self.n_pages
+                                      - C.free_page_count(state.cache))
 
+        # ---- one block-level decode for the runnable lanes ----
         self._live_samples.append(int(run.sum()))
         self._decode_block(state, run)
+        if self.paged:
+            # claim the survivors' next-block pages now, so that the next
+            # boundary's in-flight allocation finds them backed
+            self._alloc_block(state)
         live = state.live
         toks = state.tokens.cpu().numpy()
         t_done = time.perf_counter() - self._t0
 
+        # ---- block events + eviction of finished lanes ----
         ran = [i for i in range(N) if run[i] and self._flights[i] is not None]
         done = [i for i in ran if not live[i]]
         glens = None
@@ -413,6 +543,9 @@ class ContinuousEngine(_RequestStepper):
             fl = self._flights[lane]
             blk = fl.blocks_done
             fl.blocks_done += 1
+            if live[lane] and blk < self._emitted.get(fl.req.id, 0):
+                continue  # a preempted request's re-decode: already streamed
+            self._emitted[fl.req.id] = blk + 1
             lo, hi = P + blk * B, P + (blk + 1) * B
             ev = BlockEvent(request_id=fl.req.id, index=blk, start=blk * B,
                             tokens=toks[lane, lo:hi].copy(),
@@ -434,9 +567,34 @@ class ContinuousEngine(_RequestStepper):
                     queue_s=fl.admit_t - fl.arrival, finish_reason=reason)
                 self._flights[lane] = None
                 self._resolved.pop(fl.req.id, None)
+                self._emitted.pop(fl.req.id, None)
                 self._arrival.pop(fl.req.id, None)
             events.append(ev)
+        if done and self.paged:
+            # return the finished lanes' pages to the pool now, so that the
+            # next admission sees them
+            drow = np.zeros((N,), bool)
+            drow[done] = True
+            self._evict(state, drow)
         return events
+
+    def page_pool_stats(self) -> Dict[str, float]:
+        """Occupancy since the last reset (paged layout; zeros for dense),
+        sampled at every block boundary, with the preemptions and the
+        rounds in which a live lane stalled for pages."""
+        if not self.paged or not self._pool_samples:
+            return {"n_pages": float(self.n_pages), "peak_pages": 0.0,
+                    "avg_pages": 0.0, "peak_occupancy": 0.0,
+                    "preemptions": 0.0, "stall_rounds": 0.0}
+        peak = max(self._pool_samples)
+        return {
+            "n_pages": float(self.n_pages),
+            "peak_pages": float(peak),
+            "avg_pages": float(np.mean(self._pool_samples)),
+            "peak_occupancy": peak / self.n_pages,
+            "preemptions": float(self._preemptions),
+            "stall_rounds": float(self._stall_rounds),
+        }
 
     def concurrency_stats(self) -> Dict[str, float]:
         """Decoding-lane concurrency since the last reset, sampled at every

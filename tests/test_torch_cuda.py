@@ -8,7 +8,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.decode_attn import decode_attention  # noqa: E402
+from repro_torch.kernels.block_attn import flash_block_attention  # noqa: E402
+from repro_torch.kernels.block_attn import ref as bref  # noqa: E402
+from repro_torch.kernels.decode_attn import (  # noqa: E402
+    decode_attention,
+    paged_decode_attention,
+)
 from repro_torch.kernels.decode_attn import ref as dref  # noqa: E402
 from repro_torch.kernels.select import fused_select  # noqa: E402
 from repro_torch.kernels.select import ref as sref  # noqa: E402
@@ -51,6 +56,104 @@ def test_decode_attention_kernel_matches_plain(cuda, G, hd, window, softcap,
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def _paged_case(gen, dev, *, b, Bq, Kv, G, hd, page, n_t, lens, dtype):
+    """Pools of 3 * b * n_t pages, each lane's pages scattered over them,
+    -1 past each lane's length."""
+    n_pages = 3 * b * n_t
+    q = _randn(gen, b, Bq, Kv, G, hd).to(dtype)
+    kp, vp = (_randn(gen, 2, n_pages, page, Kv, hd)[1].to(dtype)
+              for _ in range(2))
+    kb, vb = (_randn(gen, b, Bq, Kv, hd).to(dtype) for _ in range(2))
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    table = torch.full((b, n_t), -1, dtype=torch.int32, device=dev)
+    for lane, ln in enumerate(lens):
+        n = -(-ln // page)
+        table[lane, :n] = perm[lane * n_t:lane * n_t + n].to(torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, kb, vb, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hd,page,window,softcap,dtype", [
+    (2, 64, 32, None, None, torch.float32),
+    (7, 64, 16, 6, None, torch.float32),
+    (2, 128, 5, None, 5.0, torch.float32),
+    (7, 128, 32, 6, 5.0, torch.bfloat16),
+    (7, 64, 32, None, None, torch.bfloat16),
+])
+def test_paged_decode_kernel_matches_plain(cuda, G, hd, page, window,
+                                           softcap, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(G + hd + page)
+    args = _paged_case(gen, cuda, b=4, Bq=8, Kv=2, G=G, hd=hd, page=page,
+                       n_t=-(-80 // page), lens=[0, 5, 33, 80], dtype=dtype)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args, **kw)
+    assert paged_decode_attention.launches == before + 1
+    want = dref.paged_decode_attention(*args, **kw)
+    # both sides read the same inputs and accumulate in fp32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [32, 16, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_equals_dense_kernel_bitwise(cuda, page, dtype):
+    """An identity table over a pool holding the dense cache's rows, and a
+    permuted table over the same contents moved page by page: the paged
+    kernel's output equals the dense kernel's bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(page)
+    b, Bq, Kv, G, hd, n_t = 3, 32, 2, 7, 64, 6
+    S = n_t * page
+    q = _randn(gen, b, Bq, Kv, G, hd).to(dtype)
+    kc, vc = (_randn(gen, b, S, Kv, hd).to(dtype) for _ in range(2))
+    kb, vb = (_randn(gen, b, Bq, Kv, hd).to(dtype) for _ in range(2))
+    lens = torch.tensor([S, page + 3, 2 * page], dtype=torch.int32,
+                        device=cuda)
+    for kw in ({}, {"window": 2 * page, "softcap": 5.0}):
+        kw["scale"] = hd ** -0.5
+        dense = decode_attention(q, kc, vc, kb, vb, lens, **kw)
+        ident = torch.arange(b * n_t, dtype=torch.int32,
+                             device=cuda).reshape(b, n_t)
+        kp = kc.reshape(b * n_t, page, Kv, hd)
+        vp = vc.reshape(b * n_t, page, Kv, hd)
+        assert torch.equal(paged_decode_attention(q, kp, vp, kb, vb, ident,
+                                                  lens, **kw), dense)
+        perm = torch.randperm(b * n_t, generator=gen, device=cuda)
+        kq, vq = torch.empty_like(kp), torch.empty_like(vp)
+        kq[perm], vq[perm] = kp, vp           # page i moves to perm[i]
+        table = perm.to(torch.int32).reshape(b, n_t)
+        assert torch.equal(paged_decode_attention(q, kq, vq, kb, vb, table,
+                                                  lens, **kw), dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,L,G,hd,P,bs,window,softcap,dtype", [
+    ("block_causal", 96, 7, 64, 96, 32, None, None, torch.bfloat16),
+    ("block_causal", 101, 7, 64, 40, 16, None, None, torch.float32),
+    ("block_causal", 77, 3, 128, 20, 8, 12, 5.0, torch.float32),
+    ("causal", 70, 2, 64, 0, 1, None, 3.0, torch.float32),
+    ("causal", 64, 4, 128, 0, 1, 9, None, torch.bfloat16),
+    ("bidirectional", 45, 2, 64, 0, 1, None, None, torch.float32),
+    ("bidirectional", 64, 5, 64, 0, 1, 10, None, torch.float32),
+])
+def test_block_attention_kernel_matches_plain(cuda, mode, L, G, hd, P, bs,
+                                              window, softcap, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(L + G)
+    b, Kv = 2, 2
+    q = _randn(gen, b, L, Kv, G, hd).to(dtype)
+    k, v = (_randn(gen, b, L, Kv, hd).to(dtype) for _ in range(2))
+    kw = dict(mode=mode, prompt_len=P, block_size=bs, window=window,
+              scale=hd ** -0.5, softcap=softcap)
+    before = flash_block_attention.launches
+    got = flash_block_attention(q, k, v, **kw)
+    assert flash_block_attention.launches == before + 1
+    want = bref.block_attention(q, k, v, **kw)
+    # both sides read the same inputs and keep scores and probabilities in
+    # fp32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,d,V,softcap,dtype", [
     (64, 32, 593, None, torch.float32),
@@ -83,6 +186,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention(q, kv, kv, blk, blk, lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(q, kv, kv, blk, blk,
+                               torch.zeros((1, 2), dtype=torch.int32,
+                                           device=cuda), lens)
+    q64 = torch.zeros((1, 4, 1, 1, 64), device=cuda)
+    pool = torch.zeros((3, 4, 1, 64), device=cuda)
+    blk64 = torch.zeros((1, 4, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="page_table"):
+        paged_decode_attention(q64, pool, pool, blk64, blk64,
+                               torch.zeros((1, 2), dtype=torch.int64,
+                                           device=cuda), lens)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_decode_attention(q64.bfloat16(), pool, pool, blk64, blk64,
+                               torch.zeros((1, 2), dtype=torch.int32,
+                                           device=cuda), lens)
+    kv64 = torch.zeros((1, 4, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="mode"):
+        flash_block_attention(q64, kv64, kv64, mode="sliding")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_block_attention(q, blk, blk)
+    strided = torch.zeros((1, 4, 1, 128), device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_block_attention(q64, strided, strided)
+    with pytest.raises(ValueError, match="positive"):
+        flash_block_attention(q64, kv64, kv64, window=0)
     h = torch.zeros((4, 12), device=cuda)                   # d % 8 != 0
     with pytest.raises(ValueError, match="multiple of 8"):
         fused_select(h, torch.zeros((10, 12), device=cuda),
