@@ -11,7 +11,10 @@ Phases, each timed, any failure raises and exits non-zero:
    path's shapes (and small softcap / window / mode cases), each timed with
    CUDA events beside its plain version and one PyTorch yardstick call; the
    paged decode kernel also equals the dense one bit for bit on identity
-   and permuted page tables;
+   and permuted page tables; the fused cross-entropy forward and backward
+   at the training path's shape (T=1,024, d=896, V=151,936) in bf16 and
+   fp32 and at a ragged vocabulary, its backward twice bit for bit; block
+   attention and select also at the trajectory collector's shapes;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -27,7 +30,17 @@ Phases, each timed, any failure raises and exits non-zero:
    decoded at fp32 with the kernels (block attention prefill, dense and
    paged decode attention, fused select) and with their plain versions,
    token for token (a divergence is accepted only at a near-tie, printed
-   with its gap); the dense and paged kernel paths agree bit for bit.
+   with its gap); the dense and paged kernel paths agree bit for bit;
+5. the training path at qwen2-0.5b's full width (bf16, seeded random
+   init, b=4, P=128, G=256, B=32): 2 teacher SFT steps, one greedy
+   collection batch (256 full-canvas forwards through the block attention
+   and fused select kernels), 2 full fine-tune and 1 LoRA student steps,
+   every loss finite and the launch counters equal to the loss
+   evaluations and collector forwards; the collected trajectories replayed
+   step by step through the plain collector step (generic attention and
+   logits, bf16 and fp32); the DLM term of a student step with the kernel
+   and with the plain cross-entropy; warm step times and a profiled
+   student step.
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -56,8 +69,11 @@ SELECT_TPU = "src/repro/kernels/select/select.py:88"
 PAGED_TPU = "src/repro/kernels/decode_attn/decode_attn.py:198"
 BLOCK_SRC = "src/repro_torch/kernels/block_attn/csrc/block_attn.cu"
 BLOCK_TPU = "src/repro/kernels/block_attn/block_attn.py:96"
+XENT_SRC = "src/repro_torch/kernels/xent/csrc/xent.cu"
+XENT_TPU = "src/repro/kernels/xent/xent.py:59"
+XENT_BWD_TPU = "src/repro/kernels/xent/ops.py:71"
 KERNELS = ("decode_attention", "fused_select", "paged_decode_attention",
-           "block_attention")
+           "block_attention", "xent_forward", "xent_backward")
 NEAR_TIE = 1e-4
 
 
@@ -446,6 +462,91 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
     return rec
 
 
+def grad_limit(torch, got, want, dtype):
+    """Whether ``got`` is within the gradient limit of ``want``: fp32
+    sides sum fp32 products in other orders, so 1e-5 of max|grad|; a bf16
+    gradient is an fp32 sum rounded to bf16, so one bf16 ulp (2^-8
+    relative, 2^-7 allowed) on top. Returns (ok, max abs error)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = 1e-5 * want.abs().max() + (0 if dtype == "float32"
+                                     else 2 ** -7 * want.abs())
+    return bool((err <= lim).all()), err.max().item()
+
+
+def check_xent(torch, dev, *, T, d, V, dtype, timed=False, name=""):
+    """The fused cross-entropy forward and backward against their plain
+    versions (both read the same inputs and accumulate in fp32), the
+    backward twice bit for bit."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.xent import fused_xent
+    from repro_torch.kernels.xent import ops as xops
+    from repro_torch.kernels.xent import ref as xref
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(V % 1000 + T)
+    h = torch.randn((T, d), generator=gen, device=dev).to(dt)
+    w = (torch.randn((V, d), generator=gen, device=dev) * 0.02).to(dt)
+    y = torch.randint(0, V, (T,), generator=gen, device=dev)
+    y[:2] = torch.tensor([0, V - 1], device=dev)
+    g = torch.rand((T,), generator=gen, device=dev)
+    g[::5] = 0.0                               # rows with g = 0 still count
+    loss, logz = xops._forward(h, w, y)
+    dh, dw = xops._backward(h, w, y, logz, g, True)
+    dh2, dw2 = xops._backward(h, w, y, logz, g, True)
+    want, want_logz = xref.xent_streaming(h, w, y)
+    want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
+    torch.cuda.synchronize()
+    err = (loss - want).abs().max().item()
+    tol = 1e-4
+    if not err <= tol:
+        raise AssertionError(f"xent {name}: loss max error {err} > {tol}")
+    ok_h, err_h = grad_limit(torch, dh, want_dh, dtype)
+    ok_w, err_w = grad_limit(torch, dw, want_dw, dtype)
+    if not (ok_h and ok_w):
+        raise AssertionError(f"xent {name}: dh error {err_h} ({ok_h}), dW "
+                             f"error {err_w} ({ok_w}) beyond the limits")
+    if not (torch.equal(dh, dh2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"xent {name}: two backward runs differ")
+    rec = {"kernel": "xent", "case": name, "dtype": dtype,
+           "shape": dict(T=T, d=d, V=V,
+                         backward_chunk=xops.backward_chunk(T, V)),
+           "max_abs_err": err, "tol": tol, "dh_max_abs_err": err_h,
+           "dw_max_abs_err": err_w, "backward_bitwise_repeatable": True}
+    if timed:
+        item = h.element_size()
+        hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
+        lib_loss = F.cross_entropy(hl @ wl.t(), y, reduction="none")
+        fwd = alternate(torch, lambda: xref.xent_streaming(h, w, y),
+                        lambda: xops._forward(h, w, y),
+                        lambda: F.cross_entropy(h @ w.t(), y,
+                                                reduction="none"), iters=5)
+        bwd = alternate(
+            torch, lambda: xref.xent_backward(h, w, y, g, logz),
+            lambda: xops._backward(h, w, y, logz, g, True),
+            lambda: torch.autograd.grad(lib_loss, (hl, wl), g,
+                                        retain_graph=True), iters=3)
+        io = (T * d + V * d) * item
+        fb, fby = bound_ms(io + 4 * T * 3, 2 * T * V * d, dtype)
+        bb, bby = bound_ms(2 * io + 4 * T * 3, 6 * T * V * d, dtype)
+        rec.update(
+            forward=dict(kernel_ms=fwd["kernel"], plain_ms=fwd["plain"],
+                         library_ms=fwd["library"], bound_ms=fb, bound_by=fby,
+                         kernel_device_ms=device_ms(
+                             torch, lambda: xops._forward(h, w, y), 5,
+                             ["xent_partial_kernel", "xent_merge_kernel"])),
+            backward=dict(kernel_ms=bwd["kernel"], plain_ms=bwd["plain"],
+                          library_ms=bwd["library"], bound_ms=bb,
+                          bound_by=bby, kernel_device_ms=device_ms(
+                              torch, lambda: xops._backward(h, w, y, logz, g,
+                                                            True), 3,
+                              ["xent_probs_kernel", "xent_dh_kernel",
+                               "xent_dw_kernel", "xent_dh_final_kernel"])))
+        del lib_loss, hl, wl
+    log(json.dumps(rec))
+    return rec
+
+
 def phase_kernels(torch, dev):
     lens8 = [0, 512, 536, 577, 608, 640, 700, 736]
     main = {}
@@ -488,6 +589,11 @@ def phase_kernels(torch, dev):
                 **small, name="causal softcap+window")
     check_block(torch, dev, b=2, L=70, Kv=2, G=7, hd=128, dtype="bfloat16",
                 mode="bidirectional", softcap=5.0, name="bf16 softcap")
+    # the trajectory collector's forwards (phase 5): 4 lanes of a 384-token
+    # canvas (P=128 + G=256), bidirectional
+    check_block(torch, dev, b=4, L=384, Kv=2, G=7, hd=64, dtype="bfloat16",
+                mode="bidirectional", prompt_len=128, block_size=32,
+                name="qwen2-0.5b collector")
     main["fused_select"] = check_select(
         torch, dev, T=256, d=896, V=151_936, dtype="bfloat16", scale=0.02,
         timed=True, name="qwen2-0.5b tied")
@@ -498,6 +604,17 @@ def phase_kernels(torch, dev):
     for dtype in ("bfloat16", "float32"):
         check_select(torch, dev, T=256, d=896, V=151_936, dtype=dtype,
                      scale=1.0, name=f"qwen2-0.5b sharp {dtype}")
+    # the collector's selection: 4 lanes x a 32-token block
+    check_select(torch, dev, T=128, d=896, V=151_936, dtype="bfloat16",
+                 scale=0.02, name="qwen2-0.5b collector")
+    # the training path's cross-entropy: b=4 x G=256 rows, qwen2-0.5b head
+    for dtype in ("bfloat16", "float32"):
+        rec = check_xent(torch, dev, T=1024, d=896, V=151_936, dtype=dtype,
+                         timed=True, name=f"qwen2-0.5b {dtype}")
+        if dtype == "bfloat16":
+            main["xent"] = rec
+    check_xent(torch, dev, T=300, d=256, V=50_021, dtype="float32",
+               name="ragged V")
     return main
 
 
@@ -514,30 +631,42 @@ def _random_params(torch, cfg, dev, dtype):
     return params
 
 
-def kernel_wrappers():
+def kernel_counters():
+    """Each kernel's (wrapper, counter attribute)."""
     from repro_torch.kernels.block_attn import flash_block_attention
     from repro_torch.kernels.decode_attn import (
         decode_attention,
         paged_decode_attention,
     )
     from repro_torch.kernels.select import fused_select
-    return {"decode_attention": decode_attention,
-            "fused_select": fused_select,
-            "paged_decode_attention": paged_decode_attention,
-            "block_attention": flash_block_attention}
+    from repro_torch.kernels.xent import fused_xent
+    return {"decode_attention": (decode_attention, "launches"),
+            "fused_select": (fused_select, "launches"),
+            "paged_decode_attention": (paged_decode_attention, "launches"),
+            "block_attention": (flash_block_attention, "launches"),
+            "xent_forward": (fused_xent, "launches"),
+            "xent_backward": (fused_xent, "backward_launches")}
+
+
+def zero_counts():
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in kernel_counters().items()}
 
 
 def serve_counted(torch, dev, eng, reqs):
     """``eng.generate(reqs)`` with every kernel's launch count set to 0 just
     before and read just after. Returns (outputs by id, wall s, launches)."""
-    fns = kernel_wrappers()
-    for fn in fns.values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in fns.items()}
+    launches = read_counts()
     return {o.id: o for o in outs}, wall, launches
 
 
@@ -550,7 +679,8 @@ def check_launches(cfg, calls, launches, layout):
     want = {"decode_attention": cached if layout == "dense" else 0,
             "fused_select": calls["refine"],
             "paged_decode_attention": cached if layout == "paged" else 0,
-            "block_attention": cfg.n_layers * calls["admit"]}
+            "block_attention": cfg.n_layers * calls["admit"],
+            "xent_forward": 0, "xent_backward": 0}
     if launches != want:
         raise AssertionError(f"{layout}: launches {launches} != the call "
                              f"accounting {want} ({calls})")
@@ -667,6 +797,34 @@ def phase_paged(torch, dev, ctx):
     return launches
 
 
+def device_groups(prof):
+    """Device ms by kernel group from a profiler trace, and by kernel name
+    as (ms, count)."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us:
+            by_kernel[ev.key] = (us / 1e3, ev.count)
+    groups = {"decode_attention": 0.0, "block_attention": 0.0,
+              "fused_select": 0.0, "xent": 0.0, "matmul": 0.0, "other": 0.0}
+    for key, (ms, _) in by_kernel.items():
+        if "decode_attn" in key:
+            groups["decode_attention"] += ms
+        elif "block_attn" in key:
+            groups["block_attention"] += ms
+        elif "select_" in key:
+            groups["fused_select"] += ms
+        elif "xent_" in key:
+            groups["xent"] += ms
+        elif any(s in key.lower() for s in ("gemm", "cutlass", "xmma",
+                                            "nvjet", "sm90")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    return groups, by_kernel
+
+
 def profile_block(torch, dev, eng, prompts, B):
     """Where the time goes: 8 one-block requests (one admission, 32
     refinement iterations, one commit pass) under the profiler; device time
@@ -683,26 +841,7 @@ def profile_block(torch, dev, eng, prompts, B):
         eng.generate(reqs)
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    by_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us:
-            by_kernel[ev.key] = (us / 1e3, ev.count)
-    groups = {"decode_attention": 0.0, "block_attention": 0.0,
-              "fused_select": 0.0, "matmul": 0.0, "other": 0.0}
-    for key, (ms, _) in by_kernel.items():
-        if "decode_attn" in key:
-            groups["decode_attention"] += ms
-        elif "block_attn" in key:
-            groups["block_attention"] += ms
-        elif "select_" in key:
-            groups["fused_select"] += ms
-        elif any(s in key.lower() for s in ("gemm", "cutlass", "xmma",
-                                            "nvjet", "sm90")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+    groups, by_kernel = device_groups(prof)
     busy = sum(groups.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return {"phase": "profile", "requests": len(reqs), "wall_ms": wall * 1e3,
@@ -836,6 +975,330 @@ def phase_paths(torch, dev):
                     "equal": divergence is None,
                     "divergence": divergence}))
 
+# ---------------------------------------------------------------------------
+# phase 5: training at full width
+# ---------------------------------------------------------------------------
+def _finite(torch, metrics, what):
+    bad = {k: float(v) for k, v in metrics.items()
+           if not torch.isfinite(torch.as_tensor(v)).all()}
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad}")
+
+
+WARM_TEACHER_STEPS = 3
+WARM_STUDENT_STEPS = 5
+
+
+def spread(xs):
+    """Median, least and most of repeated timings, and the timings."""
+    return {"median": float(np.median(xs)), "min": min(xs), "max": max(xs),
+            "all": xs}
+
+
+def _timed(torch, dev, fn):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def check_collection(torch, teacher, ds, cfg, cdlm, per_forward=64):
+    """The collected trajectories against the plain collector step, teacher
+    forced: every step s of every lane is replayed from its canvas
+    ``state_at(final, finalized_at, s)`` through ``top1_step`` with
+    ``fused_select=False`` (generic attention, fp32 logits of the block),
+    once with the bf16 teacher and once with its fp32 copy.
+
+    - hidden: at the position finalized at step s, the recorded hidden
+      (kernel route, bf16) may lie no further from the fp32 replay than
+      the plain bf16 replay does, by 2x in the largest element error and
+      1.5x in the root-mean-square error over all recorded positions (the
+      routes differ only in the attention core, and the kernel keeps its
+      scores and probabilities in fp32; the largest errors are outliers
+      of the bf16 layers both routes share, so the rms catches a small
+      error everywhere that the max would not);
+    - token: the kernel took k = argmax of the logits L_k of the recorded
+      hidden; the plain step takes j = argmax of L_p. Since L_k[k] >=
+      L_k[j], L_p[j] - L_p[k] <= 2 delta + eps, delta = max_v |L_p - L_k|
+      and eps the fp32 accumulation bound d u max(|h| |W|);
+    - position: the kernel took the masked position p of the largest
+      confidence; log conf moves by at most 2 delta when the logits move by
+      delta, so log conf_p(p*) - log conf_p(p) <= 2 (delta_p + delta_p*)
+      for the plain step's choice p*. delta_p* was not recorded (p* is
+      recorded at its own step); it is taken as 1.5 x the largest delta
+      over all recorded positions, each position of the span being
+      recorded once.
+    Returns the record."""
+    from repro_torch.core.block_loop import SamplerSpec, top1_step
+    from repro_torch.core.trajectory import state_at
+    from repro_torch.models import unembed_matrix
+    from repro_torch.tree import tree_map
+
+    prompt, final = ds["prompt"], ds["final"]
+    fat, hid = ds["finalized_at"], ds["hidden"]
+    n, P = prompt.shape
+    G, B = cdlm.gen_length, cdlm.block_size
+    dev = prompt.device
+    spec = SamplerSpec(prompt_len=P, gen_len=G, block_size=B)
+    assert not spec.fused_select
+    t32 = tree_map(lambda x: x.float(), teacher)
+    w = unembed_matrix(teacher, cfg).float()
+    w_abs = w.abs()
+    k_steps = max(1, per_forward // n)
+    lanes = torch.arange(n, device=dev)
+    err_kernel = err_plain = err_kp = 0.0
+    sq_kernel = sq_plain = 0.0
+    tok_rows, pos_rows = [], []
+    n_checked = 0
+    with torch.no_grad():
+        groups = [(g0, s0) for g0 in range(0, G, B)
+                  for s0 in range(g0, g0 + B, k_steps)]
+        for g0, s0 in groups:
+            steps = torch.arange(s0, min(s0 + k_steps, g0 + B), device=dev)
+            k = len(steps)
+            start = P + g0
+            gen = state_at(final[None], fat[None], steps, cfg.mask_token_id)
+            canv = torch.cat([prompt[None].expand(k, n, P), gen],
+                             -1).reshape(k * n, P + G)
+            _, conf_p, h_p = top1_step(teacher, canv, start, cfg=cfg,
+                                       spec=spec)
+            _, _, h_32 = top1_step(t32, canv, start, cfg=cfg, spec=spec)
+            rec = fat[None, :, g0:g0 + B] == steps[:, None, None]
+            valid = (rec.sum(-1) == 1).reshape(-1)
+            p_rec = rec.int().argmax(-1)                          # (k, n)
+            h_rec = hid[:, g0:g0 + B][lanes[None], p_rec].reshape(k * n, -1)
+            rows = torch.arange(k * n, device=dev)
+            pr = p_rec.reshape(-1)
+            hp = h_p[rows, pr].float()
+            h32 = h_32[rows, pr]
+            v = valid
+            n_checked += int(v.sum())
+            err_kernel = max(err_kernel, (h_rec - h32)[v].abs().max().item())
+            err_plain = max(err_plain, (hp - h32)[v].abs().max().item())
+            err_kp = max(err_kp, (h_rec - hp)[v].abs().max().item())
+            sq_kernel += float(((h_rec - h32)[v] ** 2).sum())
+            sq_plain += float(((hp - h32)[v] ** 2).sum())
+            L_p, L_k = hp @ w.t(), h_rec @ w.t()
+            delta = (L_p - L_k).abs().max(-1).values
+            eps = cfg.d_model * U32 * (h_rec.abs() @ w_abs.t()).max(-1).values
+            tok = final[:, g0:g0 + B][lanes[None], p_rec].reshape(-1)
+            gap = (L_p.max(-1).values
+                   - L_p.gather(-1, tok[:, None].long())[:, 0])
+            tok_rows.append(torch.stack([gap, 2 * delta + eps], -1)[v])
+            conf_p = conf_p.float()                               # (k*n, B)
+            lc = torch.where(torch.isfinite(conf_p), torch.log(conf_p),
+                             -torch.inf)
+            pos_gap = lc.max(-1).values - lc[rows, pr]
+            pos_rows.append(torch.stack([pos_gap, delta], -1)[v])
+            del h_p, h_32, L_p, L_k
+    del t32, w_abs
+    tok_rows, pos_rows = torch.cat(tok_rows), torch.cat(pos_rows)
+    rms_kernel = (sq_kernel / (n_checked * cfg.d_model)) ** 0.5
+    rms_plain = (sq_plain / (n_checked * cfg.d_model)) ** 0.5
+    if not (err_kernel <= 2 * err_plain and rms_kernel <= 1.5 * rms_plain):
+        raise AssertionError(
+            f"collection: recorded hidden from the fp32 replay: max "
+            f"{err_kernel}, rms {rms_kernel}; plain bf16 replay: max "
+            f"{err_plain}, rms {rms_plain} (limits 2x max, 1.5x rms)")
+    tok_diff = tok_rows[:, 0] > 0
+    if not bool((tok_rows[:, 0] <= tok_rows[:, 1]).all()):
+        worst = float((tok_rows[:, 0] / tok_rows[:, 1]).max())
+        raise AssertionError(f"collection: a recorded token is not the plain "
+                             f"argmax beyond its tie limit ({worst} of it)")
+    d_max = float(pos_rows[:, 1].max())
+    pos_lim = 2 * (pos_rows[:, 1] + 1.5 * d_max) + 1e-5
+    pos_diff = pos_rows[:, 0] > 0
+    if not bool((pos_rows[:, 0] <= pos_lim).all()):
+        worst = float((pos_rows[:, 0] / pos_lim).max())
+        raise AssertionError(f"collection: a recorded position is not the "
+                             f"plain step's choice beyond its tie limit "
+                             f"({worst} of it)")
+    return {"replayed_steps": n_checked, "of": n * G,
+            "hidden_err_kernel_vs_fp32": err_kernel,
+            "hidden_err_plain_vs_fp32": err_plain,
+            "hidden_err_kernel_vs_plain": err_kp,
+            "hidden_rms_kernel_vs_fp32": rms_kernel,
+            "hidden_rms_plain_vs_fp32": rms_plain,
+            "token_differs_from_plain": int(tok_diff.sum()),
+            "token_worst_share_of_limit": float(
+                (tok_rows[:, 0] / tok_rows[:, 1]).max()),
+            "position_differs_from_plain": int(pos_diff.sum()),
+            "position_worst_share_of_limit": float(
+                (pos_rows[:, 0] / pos_lim).max()),
+            "logit_delta_max": d_max}
+
+
+def phase_training(torch, dev):
+    """Teacher SFT -> greedy collection -> student (full and LoRA) through
+    the trainer's entry points at qwen2-0.5b's full width, counted; then
+    the collection replayed through the plain collector step, the student
+    step's DLM term with the kernel and with the plain cross-entropy, warm
+    step times and a profiled student step."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import CDLMConfig, TrainConfig, get_config
+    from repro_torch.core import diffusion as D
+    from repro_torch.core import losses as LS
+    from repro_torch.core import trajectory
+    from repro_torch.data import Corpus, TaskSpec
+    from repro_torch.kernels.xent import fused_xent
+    from repro_torch.kernels.xent import ref as xref
+    from repro_torch.models import forward
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as S
+    from repro_torch.training import trainer
+
+    cfg = get_config("qwen2-0.5b")
+    P, G, B, b = 128, 256, 32, 4
+    task = TaskSpec("sort", vocab_size=cfg.vocab_size, prompt_len=P,
+                    gen_len=G, sort_k=P - 2, sort_range=4096)
+    corpus = Corpus(task, 64, seed=0)
+    cdlm = CDLMConfig(block_size=B, gen_length=G, prompt_length=P,
+                      temperatures=(0.0,))
+    tcfg = TrainConfig(learning_rate=2e-5, steps=2, batch_size=b,
+                       remat=False)
+    scfg = dataclasses.replace(tcfg, learning_rate=5e-4)
+    lcfg = dataclasses.replace(scfg, steps=1, use_lora=True, lora_rank=32,
+                               lora_alpha=32.0, remat=True)
+    hist = {"teacher": [], "student": [], "lora": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    teacher, t_teacher = _timed(torch, dev, lambda: trainer.train_teacher(
+        cfg, corpus, tcfg, device=dev, verbose=False,
+        history=hist["teacher"]))
+    ds, t_collect = _timed(torch, dev, lambda: trainer.collect_dataset(
+        teacher, cfg, cdlm, corpus, n_examples=b, batch=b, verbose=False))
+    student, t_student = _timed(torch, dev, lambda: trainer.train_student(
+        teacher, ds, cfg, cdlm, scfg, efficient_loss=True, verbose=False,
+        history=hist["student"]))
+    merged, t_lora = _timed(torch, dev, lambda: trainer.train_student(
+        teacher, ds, cfg, cdlm, lcfg, efficient_loss=True, verbose=False,
+        history=hist["lora"]))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    for stage, rows in hist.items():
+        for i, m in enumerate(rows):
+            _finite(torch, m, f"{stage} step {i}")
+    n_ce = tcfg.steps + scfg.steps + lcfg.steps
+    forwards = cdlm.gen_length     # one batch: a forward per step
+    want = {"decode_attention": 0, "paged_decode_attention": 0,
+            "fused_select": forwards,
+            "block_attention": forwards * cfg.n_layers,
+            "xent_forward": n_ce, "xent_backward": n_ce}
+    if launches != want:
+        raise AssertionError(f"training: launches {launches} != {want}")
+    fat, final = ds["finalized_at"], ds["final"]
+    if not (ds["hidden"].shape == (b, G, cfg.d_model)
+            and bool(torch.isfinite(ds["hidden"]).all())
+            and bool(((fat >= -1) & (fat < G)).all())):
+        raise AssertionError("collection: bad shapes or values")
+    steps = torch.arange(G, device=dev)
+    clean = (final != cfg.mask_token_id).all(-1)
+    perm = (fat.sort(-1).values == steps).all(-1)
+    if not bool((perm | ~clean).all()):
+        raise AssertionError("collection: a lane without a mask token did "
+                             "not finalize one position per step")
+    for tree in (student, merged):
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (tree["embed"]["tok"],
+                             tree["slots"][0]["attn"]["wq"])):
+            raise AssertionError("student params not finite")
+
+    replay = check_collection(torch, teacher, ds, cfg, cdlm)
+    log(json.dumps({"phase": "collection replay", **replay}))
+
+    # one student step's DLM term, the only place its cross-entropy enters,
+    # with the kernel and with the plain cross-entropy: loss and gradients
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = trajectory.sample_training_pair(ds, gen, b, cfg=cfg, cdlm=cdlm)
+    draws = S.dlm_draws(gen, b, G, dev)
+    head = teacher["embed"]
+    plain_xent = lambda h, w, y: xref.xent_streaming(h, w, y)[0]  # noqa
+    with torch.no_grad():
+        total, mk = S.cdlm_loss(student, None, batch, draws, cfg=cfg,
+                                cdlm=cdlm, teacher_head=head, use_lora=False,
+                                efficient_loss=True)
+    masked_gt, m = D.mask_tokens_from(draws["u"], batch["gt"], draws["t"],
+                                      cfg.mask_token_id)
+    with torch.no_grad():
+        hid = forward(student, torch.cat([batch["prompt"], masked_gt], 1),
+                      cfg=cfg, device=dev, mode="block_causal", prompt_len=P,
+                      block_size=B, return_logits=False).hidden[:, P:]
+    grads = {}
+    for name, fn in (("kernel", fused_xent), ("plain", plain_xent)):
+        h = hid.clone().requires_grad_()
+        w = student["embed"]["tok"].clone().requires_grad_()
+        loss = LS.dlm_loss_from_hidden(h, w, batch["gt"], m, draws["t"], fn)
+        grads[name] = (float(loss.detach()),
+                       *torch.autograd.grad(loss, (h, w)))
+    ok_h, err_h = grad_limit(torch, grads["kernel"][1], grads["plain"][1],
+                             "bfloat16")
+    ok_w, err_w = grad_limit(torch, grads["kernel"][2], grads["plain"][2],
+                             "bfloat16")
+    dlm_k, dlm_p = grads["kernel"][0], grads["plain"][0]
+    # the step's total with the plain cross-entropy: its KL terms are the
+    # same code on both sides, only the DLM term changes
+    total_p = float(total) + cdlm.w_dlm * (dlm_p - float(mk["dlm"]))
+    rel = {"dlm": abs(dlm_k - dlm_p) / abs(dlm_p),
+           "total": abs(float(total) - total_p) / abs(total_p),
+           "dlm_in_step_vs_alone": abs(float(mk["dlm"]) - dlm_k) / abs(dlm_k)}
+    if not (ok_h and ok_w and all(v <= 1e-4 for v in rel.values())):
+        raise AssertionError(f"student DLM term: losses rel {rel}, dh "
+                             f"{err_h} ({ok_h}), dW {err_w} ({ok_w})")
+    del grads, hid
+
+    # warm step times (median of several), then one profiled student step
+    opt_t = adamw.init(teacher)
+    tstep = S.make_dlm_pretrain_step(cfg, tcfg)
+    tb = trainer._batch(next(corpus.batches(b, seed=3)), dev)
+    t_tsteps = [_timed(torch, dev, lambda: tstep(
+        teacher, opt_t, tb, S.dlm_draws(gen, b, G, dev)))[1]
+        for _ in range(WARM_TEACHER_STEPS)]
+    del opt_t
+    opt_s = adamw.init(student)
+    sstep = S.make_cdlm_step(cfg, cdlm, scfg, efficient_loss=True)
+    t_ssteps = [_timed(torch, dev, lambda: sstep(
+        student, opt_s, None, head, batch, draws))[1]
+        for _ in range(WARM_STUDENT_STEPS)]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sstep(student, opt_s, None, head, batch, draws)
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    groups, by_kernel = device_groups(prof)
+    busy = sum(groups.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    rec = {"phase": "training", "config": "qwen2-0.5b", "dtype": "bfloat16",
+           "batch": b, "prompt_len": P, "gen": G, "block": B,
+           "launches": launches, "teacher_s": t_teacher,
+           "teacher_s_per_step": t_teacher / tcfg.steps,
+           "collect_s": t_collect, "collect_forwards": forwards,
+           "collect_s_per_forward": t_collect / forwards,
+           "student_s": t_student,
+           "student_s_per_step": t_student / scfg.steps,
+           "lora_student_s": t_lora,
+           "warm_teacher_step_s": spread(t_tsteps),
+           "warm_student_step_s": spread(t_ssteps),
+           "losses": {k: [{n: float(v) for n, v in m.items()} for m in rows]
+                      for k, rows in hist.items()},
+           "collected_lanes_with_mask_token": int((~clean).sum()),
+           "collection_replay": replay, "kernel_vs_plain_rel": rel,
+           "dlm_dh_max_abs_err": err_h, "dlm_dw_max_abs_err": err_w,
+           "max_memory_allocated_bytes": peak}
+    log(json.dumps(rec))
+    log(json.dumps({
+        "phase": "profile", "what": "one full fine-tune student step",
+        "wall_ms": wall * 1e3, "device_busy_ms": busy,
+        "idle_share": 1 - busy / (wall * 1e3), "device_ms_by_group": groups,
+        "top_kernels": [{"name": k[:120], "ms": ms, "count": n}
+                        for k, (ms, n) in top]}))
+    return launches
+
 
 def main():
     import torch
@@ -871,18 +1334,31 @@ def main():
     t = time.perf_counter()
     phase_paths(torch, dev)
     log(f"phase 4 (kernel vs plain path): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    train_launches = phase_training(torch, dev)
+    log(f"phase 5 (training): {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
-    # launches: summed over the main-path runs (phase 3 and both runs of
-    # phase 3b), each counted from 0
+    # launches: summed over the main-path runs (phase 3, both runs of phase
+    # 3b and phase 5), each counted from 0
     sources = {"decode_attention": (DECODE_SRC, DECODE_TPU),
                "fused_select": (SELECT_SRC, SELECT_TPU),
                "paged_decode_attention": (DECODE_SRC, PAGED_TPU),
-               "block_attention": (BLOCK_SRC, BLOCK_TPU)}
+               "block_attention": (BLOCK_SRC, BLOCK_TPU),
+               "xent_forward": (XENT_SRC, XENT_TPU),
+               "xent_backward": (XENT_SRC, XENT_BWD_TPU)}
+    xent = main_recs["xent"]
+    main_recs["xent_forward"] = dict(xent["forward"],
+                                     max_abs_err=xent["max_abs_err"])
+    main_recs["xent_backward"] = dict(
+        xent["backward"], max_abs_err=max(xent["dh_max_abs_err"],
+                                          xent["dw_max_abs_err"]))
     summary = []
     for name in KERNELS:
         rec = main_recs[name]
-        launches = ctx["launches"][name] + paged_launches[name]
+        launches = (ctx["launches"][name] + paged_launches[name]
+                    + train_launches[name])
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the main path")
         src, tpu = sources[name]

@@ -1,4 +1,5 @@
-"""CDLM decoding in PyTorch and CUDA, a port of the JAX package ``repro``.
+"""CDLM decoding and training in PyTorch and CUDA, a port of the JAX package
+``repro``.
 
 The port imports nothing of the JAX package. Its entry points run on the
 CUDA device unless the caller passes ``device="cpu"``.

@@ -138,3 +138,24 @@ def param_count(params) -> int:
     if isinstance(params, tuple):
         return sum(param_count(v) for v in params)
     return params.numel()
+
+
+def lora_from_jax(lora, device="cuda", dtype=None):
+    """The port's LoRA adapters from a JAX ``models/lora.py`` tree
+    (``{"slots/0/attn/wq": {"a", "b"}}``, leaves as numpy arrays); the
+    layouts are the same. ``dtype`` defaults to each leaf's own."""
+    dev = resolve_device(device)
+
+    def convert(leaf):
+        arr = np.asarray(leaf)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+            dt = torch.bfloat16
+        else:
+            dt = None
+        return torch.tensor(arr).to(device=dev,
+                                    dtype=torch_dtype(dtype) if dtype
+                                    else dt)
+
+    return {name: {k: convert(v) for k, v in ab.items()}
+            for name, ab in lora.items()}

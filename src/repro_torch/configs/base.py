@@ -1,10 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``configs/base.py``, limited to what the port
-uses: the layer kinds, ``ModelConfig`` (with ``reduced()``) and
-``ServeConfig``. The port keeps its own copy so that it imports nothing of
-the JAX package; the field names, defaults and derived properties are the
-same, so a config built on either side describes the same model.
+uses: the layer kinds, ``ModelConfig`` (with ``reduced()``),
+``CDLMConfig``, ``TrainConfig`` and ``ServeConfig``. The port keeps its
+own copy so that it imports nothing of the JAX package; the field names,
+defaults and derived properties are the same, so a config built on either
+side describes the same model.
 """
 from __future__ import annotations
 
@@ -158,6 +159,49 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class CDLMConfig:
+    """The paper's technique knobs (§4, App. A)."""
+
+    block_size: int = 32             # B
+    gen_length: int = 256            # L_g
+    prompt_length: int = 512
+    # Loss weights (Table 5/6 defaults for Dream)
+    w_distill: float = 1.0
+    w_cons: float = 0.5
+    w_dlm: float = 0.01
+    # Inference
+    conf_threshold: float = 0.9      # τ_conf
+    early_stop: bool = True
+    # Trajectory collection (Alg. 1)
+    temperatures: Tuple[float, ...] = (0.0, 0.5)
+    # Distillation uses forward KL in logit space (App. A.2 findings)
+    kl_direction: str = "forward"
+
+    @property
+    def n_blocks(self) -> int:
+        return self.gen_length // self.block_size
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 2e-5
+    warmup_frac: float = 0.05
+    lr_schedule: str = "constant"   # constant | cosine
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    batch_size: int = 64
+    steps: int = 1000
+    seed: int = 0
+    use_lora: bool = False
+    lora_rank: int = 32
+    lora_alpha: float = 32.0
+    remat: bool = True               # checkpoint each layer period
 
 
 @dataclass(frozen=True)

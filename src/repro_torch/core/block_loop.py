@@ -1,20 +1,24 @@
-"""Block-decode helpers of the CDLM strategy (paper §4.3), ported from the
-JAX package's ``core/block_loop.py``: the sampler spec, the canvas, the
-generation length, and the per-lane block forward that the continuous
-engine is built on."""
+"""Block-decode helpers (paper §4.3), ported from the JAX package's
+``core/block_loop.py``: the sampler spec, the canvas, the generation
+length, the per-lane block forward that the continuous engine is built on,
+and the top-1 loop of the teacher decode (Alg. 1's trajectory
+collector)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import diffusion as D
 from repro_torch.core import masks
+from repro_torch.kernels.block_attn import flash_block_attention
 from repro_torch.kernels.decode_attn import (
     decode_attention,
     paged_decode_attention,
 )
-from repro_torch.models import forward
+from repro_torch.models import forward, unembed_matrix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,10 +27,22 @@ class SamplerSpec:
     gen_len: int
     block_size: int
     conf_threshold: float = 0.9
+    temperature: float = 0.0
+    # Route greedy candidate selection through the fused unembed + select
+    # kernel (no (b, ., V) logits); the top-1 loop then also runs its
+    # full-canvas forwards through the block attention kernel
+    fused_select: bool = False
 
     @property
     def n_blocks(self) -> int:
         return self.gen_len // self.block_size
+
+
+class SampleResult(NamedTuple):
+    tokens: torch.Tensor         # (b, P + G) final canvases
+    steps: torch.Tensor          # (b,) refinement iterations
+    n_model_calls: int           # forward passes
+    gen_lengths: torch.Tensor    # (b,) tokens before the first EOS
 
 
 def init_canvas(prompt_tokens: torch.Tensor, spec: SamplerSpec,
@@ -87,3 +103,85 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                   use_long_window=use_long_window,
                   return_logits=not return_hidden)
     return (out.hidden if return_hidden else out.logits), out.emissions
+
+
+def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
+              spec: SamplerSpec, w=None):
+    """One step of the top-1 loop before its selection: a bidirectional
+    forward over the whole canvases ``tokens`` (b, P+G), then the greedy
+    candidates, their confidences and the post-norm hidden states of the
+    block at canvas coordinate ``start``, each (b, B[, d]). With
+    ``spec.fused_select`` the forward runs through the block attention
+    kernel and the selection through the fused select kernel (``w``: the
+    (V, d) unembedding); otherwise through the generic attention and the
+    block's logits, as the JAX collector does. Call it under
+    ``torch.no_grad()``."""
+    P, B = spec.prompt_len, spec.block_size
+    fused = spec.fused_select
+    out = forward(params, tokens, cfg=cfg, device=tokens.device,
+                  mode=masks.BIDIRECTIONAL, prompt_len=P, block_size=B,
+                  return_logits=not fused,
+                  logits_slice=None if fused else (start, start + B),
+                  prefill_attention_fn=(flash_block_attention if fused
+                                        else None))
+    bt = tokens[:, start:start + B]
+    hidden = out.hidden[:, start:start + B]
+    if fused:
+        cand, conf = D.confidence_and_candidates_fused(
+            hidden, w, bt, cfg.mask_token_id,
+            softcap=cfg.final_logit_softcap)
+    else:
+        cand, conf = D.confidence_and_candidates(out.logits, bt,
+                                                 cfg.mask_token_id)
+    return cand, conf, hidden
+
+
+def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
+               record_hidden: bool):
+    """N = G steps, one most-confident token finalized per step, each step a
+    bidirectional forward over the whole canvas (the ``vanilla`` strategy,
+    :func:`top1_step`), greedy only. Runs under ``torch.no_grad()``.
+
+    With ``record_hidden`` also returns ``finalized_at`` (b, G) int32, the
+    step at which each position was finalized (the monotone trajectory's
+    exact encoding), and the fp32 hidden buffer (b, G, d): the teacher's
+    last hidden state at each position's finalization.
+    """
+    if spec.temperature > 0:
+        raise ValueError("sampled (temperature > 0) decoding is not ported "
+                         "yet: ROADMAP Queue 1 item 7 (per-request "
+                         "sampling)")
+    with torch.no_grad():
+        tokens = init_canvas(prompt_tokens, spec, cfg)
+        b = tokens.shape[0]
+        P, B, G = spec.prompt_len, spec.block_size, spec.gen_len
+        dev = tokens.device
+        finalized_at = torch.full((b, G), -1, dtype=torch.int32, device=dev)
+        hidden_buf = torch.zeros((b, G, cfg.d_model), dtype=torch.float32,
+                                 device=dev)
+        w = unembed_matrix(params, cfg) if spec.fused_select else None
+        whole_block = torch.ones((1, B), dtype=torch.bool, device=dev)
+        step = 0
+        for blk in range(spec.n_blocks):
+            start = P + blk * B
+            for _ in range(B):
+                cand, conf, hidden = top1_step(params, tokens, start, cfg=cfg,
+                                               spec=spec, w=w)
+                bt = tokens[:, start:start + B]
+                sel = D.select_topk_in_block(conf, whole_block, 1)
+                tokens[:, start:start + B] = torch.where(
+                    sel, cand.to(tokens.dtype), bt)
+                if record_hidden:
+                    g0 = start - P
+                    finalized_at[:, g0:g0 + B] = torch.where(
+                        sel, step, finalized_at[:, g0:g0 + B])
+                    hidden_buf[:, g0:g0 + B] = torch.where(
+                        sel[..., None], hidden.float(),
+                        hidden_buf[:, g0:g0 + B])
+                step += 1
+    res = SampleResult(tokens, torch.full((b,), step, dtype=torch.int32,
+                                          device=dev), step,
+                       _gen_lengths(tokens, spec, cfg))
+    if record_hidden:
+        return res, finalized_at, hidden_buf
+    return res

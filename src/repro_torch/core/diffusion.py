@@ -1,12 +1,42 @@
-"""Greedy candidate selection and finalization rules (paper §4.3), ported
-from the JAX package's ``core/diffusion.py``. Greedy only: sampled
-decoding is not ported yet."""
+"""The masking of the forward process (Eq. 6 setup), greedy candidate
+selection and finalization rules (paper §4.3), ported from the JAX
+package's ``core/diffusion.py``. Greedy only: sampled decoding is not
+ported yet."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.select import fused_select
+
+
+def uniform(generator: torch.Generator, shape, device, low: float = 0.0,
+            high: float = 1.0) -> torch.Tensor:
+    """fp32 uniform draws on [low, high), drawn on the generator's device
+    and placed on ``device``."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (low + (high - low) * u).to(device)
+
+
+def mask_tokens(generator: torch.Generator, tokens, t, mask_id: int,
+                maskable=None):
+    """Independently mask each token with probability ``t``: draws ``u``
+    from ``generator`` and applies :func:`mask_tokens_from`."""
+    u = uniform(generator, tuple(tokens.shape), tokens.device)
+    return mask_tokens_from(u, tokens, t, mask_id, maskable)
+
+
+def mask_tokens_from(u, tokens, t, mask_id: int, maskable=None):
+    """The masking given its uniform draws ``u`` (tokens' shape): position
+    i is masked where ``u_i < t`` (and ``maskable``). tokens: (..., L);
+    t: scalar or (...,) masking ratio. Returns (masked tokens, mask)."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=tokens.device)
+    while t.ndim < tokens.ndim:
+        t = t[..., None]
+    m = u < t
+    if maskable is not None:
+        m = m & maskable
+    return torch.where(m, torch.full_like(tokens, mask_id), tokens), m
 
 
 def confidence_and_candidates(logits, tokens, mask_id: int):

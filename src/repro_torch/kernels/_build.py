@@ -99,6 +99,29 @@ def function(name: str, argtypes):
     return _functions[name]
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """The kernels have no backward: a wrapper called with grad mode on and
+    an input that requires grad raises, rather than return a result with no
+    ``grad_fn`` whose inputs would silently get no gradient. Training runs
+    the plain attention, and the collector calls the kernels under
+    ``torch.no_grad()``."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           "under torch.no_grad() or with inputs that do not "
+                           "require grad")
+
+
+def chunking(T: int, V: int, n_sms: int, row_tile: int, vocab_tile: int):
+    """(vocab tiles per chunk, chunks) of a vocab-chunked grid: the vocab
+    is split so that the grid of (row tiles x chunks) holds about four
+    blocks per SM. Each wrapper passes its own kernel's tile sizes."""
+    row_tiles = -(-T // row_tile)
+    vocab_tiles = -(-V // vocab_tile)
+    per_chunk = -(-vocab_tiles // max(1, (4 * n_sms) // row_tiles))
+    return per_chunk, -(-vocab_tiles // per_chunk)
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "

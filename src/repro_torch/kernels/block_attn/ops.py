@@ -31,7 +31,9 @@ def flash_block_attention(q, k, v, *, mode: str = ref.BLOCK_CAUSAL,
                           window: Optional[int] = None, scale: float = 1.0,
                           softcap: Optional[float] = None) -> torch.Tensor:
     """q: (b, L, Kv, G, hd); k/v: (b, L, Kv, hd). Query position i sits at
-    position i. Returns (b, L, Kv, G, hd) fp32."""
+    position i. Returns (b, L, Kv, G, hd) fp32. Refuses inputs that require
+    grad while grad mode is on: there is no backward."""
+    _build.refuse_grad("flash_block_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.block_attention(q, k, v, mode=mode, prompt_len=prompt_len,
                                    block_size=block_size, window=window,

@@ -34,7 +34,10 @@ def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
                      window: Optional[int] = None) -> torch.Tensor:
     """q: (b, Bq, Kv, G, hd); k/v_cache: (b, S, Kv, hd), any strides with a
     unit last one (a period slice of the stacked cache); k/v_blk: (b, Bq,
-    Kv, hd); cache_lens: (b,) int32. Returns (b, Bq, Kv, G, hd) fp32."""
+    Kv, hd); cache_lens: (b,) int32. Returns (b, Bq, Kv, G, hd) fp32.
+    Refuses inputs that require grad while grad mode is on: there is no
+    backward."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache, k_blk, v_blk)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, k_blk, v_blk,
                                     cache_lens, scale=scale, softcap=softcap,
@@ -76,7 +79,9 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
     strides with a unit last one (a period slice of the stacked pool);
     k/v_blk: (b, Bq, Kv, hd); page_table: (b, n_t) int32, -1 = unallocated;
     cache_lens: (b,) int32, each at most n_t * page. Returns (b, Bq, Kv, G,
-    hd) fp32."""
+    hd) fp32. Refuses inputs that require grad while grad mode is on."""
+    _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_blk,
+                       v_blk)
     if q.device.type == "cpu":
         return ref.paged_decode_attention(
             q, k_pages, v_pages, k_blk, v_blk, page_table, cache_lens,

@@ -24,18 +24,11 @@ ROW_TILE = 64     # hidden rows per block (BM in select.cu)
 VOCAB_TILE = 64   # vocab rows per inner tile (BN in select.cu)
 
 
-def chunking(T: int, V: int, n_sms: int):
-    """(vocab tiles per chunk, chunks): the vocab is split so that the grid
-    of (row tiles x chunks) holds about four blocks per SM."""
-    row_tiles = -(-T // ROW_TILE)
-    vocab_tiles = -(-V // VOCAB_TILE)
-    per_chunk = -(-vocab_tiles // max(1, (4 * n_sms) // row_tiles))
-    return per_chunk, -(-vocab_tiles // per_chunk)
-
-
 def fused_select(hidden, w, masked, *, softcap: Optional[float] = None):
     """hidden: (..., d); w: (V, d); masked: (...) bool (False = finalized
-    row) -> (cand (...) int32, conf (...) fp32)."""
+    row) -> (cand (...) int32, conf (...) fp32). Refuses inputs that
+    require grad while grad mode is on: there is no backward."""
+    _build.refuse_grad("fused_select", hidden, w)
     lead = hidden.shape[:-1]
     h2 = hidden.reshape(-1, hidden.shape[-1])
     m2 = masked.reshape(-1)
@@ -72,7 +65,8 @@ def _launch(h, w, masked, softcap):
     if T == 0:
         return cand, conf
     n_sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    per_chunk, n_chunks = chunking(T, V, n_sms)
+    per_chunk, n_chunks = _build.chunking(T, V, n_sms, ROW_TILE,
+                                               VOCAB_TILE)
     part_m = torch.empty((n_chunks, T), dtype=torch.float32, device=h.device)
     part_l = torch.empty_like(part_m)
     part_i = torch.empty((n_chunks, T), dtype=torch.int32, device=h.device)

@@ -1,0 +1,149 @@
+"""Fused cross-entropy: the wrapper of ``csrc/xent.cu``.
+
+``fused_xent(hidden, w, targets)`` is the per-token loss
+``logsumexp_v(h_t . W_v) - h_t . W_{y_t}`` without a ``(T, V)`` logits
+tensor, as the JAX package's ``kernels/xent/ops.py::fused_xent`` computes
+it, with the unembedding in the port's ``(V, d)`` layout. It is a
+``torch.autograd.Function``: the backward recomputes the logits chunk by
+chunk and returns ``dh`` in hidden's dtype and ``dW`` in w's dtype (the
+JAX ``_bwd``). A CPU tensor takes the plain versions (``ref.py``); a CUDA
+tensor launches the kernels or raises. ``fused_xent.launches`` counts
+forward calls that launched the kernel, ``fused_xent.backward_launches``
+backward calls.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.xent import ref
+
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
+DTYPES = (torch.float32, torch.bfloat16)
+ROW_TILE = 64     # hidden rows per forward block (kBM in xent.cu)
+VOCAB_TILE = 64   # vocab rows per inner tile (kBN in xent.cu)
+PROBS_ELEMENTS = 1 << 24   # backward scratch: T x chunk fp32 probabilities
+
+
+def backward_chunk(T: int, V: int) -> int:
+    """Vocab rows per backward chunk: a multiple of 64 that keeps the
+    ``(T, chunk)`` fp32 probability scratch near 64 MB."""
+    chunk = max(64, (PROBS_ELEMENTS // max(T, 1)) // 64 * 64)
+    return min(chunk, -(-V // 64) * 64)
+
+
+def fused_xent(hidden, w, targets, *, softcap: Optional[float] = None):
+    """hidden: (T, d); w: (V, d); targets: (T,) int -> loss (T,) fp32.
+    ``hidden`` is made contiguous first. There is no final-logit softcap,
+    as in the JAX kernel: a ``softcap`` raises."""
+    if softcap is not None:
+        raise ValueError("fused_xent: no final-logit softcap (the JAX kernel "
+                         "has none); a softcapped model cannot use it")
+    if (hidden.ndim != 2 or w.ndim != 2 or w.shape[1] != hidden.shape[1]
+            or targets.shape != hidden.shape[:1]):
+        raise ValueError(f"fused_xent: hidden {tuple(hidden.shape)} (T, d), "
+                         f"w {tuple(w.shape)} (V, d) and targets "
+                         f"{tuple(targets.shape)} (T,) do not match")
+    return _FusedXent.apply(hidden.contiguous(), w, targets)
+
+
+fused_xent.launches = 0
+fused_xent.backward_launches = 0
+
+
+class _FusedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, w, targets):
+        if hidden.device.type == "cpu":
+            loss, logz = ref.xent_streaming(hidden, w, targets)
+        else:
+            loss, logz = _forward(hidden, w, targets)
+        ctx.save_for_backward(hidden, w, targets, logz)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w, targets, logz = ctx.saved_tensors
+        need_dh, need_dw = ctx.needs_input_grad[:2]
+        if hidden.device.type == "cpu":
+            # the JAX _bwd: statistics pass, then gradients
+            dh, dw = ref.xent_backward(hidden, w, targets, g, need_dw=need_dw)
+        else:
+            dh, dw = _backward(hidden, w, targets, logz, g, need_dw)
+        return (dh if need_dh else None), dw, None
+
+
+def _check(name, hidden, w, targets):
+    T, d = hidden.shape
+    if w.device != hidden.device or targets.device != hidden.device:
+        raise ValueError(f"{name}: tensors on different devices")
+    if hidden.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {hidden.device}")
+    if hidden.dtype not in DTYPES or w.dtype != hidden.dtype:
+        raise ValueError(f"{name}: hidden and w must share one dtype of "
+                         f"{DTYPES}")
+    if not (hidden.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: hidden and w must be contiguous")
+    if d % 8 or hidden.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: d must be a multiple of 8 and the buffers "
+                         "16-byte aligned (8-element vector loads)")
+    if w.shape[0] == 0:
+        raise ValueError(f"{name}: empty vocabulary")
+    return targets.to(torch.int32).contiguous()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(hidden, w, targets):
+    y = _check("fused_xent", hidden, w, targets)
+    T, d = hidden.shape
+    V = w.shape[0]
+    loss = torch.empty((T,), dtype=torch.float32, device=hidden.device)
+    logz = torch.empty_like(loss)
+    if T == 0:
+        return loss, logz
+    n_sms = torch.cuda.get_device_properties(
+        hidden.device).multi_processor_count
+    per_chunk, n_chunks = _build.chunking(T, V, n_sms, ROW_TILE,
+                                           VOCAB_TILE)
+    part = torch.empty((3, n_chunks, T), dtype=torch.float32,
+                       device=hidden.device)
+    fn = _build.function("xent_forward", _FWD_ARGTYPES)
+    rc = fn(hidden.data_ptr(), w.data_ptr(), y.data_ptr(), loss.data_ptr(),
+            logz.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            part[2].data_ptr(), T, V, d, per_chunk, n_chunks,
+            int(hidden.dtype == torch.bfloat16), _stream(hidden))
+    _build.check(rc, "xent_forward")
+    fused_xent.launches += 1
+    return loss, logz
+
+
+def _backward(hidden, w, targets, logz, g, need_dw):
+    y = _check("fused_xent backward", hidden, w, targets)
+    T, d = hidden.shape
+    V = w.shape[0]
+    g = g.to(device=hidden.device, dtype=torch.float32).contiguous()
+    dh = torch.empty_like(hidden)
+    dw = torch.empty_like(w) if need_dw else None
+    if T == 0:
+        return dh, None if dw is None else dw.zero_()
+    chunk = backward_chunk(T, V)
+    dh_acc = torch.empty((T, d), dtype=torch.float32, device=hidden.device)
+    probs = torch.empty((T, chunk), dtype=torch.float32,
+                        device=hidden.device)
+    fn = _build.function("xent_backward", _BWD_ARGTYPES)
+    rc = fn(hidden.data_ptr(), w.data_ptr(), y.data_ptr(), logz.data_ptr(),
+            g.data_ptr(), dh.data_ptr(), None if dw is None else dw.data_ptr(),
+            dh_acc.data_ptr(), probs.data_ptr(), T, V, d, chunk,
+            int(hidden.dtype == torch.bfloat16), _stream(hidden))
+    _build.check(rc, "xent_backward")
+    fused_xent.backward_launches += 1
+    return dh, dw

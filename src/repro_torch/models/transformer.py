@@ -16,9 +16,10 @@ Per-slot emissions ``{"k", "v"}`` come back stacked over periods,
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, MLP, ModelConfig
@@ -28,6 +29,9 @@ from repro_torch.models import layers as L
 
 
 class ModelOutput(NamedTuple):
+    """The JAX ``ModelOutput`` without ``aux_loss``: a dense ``ATTN``/``MLP``
+    stack has no router, so its aux loss is 0 and the training losses add
+    ``router_aux_weight * 0`` by leaving it out."""
     logits: Optional[torch.Tensor]  # (b, Lq, V) fp32; None without logits
     hidden: torch.Tensor            # (b, Lq, d) last hidden (post final norm)
     emissions: tuple                # per slot {"k", "v"} stacked over periods
@@ -125,7 +129,8 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             block_size: int = 1, positions=None, cache=None, cache_len=None,
             use_long_window: bool = False,
             decode_attention_fn=None, paged_decode_attention_fn=None,
-            prefill_attention_fn=None,
+            prefill_attention_fn=None, remat: bool = False,
+            logits_slice: Optional[Tuple[int, int]] = None,
             return_logits: bool = True) -> ModelOutput:
     """Run the model.
 
@@ -145,7 +150,11 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     forwards at the default positions ``arange(L)`` (the kernel derives
     visibility from indices, so given ``positions`` take the generic
     path). ``return_logits=False`` skips the lm_head (the fused-select
-    decode reads ``hidden``).
+    decode reads ``hidden``); ``logits_slice=(s0, s1)`` applies it to
+    positions ``[s0, s1)`` only (the CDLM losses read generation-span
+    logits). ``remat`` recomputes each layer period in the backward
+    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``
+    of the period body) when grad mode is on.
     """
     check_dense(cfg)
     dev = resolve_device(device)
@@ -178,14 +187,27 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
                decode_attention_fn=decode_attention_fn,
                paged_decode_attention_fn=paged_decode_attention_fn,
                prefill_attention_fn=prefill_attention_fn)
-    emitted = [[] for _ in cfg.layer_period]
-    for p in range(cfg.n_periods):
+
+    def period_body(x, p: int):
+        ems = []
         for i, slot_params in enumerate(params["slots"]):
             slot = _period(slot_params, p)
-            ctx["cache_slot"] = None if cache is None else _period(cache[i], p)
-            x, em = _self_attention_slot(slot, x, cfg=cfg, ctx=ctx)
+            c = dict(ctx, cache_slot=None if cache is None
+                     else _period(cache[i], p))
+            x, em = _self_attention_slot(slot, x, cfg=cfg, ctx=c)
             h = L.apply_norm(slot["norm2"], x, cfg)
             x = x + L.apply_mlp(slot["mlp"], h, cfg)
+            ems.append(em)
+        return x, ems
+
+    checkpointed = remat and torch.is_grad_enabled()
+    emitted = [[] for _ in cfg.layer_period]
+    for p in range(cfg.n_periods):
+        if checkpointed:
+            x, ems = checkpoint(period_body, x, p, use_reentrant=False)
+        else:
+            x, ems = period_body(x, p)
+        for i, em in enumerate(ems):
             emitted[i].append(em)
     emissions = tuple({key: torch.stack([em[key] for em in ems])
                        for key in ("k", "v")} for ems in emitted)
@@ -193,5 +215,7 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     hidden = L.apply_norm(params["final_norm"], x, cfg)
     if not return_logits:
         return ModelOutput(logits=None, hidden=hidden, emissions=emissions)
-    return ModelOutput(logits=L.lm_head(params["embed"], hidden, cfg),
+    head_in = (hidden if logits_slice is None
+               else hidden[:, logits_slice[0]:logits_slice[1]])
+    return ModelOutput(logits=L.lm_head(params["embed"], head_in, cfg),
                        hidden=hidden, emissions=emissions)

@@ -20,6 +20,8 @@ from repro_torch.bridge import (  # noqa: E402
     params_from_jax,
 )
 from repro_torch.configs import ARCHITECTURES, get_config  # noqa: E402
+from repro_torch.configs import base as port_base  # noqa: E402
+from repro.configs import base as jax_base  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -109,6 +111,18 @@ def test_configs_match_the_jax_package(name):
     assert dataclasses.asdict(mine.reduced()) == {
         f.name: getattr(theirs.reduced(), f.name)
         for f in dataclasses.fields(mine)}
+
+
+@pytest.mark.parametrize("name", ["CDLMConfig", "TrainConfig",
+                                  "ServeConfig"])
+def test_training_and_serving_configs_match_the_jax_package(name):
+    mine, theirs = getattr(port_base, name)(), getattr(jax_base, name)()
+    assert [f.name for f in dataclasses.fields(mine)] == \
+        [f.name for f in dataclasses.fields(theirs)]
+    for f in dataclasses.fields(mine):
+        assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
+    if name == "CDLMConfig":
+        assert mine.n_blocks == theirs.n_blocks
 
 
 def test_unported_architectures_are_refused():

@@ -17,6 +17,9 @@ from repro_torch.kernels.decode_attn import (  # noqa: E402
 from repro_torch.kernels.decode_attn import ref as dref  # noqa: E402
 from repro_torch.kernels.select import fused_select  # noqa: E402
 from repro_torch.kernels.select import ref as sref  # noqa: E402
+from repro_torch.kernels.xent import fused_xent  # noqa: E402
+from repro_torch.kernels.xent import ops as xops  # noqa: E402
+from repro_torch.kernels.xent import ref as xref  # noqa: E402
 
 
 @pytest.fixture
@@ -215,3 +218,114 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         fused_select(h, torch.zeros((10, 12), device=cuda),
                      torch.ones((4,), dtype=torch.bool, device=cuda))
+
+
+def _xent_case(cuda, T, d, V, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    h = _randn(gen, T, d).to(dtype)
+    w = (_randn(gen, V, d) * 0.3).to(dtype)
+    y = torch.randint(0, V, (T,), generator=gen, device=cuda)
+    y[:2] = torch.tensor([0, V - 1], device=cuda)          # vocab edges
+    g = torch.rand((T,), generator=gen, device=cuda) + 0.2
+    g[::5] = 0.0                                           # rows with g = 0
+    return h, w, y, g
+
+
+def _grad_close(got, want, dtype):
+    """fp32: both sides sum fp32 products in other orders, within 1e-5 of
+    max|grad|; bf16 outputs: the fp32 sums round to bf16, one bf16 ulp
+    (2^-8 relative) apart at most."""
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=1e-5 * scale,
+        rtol=0 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V,chunk_elems,dtype", [
+    (128, 64, 512, None, torch.float32),
+    (200, 32, 1000, None, torch.float32),
+    (64, 128, 593, None, torch.bfloat16),
+    (300, 96, 5003, 300 * 128, torch.float32),     # 40 backward chunks
+    (256, 896, 9000, 256 * 1024, torch.bfloat16),  # ragged last chunk
+])
+def test_xent_kernels_match_plain(cuda, monkeypatch, T, d, V, chunk_elems,
+                                  dtype):
+    if chunk_elems is not None:
+        monkeypatch.setattr(xops, "PROBS_ELEMENTS", chunk_elems)
+    h, w, y, g = _xent_case(cuda, T, d, V, dtype, T + V)
+    before = (fused_xent.launches, fused_xent.backward_launches)
+    hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+    loss = fused_xent(hh, ww, y)
+    dh, dw = torch.autograd.grad((loss * g).sum(), (hh, ww))
+    assert (fused_xent.launches, fused_xent.backward_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_loss, want_logz = xref.xent_streaming(h, w, y)
+    want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
+    # both sides read the same inputs and accumulate in fp32
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-4)
+    torch.testing.assert_close(loss, xref.xent_ref(h, w, y), rtol=0,
+                               atol=1e-4)
+    assert dh.dtype == dtype and dw.dtype == dtype
+    _grad_close(dh, want_dh, dtype)
+    _grad_close(dw, want_dw, dtype)
+    assert torch.all(dh[::5] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_backward_is_deterministic(cuda, monkeypatch, dtype):
+    monkeypatch.setattr(xops, "PROBS_ELEMENTS", 256 * 512)
+    h, w, y, g = _xent_case(cuda, 256, 128, 3001, dtype, 7)
+    runs = []
+    for _ in range(2):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        runs.append(torch.autograd.grad((fused_xent(hh, ww, y) * g).sum(),
+                                        (hh, ww)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_xent_frozen_head_skips_dw(cuda):
+    h, w, y, g = _xent_case(cuda, 64, 64, 700, torch.float32, 3)
+    hh = h.clone().requires_grad_()
+    (dh,) = torch.autograd.grad((fused_xent(hh, w, y) * g).sum(), (hh,))
+    _grad_close(dh, xref.xent_backward(h, w, y, g, need_dw=False)[0],
+                torch.float32)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_cuda(cuda):
+    """The attention and select kernels have no backward: with grad mode on
+    and an input that requires grad they raise before any launch; under
+    no_grad they launch."""
+    q = torch.zeros((1, 4, 1, 2, 64), device=cuda, requires_grad=True)
+    blk = torch.zeros((1, 4, 1, 64), device=cuda)
+    cache = torch.zeros((1, 8, 1, 64), device=cuda)
+    lens = torch.full((1,), 3, dtype=torch.int32, device=cuda)
+    table = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    pool = torch.zeros((1, 8, 1, 64), device=cuda)
+    h = torch.zeros((4, 64), device=cuda, requires_grad=True)
+    w = torch.zeros((10, 64), device=cuda)
+    calls = {
+        "decode_attention": (decode_attention, lambda: decode_attention(
+            q, cache, cache, blk, blk, lens)),
+        "paged_decode_attention": (paged_decode_attention,
+                                   lambda: paged_decode_attention(
+                                       q, pool, pool, blk, blk, table, lens)),
+        "flash_block_attention": (flash_block_attention,
+                                  lambda: flash_block_attention(
+                                      q, blk, blk, mode="bidirectional")),
+        "fused_select": (fused_select, lambda: fused_select(
+            h, w, torch.ones((4,), dtype=torch.bool, device=cuda))),
+    }
+    for name, (fn, call) in calls.items():
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert fn.launches == before, name
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
