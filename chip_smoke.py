@@ -6,14 +6,19 @@
 Phases, each timed, any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, and an nvcc build of every kernel source of the checkout;
+   versions, and an nvcc build of every kernel source of the checkout; the
+   tensor-core xent kernels' registers, shared memory and spills (ptxas)
+   and their HGMMA instructions (cuobjdump: present in the bf16 kernels,
+   absent from the fp32 ones);
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (and small softcap / window / mode cases), each timed with
    CUDA events beside its plain version and one PyTorch yardstick call; the
    paged decode kernel also equals the dense one bit for bit on identity
    and permuted page tables; the fused cross-entropy forward and backward
    at the training path's shape (T=1,024, d=896, V=151,936) in bf16 and
-   fp32 and at a ragged vocabulary, its backward twice bit for bit; block
+   fp32, with sharp logits (W unscaled) in bf16, and at a ragged vocabulary
+   (T=300, d=256, V=50,021) in both dtypes and sharp, the loss also against
+   a float64 oracle, its backward twice bit for bit; block
    attention and select also at the trajectory collector's shapes;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
@@ -49,6 +54,8 @@ Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
 """
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -72,6 +79,14 @@ BLOCK_TPU = "src/repro/kernels/block_attn/block_attn.py:96"
 XENT_SRC = "src/repro_torch/kernels/xent/csrc/xent.cu"
 XENT_TPU = "src/repro/kernels/xent/xent.py:59"
 XENT_BWD_TPU = "src/repro/kernels/xent/ops.py:71"
+# the CUDA kernels' names: bf16 route (tensor cores, *_tc) and fp32 route
+XENT_TC_KERNELS = ["xent_partial_tc", "xent_probs_tc", "xent_grad_tc"]
+XENT_FP32_KERNELS = ["xent_partial_kernel", "xent_probs_kernel",
+                     "xent_dh_kernel", "xent_dw_kernel"]
+XENT_FWD_KERNELS = ["xent_partial_tc", "xent_partial_kernel",
+                    "xent_merge_kernel"]
+XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
+                    "xent_dh_kernel", "xent_dw_kernel", "xent_dh_final_kernel"]
 KERNELS = ("decode_attention", "fused_select", "paged_decode_attention",
            "block_attention", "xent_forward", "xent_backward")
 NEAR_TIE = 1e-4
@@ -136,6 +151,59 @@ def bound_ms(n_bytes, n_ops, dtype):
     t_ops = n_ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+# ---------------------------------------------------------------------------
+# phase 1: what the compiler made of the tensor-core kernels
+# ---------------------------------------------------------------------------
+def _kernel_of(mangled, names):
+    return next((n for n in names if n in mangled), None)
+
+
+def ptxas_report(report, names):
+    """Registers, static shared memory and spills of the kernels ``names``
+    from ptxas' -v report."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = _kernel_of(m.group(1), names)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m[1]),
+                                           spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(cur, {}).update(
+                registers=int(m[1]),
+                static_smem_bytes=int(smem[1]) if smem else 0)
+    return out
+
+
+def sass_hgmma(so):
+    """HGMMA (wgmma) instructions in each xent kernel's SASS, from
+    cuobjdump of the built library: the bf16 kernels must have them, the
+    fp32 ones none."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    names = XENT_TC_KERNELS + XENT_FP32_KERNELS
+    counts, cur = {n: 0 for n in names}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _kernel_of(m.group(1), names)
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    if not (all(counts[n] > 0 for n in XENT_TC_KERNELS)
+            and all(counts[n] == 0 for n in XENT_FP32_KERNELS)):
+        raise AssertionError(f"xent SASS: HGMMA counts {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -474,10 +542,32 @@ def grad_limit(torch, got, want, dtype):
     return bool((err <= lim).all()), err.max().item()
 
 
-def check_xent(torch, dev, *, T, d, V, dtype, timed=False, name=""):
+def xent_f64(torch, h, w, y, chunk=8192):
+    """The per-token loss in float64, vocab chunk by chunk: an oracle for
+    fp32 sums (bf16 products are exact in float64)."""
+    hd = h.double()
+    m = torch.full((h.shape[0],), -torch.inf, dtype=torch.float64,
+                   device=h.device)
+    l, tgt = torch.zeros_like(m), torch.zeros_like(m)
+    for j in range(0, w.shape[0], chunk):
+        lo = hd @ w[j:j + chunk].double().t()
+        here = (y >= j) & (y < j + lo.shape[1])
+        at = lo.gather(1, (y - j).clamp(0, lo.shape[1] - 1)[:, None])[:, 0]
+        tgt += torch.where(here, at, torch.zeros_like(at))
+        m_new = torch.maximum(m, lo.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(lo - m_new[:, None]).sum(-1)
+        m = m_new
+    return m + torch.log(l) - tgt
+
+
+def check_xent(torch, dev, *, T, d, V, dtype, scale=0.02, timed=False,
+               name=""):
     """The fused cross-entropy forward and backward against their plain
     versions (both read the same inputs and accumulate in fp32), the
-    backward twice bit for bit."""
+    backward twice bit for bit. ``scale`` 1 leaves W unscaled: logits of
+    std ~30, a nearly one-hot softmax, and every other row's target on its
+    argmax, so dh_acc cancels against g W_y (a bf16 pair of probabilities
+    holds the gradient limit there, one bf16 rounding does not)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import fused_xent
@@ -486,9 +576,11 @@ def check_xent(torch, dev, *, T, d, V, dtype, timed=False, name=""):
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(V % 1000 + T)
     h = torch.randn((T, d), generator=gen, device=dev).to(dt)
-    w = (torch.randn((V, d), generator=gen, device=dev) * 0.02).to(dt)
+    w = (torch.randn((V, d), generator=gen, device=dev) * scale).to(dt)
     y = torch.randint(0, V, (T,), generator=gen, device=dev)
     y[:2] = torch.tensor([0, V - 1], device=dev)
+    if scale == 1.0:
+        y[3::2] = (h.float() @ w.float().t()).argmax(-1)[3::2]
     g = torch.rand((T,), generator=gen, device=dev)
     g[::5] = 0.0                               # rows with g = 0 still count
     loss, logz = xops._forward(h, w, y)
@@ -496,11 +588,20 @@ def check_xent(torch, dev, *, T, d, V, dtype, timed=False, name=""):
     dh2, dw2 = xops._backward(h, w, y, logz, g, True)
     want, want_logz = xref.xent_streaming(h, w, y)
     want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
+    oracle = xent_f64(torch, h, w, y)
     torch.cuda.synchronize()
     err = (loss - want).abs().max().item()
+    err_f64 = (loss.double() - oracle).abs().max().item()
+    plain_f64 = (want.double() - oracle).abs().max().item()
     tol = 1e-4
-    if not err <= tol:
-        raise AssertionError(f"xent {name}: loss max error {err} > {tol}")
+    # the loss against the float64 oracle, and against the plain version
+    # wherever the plain version itself holds the limit to the oracle (its
+    # fp32 logits miss by more with sharp logits of ~150 over d = 896)
+    if not (err_f64 <= tol and (err <= tol or plain_f64 > tol)):
+        raise AssertionError(f"xent {name}: loss max error {err} against "
+                             f"the plain version (which is {plain_f64} off "
+                             f"float64), {err_f64} against float64; "
+                             f"limit {tol}")
     ok_h, err_h = grad_limit(torch, dh, want_dh, dtype)
     ok_w, err_w = grad_limit(torch, dw, want_dw, dtype)
     if not (ok_h and ok_w):
@@ -511,7 +612,8 @@ def check_xent(torch, dev, *, T, d, V, dtype, timed=False, name=""):
     rec = {"kernel": "xent", "case": name, "dtype": dtype,
            "shape": dict(T=T, d=d, V=V,
                          backward_chunk=xops.backward_chunk(T, V)),
-           "max_abs_err": err, "tol": tol, "dh_max_abs_err": err_h,
+           "max_abs_err": err, "tol": tol, "max_abs_err_vs_f64": err_f64,
+           "plain_max_abs_err_vs_f64": plain_f64, "dh_max_abs_err": err_h,
            "dw_max_abs_err": err_w, "backward_bitwise_repeatable": True}
     if timed:
         item = h.element_size()
@@ -529,19 +631,23 @@ def check_xent(torch, dev, *, T, d, V, dtype, timed=False, name=""):
         io = (T * d + V * d) * item
         fb, fby = bound_ms(io + 4 * T * 3, 2 * T * V * d, dtype)
         bb, bby = bound_ms(2 * io + 4 * T * 3, 6 * T * V * d, dtype)
+        # the bf16 route's own work: the logits again, then both products
+        # on the pair e_hi + e_lo, 5 products of 2 T V d
+        pair_b, _ = bound_ms(2 * io + 4 * T * 3, 10 * T * V * d, dtype)
         rec.update(
             forward=dict(kernel_ms=fwd["kernel"], plain_ms=fwd["plain"],
                          library_ms=fwd["library"], bound_ms=fb, bound_by=fby,
                          kernel_device_ms=device_ms(
                              torch, lambda: xops._forward(h, w, y), 5,
-                             ["xent_partial_kernel", "xent_merge_kernel"])),
+                             XENT_FWD_KERNELS)),
             backward=dict(kernel_ms=bwd["kernel"], plain_ms=bwd["plain"],
                           library_ms=bwd["library"], bound_ms=bb,
                           bound_by=bby, kernel_device_ms=device_ms(
                               torch, lambda: xops._backward(h, w, y, logz, g,
                                                             True), 3,
-                              ["xent_probs_kernel", "xent_dh_kernel",
-                               "xent_dw_kernel", "xent_dh_final_kernel"])))
+                              XENT_BWD_KERNELS)))
+        if dtype == "bfloat16":
+            rec["backward"]["pair_work_bound_ms"] = pair_b
         del lib_loss, hl, wl
     log(json.dumps(rec))
     return rec
@@ -613,8 +719,13 @@ def phase_kernels(torch, dev):
                          timed=True, name=f"qwen2-0.5b {dtype}")
         if dtype == "bfloat16":
             main["xent"] = rec
-    check_xent(torch, dev, T=300, d=256, V=50_021, dtype="float32",
-               name="ragged V")
+    check_xent(torch, dev, T=1024, d=896, V=151_936, dtype="bfloat16",
+               scale=1.0, name="qwen2-0.5b sharp bfloat16")
+    for dtype in ("float32", "bfloat16"):
+        check_xent(torch, dev, T=300, d=256, V=50_021, dtype=dtype,
+                   name=f"ragged V {dtype}")
+    check_xent(torch, dev, T=300, d=256, V=50_021, dtype="bfloat16",
+               scale=1.0, name="ragged V sharp bfloat16")
     return main
 
 
@@ -1316,7 +1427,10 @@ def main():
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    _build.build(verbose=True)
+    so = _build.build(verbose=True)
+    log(json.dumps({"ptxas": ptxas_report(_build.PTXAS.get("xent.cu", ""),
+                                          XENT_TC_KERNELS)}))
+    log(json.dumps({"sass_hgmma": sass_hgmma(so)}))
     log(f"phase 1 (card, build): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()

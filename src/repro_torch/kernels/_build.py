@@ -1,12 +1,16 @@
 """Builds the port's CUDA kernels and binds them with ``ctypes``.
 
 Every ``*/csrc/*.cu`` file of this package has a plain C entry point (no
-PyTorch headers), so each compiles in seconds. On first use, :func:`build`
-runs one ``nvcc`` per source, all at once, then links the objects into one
-shared library under ``<checkout>/build/kernels/``. The library's name
-carries a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. A failed build raises with nvcc's
-stderr.
+PyTorch headers), so each compiles in seconds; headers shared between them
+(``common/csrc/hopper.cuh``: TMA, mbarrier and wgmma helpers) sit beside
+them under ``*/csrc/``. On first use, :func:`build` runs one ``nvcc`` per
+``.cu`` source, all at once, then links the objects into one shared library
+under ``<checkout>/build/kernels/``. The library's name carries a hash of
+every file under ``*/csrc/`` and of the flags, so an edited source or header
+is rebuilt and an unchanged tree is loaded as it is. The TMA tensor maps'
+driver-API encoder is fetched at run time through the CUDA runtime's
+entry-point query, so the link needs no ``-lcuda``. A failed build raises
+with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -25,10 +29,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _functions: dict = {}
+PTXAS: dict = {}   # source name -> ptxas' -v report of the last build here
 
 
 def sources():
+    """The ``.cu`` files, one object each."""
     return sorted(PKG_DIR.glob("*/csrc/*.cu"))
+
+
+def hashed_files():
+    """Every file the build reads: the sources and the headers they
+    include."""
+    return sorted(p for p in PKG_DIR.glob("*/csrc/*") if p.is_file())
 
 
 def _nvcc() -> str:
@@ -41,8 +53,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
+    for src in hashed_files():
+        h.update(str(src.relative_to(PKG_DIR)).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
 
@@ -50,7 +62,7 @@ def library_path() -> Path:
 def build(verbose: bool = False) -> Path:
     """Compile every source (in parallel) and link one shared library;
     returns its path. ``verbose`` prints ptxas' register and shared-memory
-    report of each kernel."""
+    report of each kernel; the report is kept in ``PTXAS`` either way."""
     so = library_path()
     if so.exists():
         return so
@@ -70,7 +82,9 @@ def build(verbose: bool = False) -> Path:
             out, err = proc.communicate()
             if proc.returncode:
                 errors.append(f"{src} (exit {proc.returncode}):\n{out}{err}")
-            elif verbose:
+                continue
+            PTXAS[src.name] = err
+            if verbose:
                 print(f"[nvcc] {src.name}\n{err}", end="", flush=True)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
@@ -112,13 +126,16 @@ def refuse_grad(name: str, *tensors) -> None:
                            "require grad")
 
 
-def chunking(T: int, V: int, n_sms: int, row_tile: int, vocab_tile: int):
+def chunking(T: int, V: int, n_sms: int, row_tile: int, vocab_tile: int,
+             blocks_per_sm: int):
     """(vocab tiles per chunk, chunks) of a vocab-chunked grid: the vocab
-    is split so that the grid of (row tiles x chunks) holds about four
-    blocks per SM. Each wrapper passes its own kernel's tile sizes."""
+    is split so that the grid of (row tiles x chunks) holds about
+    ``blocks_per_sm`` blocks per SM, the kernel's occupancy. Each wrapper
+    passes its own kernel's tile sizes and occupancy."""
     row_tiles = -(-T // row_tile)
     vocab_tiles = -(-V // vocab_tile)
-    per_chunk = -(-vocab_tiles // max(1, (4 * n_sms) // row_tiles))
+    per_chunk = -(-vocab_tiles // max(1, (blocks_per_sm * n_sms)
+                                      // row_tiles))
     return per_chunk, -(-vocab_tiles // per_chunk)
 
 

@@ -22,6 +22,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
 DTYPES = (torch.float32, torch.bfloat16)
 ROW_TILE = 64     # hidden rows per block (BM in select.cu)
 VOCAB_TILE = 64   # vocab rows per inner tile (BN in select.cu)
+BLOCKS_PER_SM = 4  # resident blocks per SM the vocab split aims for
 
 
 def fused_select(hidden, w, masked, *, softcap: Optional[float] = None):
@@ -65,8 +66,8 @@ def _launch(h, w, masked, softcap):
     if T == 0:
         return cand, conf
     n_sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    per_chunk, n_chunks = _build.chunking(T, V, n_sms, ROW_TILE,
-                                               VOCAB_TILE)
+    per_chunk, n_chunks = _build.chunking(T, V, n_sms, ROW_TILE, VOCAB_TILE,
+                                          BLOCKS_PER_SM)
     part_m = torch.empty((n_chunks, T), dtype=torch.float32, device=h.device)
     part_l = torch.empty_like(part_m)
     part_i = torch.empty((n_chunks, T), dtype=torch.int32, device=h.device)

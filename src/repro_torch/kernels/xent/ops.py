@@ -10,6 +10,12 @@ JAX ``_bwd``). A CPU tensor takes the plain versions (``ref.py``); a CUDA
 tensor launches the kernels or raises. ``fused_xent.launches`` counts
 forward calls that launched the kernel, ``fused_xent.backward_launches``
 backward calls.
+
+The kernel's route is chosen by dtype, and both are kernels: bf16 runs on
+the tensor cores (wgmma fed by TMA, 128 x 128 tiles, one block per SM), fp32
+on CUDA cores in fp32 (64 x 64 tiles, four blocks per SM), since fp32 on the
+tensor cores would be TF32. A bf16 launch that fails raises; nothing falls
+back to the fp32 route.
 """
 from __future__ import annotations
 
@@ -26,16 +32,25 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
 DTYPES = (torch.float32, torch.bfloat16)
-ROW_TILE = 64     # hidden rows per forward block (kBM in xent.cu)
-VOCAB_TILE = 64   # vocab rows per inner tile (kBN in xent.cu)
-PROBS_ELEMENTS = 1 << 24   # backward scratch: T x chunk fp32 probabilities
+# (hidden rows, vocab rows) of a forward tile and resident blocks per SM:
+# xent.cu's tc::kTile for bf16, kBM / kBN for fp32
+TILES = {torch.bfloat16: (128, 128, 1), torch.float32: (64, 64, 4)}
+CHUNK_ALIGN = 128   # backward chunks are whole bf16 tiles
+# A backward chunk's scratch, 4 bytes per (row, vocab row): fp32
+# probabilities, or the bf16 pair e_hi, e_lo. Within 16 MB a chunk's stays
+# in the H100's 50 MB L2 from the launch that writes it to the one that
+# reads it (the bf16 route keeps two chunks', 32 MB: chunk c + 1's
+# probabilities are made while chunk c's gradients are).
+PROBS_BYTES = 16 << 20
 
 
 def backward_chunk(T: int, V: int) -> int:
-    """Vocab rows per backward chunk: a multiple of 64 that keeps the
-    ``(T, chunk)`` fp32 probability scratch near 64 MB."""
-    chunk = max(64, (PROBS_ELEMENTS // max(T, 1)) // 64 * 64)
-    return min(chunk, -(-V // 64) * 64)
+    """Vocab rows per backward chunk: a multiple of 128 that keeps the
+    ``4 T chunk``-byte scratch within ``PROBS_BYTES`` (at least one tile,
+    at most the vocabulary rounded up)."""
+    chunk = max(CHUNK_ALIGN, (PROBS_BYTES // (4 * max(T, 1)))
+                // CHUNK_ALIGN * CHUNK_ALIGN)
+    return min(chunk, -(-V // CHUNK_ALIGN) * CHUNK_ALIGN)
 
 
 def fused_xent(hidden, w, targets, *, softcap: Optional[float] = None):
@@ -112,8 +127,7 @@ def _forward(hidden, w, targets):
         return loss, logz
     n_sms = torch.cuda.get_device_properties(
         hidden.device).multi_processor_count
-    per_chunk, n_chunks = _build.chunking(T, V, n_sms, ROW_TILE,
-                                           VOCAB_TILE)
+    per_chunk, n_chunks = _build.chunking(T, V, n_sms, *TILES[hidden.dtype])
     part = torch.empty((3, n_chunks, T), dtype=torch.float32,
                        device=hidden.device)
     fn = _build.function("xent_forward", _FWD_ARGTYPES)
@@ -137,8 +151,12 @@ def _backward(hidden, w, targets, logz, g, need_dw):
         return dh, None if dw is None else dw.zero_()
     chunk = backward_chunk(T, V)
     dh_acc = torch.empty((T, d), dtype=torch.float32, device=hidden.device)
-    probs = torch.empty((T, chunk), dtype=torch.float32,
-                        device=hidden.device)
+    if hidden.dtype == torch.bfloat16:   # two chunks' pairs e_hi, e_lo
+        probs = torch.empty((2, 2, T, chunk), dtype=torch.bfloat16,
+                            device=hidden.device)
+    else:                                # one chunk's probabilities
+        probs = torch.empty((T, chunk), dtype=torch.float32,
+                            device=hidden.device)
     fn = _build.function("xent_backward", _BWD_ARGTYPES)
     rc = fn(hidden.data_ptr(), w.data_ptr(), y.data_ptr(), logz.data_ptr(),
             g.data_ptr(), dh.data_ptr(), None if dw is None else dw.data_ptr(),

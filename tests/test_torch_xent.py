@@ -172,14 +172,40 @@ def test_no_launch_on_the_cpu_and_bad_calls_raise():
         fused_xent(th, torch.tensor(w[:, :16]), torch.tensor(y))
 
 
-@pytest.mark.parametrize("T,V,tile", [(1024, 151_936, 64), (128, 151_936, 64),
-                                      (300, 50_021, 64), (1, 593, 64),
-                                      (5000, 1000, 32)])
-def test_vocab_chunking_covers_the_vocabulary_once(T, V, tile):
+@pytest.mark.parametrize("T,V,tile,per_sm", [
+    (1024, 151_936, 64, 4), (128, 151_936, 64, 4), (300, 50_021, 64, 4),
+    (1, 593, 64, 4), (5000, 1000, 32, 4), (1024, 151_936, 128, 1),
+    (300, 50_021, 128, 1)])
+def test_vocab_chunking_covers_the_vocabulary_once(T, V, tile, per_sm):
     """The vocab-chunked grid shared by the xent and select wrappers: every
-    vocab tile falls in exactly one chunk, and no chunk is empty."""
+    vocab tile falls in exactly one chunk, no chunk is empty, and the grid
+    holds no more than about ``per_sm`` blocks per SM."""
     from repro_torch.kernels import _build
-    per_chunk, n_chunks = _build.chunking(T, V, 132, tile, tile)
+    per_chunk, n_chunks = _build.chunking(T, V, 132, tile, tile, per_sm)
     vocab_tiles = -(-V // tile)
     assert per_chunk >= 1
     assert (n_chunks - 1) * per_chunk < vocab_tiles <= n_chunks * per_chunk
+    row_tiles = -(-T // tile)
+    assert row_tiles * n_chunks <= max(per_sm * 132, row_tiles) + row_tiles
+
+
+@pytest.mark.parametrize("T,V", [(1024, 151_936), (300, 50_021), (1, 593),
+                                 (256, 9000), (16_384, 151_936),
+                                 (100_000, 1000)])
+def test_backward_chunks_cover_the_vocabulary_within_the_l2_budget(T, V):
+    """The backward's vocab chunks: whole 128-row tiles that cover the
+    vocabulary once, in order, with the ``4 T chunk``-byte scratch (fp32
+    probabilities or the bf16 pair) within ``PROBS_BYTES`` unless one tile
+    alone exceeds it; at the training shape 4,096 rows, 16 MB."""
+    from repro_torch.kernels.xent import ops as xops
+    chunk = xops.backward_chunk(T, V)
+    assert chunk % xops.CHUNK_ALIGN == 0 and chunk > 0
+    starts = list(range(0, V, chunk))
+    widths = [min(chunk, V - v0) for v0 in starts]
+    assert sum(widths) == V and all(w > 0 for w in widths)
+    assert (4 * T * chunk <= xops.PROBS_BYTES
+            or chunk == xops.CHUNK_ALIGN)
+    assert chunk <= -(-V // 128) * 128
+    if (T, V) == (1024, 151_936):
+        assert chunk == 4096 and len(starts) == 38
+        assert 4 * T * chunk == 16 << 20
