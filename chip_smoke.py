@@ -7,9 +7,10 @@ Phases, each timed, any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions, and an nvcc build of every kernel source of the checkout; the
-   tensor-core xent kernels' registers, shared memory and spills (ptxas)
-   and their HGMMA instructions (cuobjdump: present in the bf16 kernels,
-   absent from the fp32 ones);
+   tensor-core kernels' (xent, block attention, select) registers, shared
+   memory and spills (ptxas: none may spill) and every kernel's HGMMA
+   instructions (cuobjdump: present in the bf16 kernels, absent from the
+   fp32 ones);
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (and small softcap / window / mode cases), each timed with
    CUDA events beside its plain version and one PyTorch yardstick call; the
@@ -19,7 +20,9 @@ Phases, each timed, any failure raises and exits non-zero:
    fp32, with sharp logits (W unscaled) in bf16, and at a ragged vocabulary
    (T=300, d=256, V=50,021) in both dtypes and sharp, the loss also against
    a float64 oracle, its backward twice bit for bit; block
-   attention and select also at the trajectory collector's shapes;
+   attention and select also at the trajectory collector's shapes (block
+   attention timed there too), select's candidates and confidences also
+   against a float64 oracle;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -83,6 +86,14 @@ XENT_BWD_TPU = "src/repro/kernels/xent/ops.py:71"
 XENT_TC_KERNELS = ["xent_partial_tc", "xent_probs_tc", "xent_grad_tc"]
 XENT_FP32_KERNELS = ["xent_partial_kernel", "xent_probs_kernel",
                      "xent_dh_kernel", "xent_dw_kernel"]
+BLOCK_KERNELS = ["block_attn_tc", "block_attn_kernel"]
+SELECT_KERNELS = ["select_partial_tc", "select_partial_kernel",
+                  "select_merge_kernel"]
+# source -> its tensor-core kernels, and the fp32 kernels beside them
+TC_KERNELS = {"xent.cu": XENT_TC_KERNELS, "block_attn.cu": ["block_attn_tc"],
+              "select.cu": ["select_partial_tc"]}
+FP32_KERNELS = XENT_FP32_KERNELS + ["block_attn_kernel",
+                                    "select_partial_kernel"]
 XENT_FWD_KERNELS = ["xent_partial_tc", "xent_partial_kernel",
                     "xent_merge_kernel"]
 XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
@@ -157,12 +168,18 @@ def bound_ms(n_bytes, n_ops, dtype):
 # phase 1: what the compiler made of the tensor-core kernels
 # ---------------------------------------------------------------------------
 def _kernel_of(mangled, names):
-    return next((n for n in names if n in mangled), None)
+    """The kernel of ``names`` a mangled name is, labelled with its template
+    arguments (``block_attn_tc<64>``), or None."""
+    name = next((n for n in names if n in mangled), None)
+    if name is None:
+        return None
+    args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+    return f"{name}<{','.join(args)}>" if args else name
 
 
 def ptxas_report(report, names):
     """Registers, static shared memory and spills of the kernels ``names``
-    from ptxas' -v report."""
+    (each template instance apart) from ptxas' -v report."""
     out, cur = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -185,24 +202,46 @@ def ptxas_report(report, names):
     return out
 
 
+def ptxas_check(ptxas):
+    """The tensor-core kernels' ptxas reports: every kernel (and template
+    instance) reported, with its registers and no spills."""
+    out = {}
+    for src, names in TC_KERNELS.items():
+        rep = ptxas_report(ptxas.get(src, ""), names)
+        for name in names:
+            if not any(k.split("<")[0] == name for k in rep):
+                raise AssertionError(f"ptxas: no report of {name} in {src}")
+        for label, r in rep.items():
+            if ("registers" not in r or r.get("spill_stores", 1)
+                    or r.get("spill_loads", 1)):
+                raise AssertionError(f"ptxas: {label} {r}")
+        out.update(rep)
+    return out
+
+
 def sass_hgmma(so):
-    """HGMMA (wgmma) instructions in each xent kernel's SASS, from
-    cuobjdump of the built library: the bf16 kernels must have them, the
-    fp32 ones none."""
+    """HGMMA (wgmma) instructions in each tensor-core and fp32 kernel's
+    SASS (each template instance apart), from cuobjdump of the built
+    library: the bf16 kernels must have them, the fp32 ones none."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    names = XENT_TC_KERNELS + XENT_FP32_KERNELS
-    counts, cur = {n: 0 for n in names}, None
+    tc = [n for names in TC_KERNELS.values() for n in names]
+    counts, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = _kernel_of(m.group(1), names)
+            cur = _kernel_of(m.group(1), tc + FP32_KERNELS)
+            if cur is not None:
+                counts.setdefault(cur, 0)
         elif cur is not None and "HGMMA" in line:
             counts[cur] += 1
-    if not (all(counts[n] > 0 for n in XENT_TC_KERNELS)
-            and all(counts[n] == 0 for n in XENT_FP32_KERNELS)):
-        raise AssertionError(f"xent SASS: HGMMA counts {counts}")
+    base = {k: k.split("<")[0] for k in counts}
+    if not (all(any(b == n for b in base.values()) for n in tc + FP32_KERNELS)
+            and all(c > 0 for k, c in counts.items() if base[k] in tc)
+            and all(c == 0 for k, c in counts.items()
+                    if base[k] in FP32_KERNELS)):
+        raise AssertionError(f"SASS: HGMMA counts {counts}")
     return counts
 
 
@@ -419,7 +458,7 @@ def check_block(torch, dev, *, b, L, Kv, G, hd, dtype, mode, prompt_len=0,
                    visible_pairs=int(vis.sum()),
                    kernel_device_ms=device_ms(
                        torch, lambda: flash_block_attention(q, k, v, **kw),
-                       10, ["block_attn_kernel"]))
+                       10, BLOCK_KERNELS))
     log(json.dumps(rec))
     return rec
 
@@ -453,6 +492,24 @@ def select_limits(torch, h, w, cand, V):
     return conf_rel.float(), gap.float()
 
 
+def select_f64(torch, h, w, chunk=8192):
+    """(cand, conf) in float64, vocab chunk by chunk, first occurrence: an
+    oracle for fp32 sums (bf16 products are exact in float64)."""
+    hd = h.double()
+    m = torch.full((h.shape[0],), -torch.inf, dtype=torch.float64,
+                   device=h.device)
+    l = torch.zeros_like(m)
+    best = torch.zeros(h.shape[0], dtype=torch.int64, device=h.device)
+    for j in range(0, w.shape[0], chunk):
+        lo = hd @ w[j:j + chunk].double().t()
+        tm, ti = lo.amax(-1), lo.argmax(-1)
+        m_new = torch.maximum(m, tm)
+        l = l * torch.exp(m - m_new) + torch.exp(lo - m_new[:, None]).sum(-1)
+        best = torch.where(tm > m, ti + j, best)
+        m = m_new
+    return best.to(torch.int32), 1.0 / l
+
+
 def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
                  name=""):
     """``scale`` sets W's spread: at 0.02 the logits spread about 0.6 and
@@ -472,6 +529,7 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
     w[1] = w[V - 7] = (h[0].float().sign() * scale / 2).to(dt)
     got_c, got_f = fused_select(h, w, masked)
     want_c, want_f = sref.select_streaming(h, w, masked)
+    exact_c, exact_f = select_f64(torch, h, w)
     logits = h.float() @ w.float().t()
     top2 = logits.topk(2, dim=-1).values
     del logits
@@ -503,6 +561,25 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
             f"limit {float(conf_tol[worst])} at row {worst}")
     rel = rel_t[same].max().item()
     err = (got_f - want_f).abs()[same].max().item()
+    # the float64 oracle: the kernel's own error, and the plain version's
+    # beside it (rows off the oracle's candidate only at a near-tie, each
+    # side's confidence within the same per-row limit)
+    f64 = {}
+    for side, (c_, f_) in (("kernel", (got_c, got_f)),
+                           ("plain", (want_c, want_f))):
+        off = (c_ != exact_c) & masked
+        away = off & (gap.to(dev) >= gap_tol.to(dev))
+        ok = masked & ~off
+        rel64 = (f_.double() - exact_f).abs() / exact_f
+        f64[side] = {"cand_off_oracle": int(off.sum()),
+                     "cand_off_oracle_away_from_near_tie": int(away.sum()),
+                     "max_rel_err": rel64[ok].max().item(),
+                     "worst_share_of_limit":
+                         (rel64[ok] / conf_tol[ok].double()).max().item()}
+    k64 = f64["kernel"]
+    if k64["cand_off_oracle_away_from_near_tie"] or \
+            k64["worst_share_of_limit"] > 1:
+        raise AssertionError(f"select {name}: against float64 {f64}")
     conf = want_f[fin]
     rec = {"kernel": "fused_select", "case": name, "dtype": dtype,
            "shape": dict(T=T, d=d, V=V, w_scale=scale), "max_abs_err": err,
@@ -510,7 +587,7 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
            "rel_limit": [conf_tol[same].min().item(),
                          conf_tol[same].max().item()],
            "worst_share_of_limit": (rel_t / conf_tol)[same].max().item(),
-           "conf_median": conf.median().item(),
+           "vs_f64": f64, "conf_median": conf.median().item(),
            "conf_ge_0.9": (conf >= 0.9).float().mean().item(),
            "near_ties": ties}
     if timed:
@@ -525,7 +602,7 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
                    library_ms=times["library"], bound_ms=bms, bound_by=by,
                    kernel_device_ms=device_ms(
                        torch, lambda: fused_select(h, w, masked), 5,
-                       ["select_partial_kernel", "select_merge_kernel"]))
+                       SELECT_KERNELS))
     log(json.dumps(rec))
     return rec
 
@@ -697,9 +774,10 @@ def phase_kernels(torch, dev):
                 mode="bidirectional", softcap=5.0, name="bf16 softcap")
     # the trajectory collector's forwards (phase 5): 4 lanes of a 384-token
     # canvas (P=128 + G=256), bidirectional
-    check_block(torch, dev, b=4, L=384, Kv=2, G=7, hd=64, dtype="bfloat16",
-                mode="bidirectional", prompt_len=128, block_size=32,
-                name="qwen2-0.5b collector")
+    main["block_attention collector"] = check_block(
+        torch, dev, b=4, L=384, Kv=2, G=7, hd=64, dtype="bfloat16",
+        mode="bidirectional", prompt_len=128, block_size=32, timed=True,
+        name="qwen2-0.5b collector")
     main["fused_select"] = check_select(
         torch, dev, T=256, d=896, V=151_936, dtype="bfloat16", scale=0.02,
         timed=True, name="qwen2-0.5b tied")
@@ -1427,9 +1505,8 @@ def main():
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    so = _build.build(verbose=True)
-    log(json.dumps({"ptxas": ptxas_report(_build.PTXAS.get("xent.cu", ""),
-                                          XENT_TC_KERNELS)}))
+    so = _build.build(verbose=True, force=True)   # ptxas' report, always
+    log(json.dumps({"ptxas": ptxas_check(_build.PTXAS)}))
     log(json.dumps({"sass_hgmma": sass_hgmma(so)}))
     log(f"phase 1 (card, build): {time.perf_counter() - t:.1f} s")
 

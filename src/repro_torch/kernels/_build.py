@@ -59,12 +59,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, force: bool = False) -> Path:
     """Compile every source (in parallel) and link one shared library;
-    returns its path. ``verbose`` prints ptxas' register and shared-memory
-    report of each kernel; the report is kept in ``PTXAS`` either way."""
+    returns its path. An existing library of the same hash is loaded as it
+    is unless ``force``. ``verbose`` prints ptxas' register and
+    shared-memory report of each kernel; the report is kept in ``PTXAS``
+    either way."""
     so = library_path()
-    if so.exists():
+    if so.exists() and not force:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,6 @@
 // Full-sequence attention with CDLM visibility (bidirectional, causal or
-// block-causal), for Hopper (sm_90a): the prompt prefill of every admission.
+// block-causal), for Hopper (sm_90a): the prompt prefill of every admission
+// and the trajectory collector's full-canvas forwards.
 //
 // Replaces the TPU kernel src/repro/kernels/block_attn/block_attn.py::
 // block_attention (body _flash_kernel, visibility _tile_visibility) and the
@@ -9,35 +10,57 @@
 // (m, l, acc) in scratch from one grid step to the next. Hopper blocks run
 // in no order and share nothing, so here one block owns a tile of query
 // rows of one (lane, KV head) and loops over the key tiles itself, with the
-// online softmax in registers:
-//  - the GQA group is folded into the rows (row = qpos * G + g), so the G
-//    query heads that share a KV head share every K/V tile loaded to shared
+// online softmax in registers. Both routes:
+//  - fold the GQA group into the rows (row = qpos * G + g), so the G query
+//    heads that share a KV head share every K/V tile loaded to shared
 //    memory, and no G-fold copy of K/V exists;
-//  - the block visits only the key tiles its rows can see: up to the end of
+//  - visit only the key tiles the block's rows can see: up to the end of
 //    its last row's CDLM block (causal: its last position), and from
 //    q - window + 1 with a window. Inside a tile, visibility is decided per
 //    (query, key) exactly as _tile_visibility does: prompt positions form
 //    block -1, the others (pos - prompt_len) / block_size; with a window,
 //    q - k < window under causal and |q - k| < window otherwise. Softcap
 //    comes before the mask; the output is normalized by max(l, 1e-30);
-//  - the ragged edge of L is masked here (keys at or past L are never
-//    visible), so the wrapper pads nothing;
-//  - one warp owns a query row at a time: lane j scores key j of a 32-key
-//    tile, the warp reduces max and sum with shuffles, and each lane keeps
-//    hd/32 output columns in registers. CUDA cores in fp32.
+//  - mask the ragged edge of L here (keys at or past L are never visible),
+//    so the wrapper pads nothing.
 //
 // What bounds it on this card: at the prefill shape (8 lanes, 512
 // positions, 2 KV heads of 7 query heads, head_dim 64, bf16, everything
 // visible) one call does about 7.5 GFLOP and moves about 24 MB: both
-// bounds near 7 us, at the tensor cores' bf16 rate. This kernel runs its
-// products on CUDA cores in fp32 from shared memory, so it is bound by
-// shared-memory loads and FMA throughput, far above that; wgmma and TMA
-// are the later work that would approach it.
+// bounds near 7.6 us, at the tensor cores' bf16 rate.
+//
+// Two routes, chosen by dtype:
+//  - bf16 (block_attn_tc, the model's path): the products run on the tensor
+//    cores. Block = (128 folded query rows, KV head, lane): two warpgroups
+//    of 64 rows, two blocks an SM at hd 64. They load the block's Q once
+//    with 16-byte loads straight into the 128-byte-swizzled K-major layout
+//    wgmma reads (the folded rows are not a strided matrix when G = 7, so
+//    no TMA box fits them); thread 0 streams 64-key K and V tiles by TMA (k
+//    and v viewed as (b L, Kv hd) matrices) into a ring of 3 stages, each
+//    refilled as soon as both warpgroups are done with it (a producer warp
+//    would cost the registers that let two blocks share an SM). Per tile: S = Q K^T by wgmma from shared memory (hd / 16
+//    k-steps, fp32 accumulators); scale (in fp32, after the product: 1 /
+//    sqrt(hd) is not a power of two, so Q is not pre-scaled in bf16),
+//    softcap and mask in registers, the online softmax in base 2 (log2 e
+//    folded into the scale), each row's statistics in the 4 lanes of a
+//    quad; then O += P V with P from registers (the S accumulator's
+//    fragment is the A fragment of the next wgmma) and V MN-major. One bf16
+//    rounding of P is 2^-9 relative, about 1e-3 of the output: P goes in as
+//    a pair p_hi = bf16(p), p_lo = bf16(p - p_hi), two wgmma passes into one
+//    fp32 accumulator, leaving about 2^-18 |p|. Keys past L (the next lane's
+//    rows, or TMA's zero fill) get probability exactly 0.
+//  - fp32 (block_attn_kernel): one warp owns a query row at a time: lane j
+//    scores key j of a 32-key tile, the warp reduces max and sum with
+//    shuffles, and each lane keeps hd/32 output columns in registers. CUDA
+//    cores in fp32 (the tensor cores' fp32 would be TF32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../common/csrc/hopper.cuh"
+#include "../../common/csrc/tc_mainloop.cuh"
 
 namespace {
 
@@ -49,9 +72,6 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Mode { kBidirectional = 0, kCausal = 1, kBlockCausal = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
@@ -80,6 +100,28 @@ __device__ __forceinline__ bool visible(int qp, int kp, int mode,
   if (window > 0)
     vis = vis && (mode == kCausal ? qp - kp < window : abs(qp - kp) < window);
   return vis;
+}
+
+// The keys any of the rows [row0, row0 + n) (of `rows`) can see:
+// [*k_begin, *k_end).
+__device__ __forceinline__ void key_range(int row0, int n, int rows, int G,
+                                          int L, int mode, int prompt_len,
+                                          int block_size, int window,
+                                          int* k_begin, int* k_end) {
+  const int q_lo = row0 / G;
+  const int q_hi = (min(row0 + n, rows) - 1) / G;
+  int kb = 0, ke = L;
+  if (mode == kCausal)
+    ke = q_hi + 1;
+  else if (mode == kBlockCausal)
+    ke = prompt_len + (cdlm_block(q_hi, prompt_len, block_size) + 1) *
+                          block_size;
+  if (window > 0) {
+    kb = max(0, q_lo - window + 1);
+    if (mode != kCausal) ke = min(ke, q_hi + window);
+  }
+  *k_begin = kb;
+  *k_end = min(ke, L);
 }
 
 // grid: (ceil(L*G / ROWS), Kv, b); block: kThreads. q (b, L, Kv, G, hd),
@@ -115,20 +157,9 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sq[r][d] = x;
   }
 
-  // the keys any row of this block can see: [k_begin, k_end)
-  const int q_lo = row0 / G;
-  const int q_hi = (min(row0 + ROWS, rows) - 1) / G;
-  int k_begin = 0, k_end = L;
-  if (mode == kCausal)
-    k_end = q_hi + 1;
-  else if (mode == kBlockCausal)
-    k_end = prompt_len +
-            (cdlm_block(q_hi, prompt_len, block_size) + 1) * block_size;
-  if (window > 0) {
-    k_begin = max(0, q_lo - window + 1);
-    if (mode != kCausal) k_end = min(k_end, q_hi + window);
-  }
-  k_end = min(k_end, L);
+  int k_begin, k_end;
+  key_range(row0, ROWS, rows, G, L, mode, prompt_len, block_size, window,
+            &k_begin, &k_end);
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kColsPerLane];
 #pragma unroll
@@ -213,27 +244,266 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     void* out, int b, int L, int Kv, int G, int mode,
-                     int prompt_len, int block_size, int window, float scale,
-                     float softcap, cudaStream_t stream) {
-  // shared memory: ROWS*HD + 32*(HD+1) + 32*HD floats stays under 48 KB
-  if (hd == 64)
-    return launch<T, 64, 64>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
-                             block_size, window, scale, softcap, stream);
-  if (hd == 128)
-    return launch<T, 128, 16>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
-                              block_size, window, scale, softcap, stream);
-  return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+constexpr int kKeys = 64;  // keys per K/V tile
+
+// Shared memory of block_attn_tc: a ring of K and V tiles (the ring's
+// barriers after it), then the block's Q (128 rows, hd / 64 boxes per 64
+// rows), each 1024-byte aligned.
+template <int HD>
+struct AttnTc {
+  static constexpr int kBoxes = HD / 64;                 // boxes per tile
+  static constexpr int kQBytes = tc::kTile * HD * 2;
+  static constexpr int kKvTile = kKeys * HD * 2;         // one K or V tile
+  static constexpr int kStage = 2 * kKvTile;
+  static constexpr int kStages = 3;
+  // blocks per SM: two at hd 64 (128 registers a thread), one at hd 128
+  static constexpr int kBlocksPerSm = HD == 64 ? 2 : 1;
+  static constexpr int kSmem = kStages * kStage + kQBytes + 2 * 1024 + 256;
+};
+
+// O (+)= P V for one 16-key step: A = P from registers, B = V MN-major.
+__device__ __forceinline__ void pv_step(float (&o)[32], const uint32_t (&a)[4],
+                                        uint64_t dv) {
+  hopper::wgmma_64_rs<1>(o, a, dv, 1);
+}
+__device__ __forceinline__ void pv_step(float (&o)[64], const uint32_t (&a)[4],
+                                        uint64_t dv) {
+  hopper::wgmma_128_rs<1>(o, a, dv, 1);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// grid: (ceil(L*G / 128), Kv, b); block: tc::kConsumers threads, two
+// warpgroups of 64 rows. Thread 0 also issues the TMA loads of the ring
+// (no producer warp: without it two blocks fit an SM at hd 64). q (b, L,
+// Kv, G, HD) bf16 contiguous; kmap / vmap: k and v (b, L, Kv, HD) as
+// (b L, Kv HD) matrices; out (b, L, Kv, G, HD) fp32.
+template <int HD>
+__global__ void __launch_bounds__(tc::kConsumers, AttnTc<HD>::kBlocksPerSm)
+block_attn_tc(const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __nv_bfloat16* __restrict__ q, float* __restrict__ out,
+              int L, int Kv, int G, int mode, int prompt_len, int block_size,
+              int window, float scale, float softcap) {
+  using A = AttnTc<HD>;
+  extern __shared__ char smem[];
+  char* rest;
+  const tc::Ring r = tc::ring_init(smem, A::kStages, A::kStage, &rest);
+  char* q_all = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(rest) + 1023) & ~uintptr_t(1023));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = L * G;
+  const int row0 = blockIdx.x * tc::kTile;
+  const int kvh = blockIdx.y, lb = blockIdx.z;
+  int k_begin, k_end;
+  key_range(row0, tc::kTile, rows, G, L, mode, prompt_len, block_size,
+            window, &k_begin, &k_end);
+  const int j0 = k_begin / kKeys, j1 = (k_end + kKeys - 1) / kKeys;
+  // thread 0's loads: tile jl into the ring once both warpgroups freed its
+  // stage (rows past this lane's L are the next lane's keys or zero fill:
+  // masked below)
+  const bool loader = threadIdx.x == 0;
+  tc::Cursor lc;
+  int jl = j0;
+  auto load_next = [&]() {
+    hopper::bar_wait(&r.empty[lc.stage], lc.phase ^ 1);
+    char* st = r.data + lc.stage * A::kStage;
+    uint64_t* bar = &r.full[lc.stage];
+    hopper::bar_expect_tx(bar, A::kStage);
+    const int key = lb * L + jl * kKeys;
+#pragma unroll
+    for (int x = 0; x < A::kBoxes; ++x) {
+      hopper::tma_load(st + x * hopper::kBoxBytes, &kmap, bar,
+                       kvh * HD + 64 * x, key);
+      hopper::tma_load(st + A::kKvTile + x * hopper::kBoxBytes, &vmap, bar,
+                       kvh * HD + 64 * x, key);
+    }
+    lc.next(A::kStages);
+    ++jl;
+  };
+  if (loader) {
+    hopper::prefetch_map(&kmap);
+    hopper::prefetch_map(&vmap);
+    while (jl < j1 && jl < j0 + A::kStages) load_next();
+  }
+  __syncwarp();
+  tc::Cursor c;
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  // this warpgroup's 64 query rows, K-major, 128-byte swizzle: 16-byte
+  // chunk ch of row rr at rr * 128 + ((ch ^ rr) % 8) * 16 of box ch / 8
+  char* qs = q_all + wg * A::kBoxes * hopper::kBoxBytes;
+  constexpr int kChunks = HD / 8;
+  for (int x = tid; x < 64 * kChunks; x += 128) {
+    const int rr = x / kChunks, ch = x % kChunks;
+    const int row = row0 + 64 * wg + rr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows)
+      val = *reinterpret_cast<const uint4*>(
+          q + ((((long long)lb * L + row / G) * Kv + kvh) * G + row % G) *
+                  HD + 8 * ch);
+    *reinterpret_cast<uint4*>(qs + (ch / 8) * hopper::kBoxBytes + rr * 128 +
+                              (((ch % 8) ^ (rr & 7)) * 16)) = val;
+  }
+  hopper::fence_proxy_async();  // st.shared before wgmma reads it
+  hopper::named_sync(1 + wg, 128);
+
+  int qp[2];  // query position of the thread's two rows
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    qp[hf] = (row0 + 64 * wg + tc::frag_row(hf, warp, lane)) / G;
+  const int q_lo = row0 / G;
+  const bool capped = softcap > 0.f;
+  // base-2 scores: log2 e folds into the scale (after the softcap if any)
+  const float s_scale = capped ? scale : scale * tc::kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  for (int j = j0; j < j1; ++j) {
+    const int k0 = j * kKeys;
+    hopper::bar_wait(&r.full[c.stage], c.phase);
+    const char* kt = r.data + c.stage * A::kStage;
+    const char* vt = kt + A::kKvTile;
+    // S = Q K^T (64 x 64 per warpgroup), both K-major
+    float s[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      hopper::wgmma_64<0, 0>(
+          s, hopper::desc_k(qs + (ks / 4) * hopper::kBoxBytes, ks % 4),
+          hopper::desc_k(kt + (ks / 4) * hopper::kBoxBytes, ks % 4), ks > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(s);
+    // every row of the block sees every key of the tile: no per-key test
+    // (visibility is monotone in the query position without a window)
+    const int k_last = k0 + kKeys - 1;
+    const bool all_visible =
+        k_last < L && window <= 0 &&
+        (mode == kBidirectional ||
+         (mode == kCausal ? k_last <= q_lo
+                          : cdlm_block(k_last, prompt_len, block_size) <=
+                                cdlm_block(q_lo, prompt_len, block_size)));
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int i = (jj / 2) * 4 + hf * 2 + (jj & 1);
+        float t = s[i] * s_scale;
+        if (capped) t = softcap * tanhf(t / softcap) * tc::kLog2e;
+        if (!all_visible) {
+          const int kp = k0 + tc::frag_col(i, lane);
+          if (!(kp < L && visible(qp[hf], kp, mode, prompt_len, block_size,
+                                  window)))
+            t = -INFINITY;
+        }
+        s[i] = t;
+        mx = fmaxf(mx, t);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[hf], mx);
+      // a row that has seen no key yet keeps p = 0 (2^-inf) and alpha = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[hf] = hopper::exp2_approx(m[hf] - m_use);
+      float ps = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int i = (jj / 2) * 4 + hf * 2 + (jj & 1);
+        s[i] = hopper::exp2_approx(s[i] - m_use);
+        ps += s[i];
+      }
+      l[hf] = l[hf] * alpha[hf] + ps;  // this thread's columns; quad-summed
+      m[hf] = m_new;                   // at the end
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+    // P as the bf16 pair, in the A fragment of each 16-key step
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = s[8 * ks + 2 * e], x1 = s[8 * ks + 2 * e + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+        hi[ks][e] = bits(h2);
+        lo[ks][e] = bits(__floats2bfloat162_rn(x0 - __low2float(h2),
+                                               x1 - __high2float(h2)));
+      }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t dv = hopper::desc_mn(vt, ks);
+      pv_step(o, hi[ks], dv);
+      pv_step(o, lo[ks], dv);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(o);
+    if (tid == 0) hopper::bar_arrive(&r.empty[c.stage]);
+    c.next(A::kStages);
+    // the stage just freed (by both warpgroups) takes tile j + kStages
+    if (loader && jl < j1) load_next();
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lt = l[hf];
+    lt += __shfl_xor_sync(kFull, lt, 1);
+    lt += __shfl_xor_sync(kFull, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int row = row0 + 64 * wg + tc::frag_row(hf, warp, lane);
+    if (row >= rows) continue;
+    float* orow =
+        out + ((((long long)lb * L + row / G) * Kv + kvh) * G + row % G) * HD;
+#pragma unroll
+    for (int qq = 0; qq < HD / 8; ++qq) {
+      const int i = 4 * qq + 2 * hf;
+      *reinterpret_cast<float2*>(orow + tc::frag_col(i, lane)) =
+          make_float2(o[i] * inv, o[i + 1] * inv);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int b, int L, int Kv, int G, int mode, int prompt_len,
+                      int block_size, int window, float scale, float softcap,
+                      cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  if (!hopper::make_map(&kmap, k, b * L, Kv * HD, Kv * HD) ||
+      !hopper::make_map(&vmap, v, b * L, Kv * HD, Kv * HD))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_attn_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      AttnTc<HD>::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L * G + tc::kTile - 1) / tc::kTile, Kv, b);
+  block_attn_tc<HD><<<grid, tc::kConsumers, AttnTc<HD>::kSmem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q),
+      static_cast<float*>(out), L, Kv, G, mode, prompt_len, block_size,
+      window, scale, softcap);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (b, L, Kv, G, hd) and k/v (b, L, Kv, hd) contiguous; out (b, L, Kv, G,
-// hd) fp32. mode: 0 bidirectional, 1 causal, 2 block_causal; block_size >
-// 0; softcap <= 0 and window <= 0 mean none. Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// q (b, L, Kv, G, hd) and k/v (b, L, Kv, hd) contiguous, one dtype (bf16:
+// 16-byte aligned); out (b, L, Kv, G, hd) fp32. mode: 0 bidirectional, 1
+// causal, 2 block_causal; block_size > 0; softcap <= 0 and window <= 0 mean
+// none. bf16 runs on the tensor cores, fp32 on CUDA cores. Launches on
+// `stream`, allocates nothing, returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head_dim other than 64 or 128, or a TMA
+// tensor map the driver refuses).
 extern "C" int block_attn_forward(const void* q, const void* k,
                                   const void* v, void* out, int b, int L,
                                   int Kv, int G, int hd, int mode,
@@ -241,10 +511,22 @@ extern "C" int block_attn_forward(const void* q, const void* k,
                                   float scale, float softcap, int is_bf16,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, out, b, L, Kv, G, mode,
-                                   prompt_len, block_size, window, scale,
-                                   softcap, s);
-  return dispatch<float>(hd, q, k, v, out, b, L, Kv, G, mode, prompt_len,
-                         block_size, window, scale, softcap, s);
+  if (is_bf16) {
+    if (hd == 64)
+      return launch_tc<64>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
+                           block_size, window, scale, softcap, s);
+    if (hd == 128)
+      return launch_tc<128>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
+                            block_size, window, scale, softcap, s);
+    return cudaErrorInvalidValue;
+  }
+  // shared memory: ROWS*HD + 32*(HD+1) + 32*HD floats stays under 48 KB
+  if (hd == 64)
+    return launch<float, 64, 64>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
+                                 block_size, window, scale, softcap, s);
+  if (hd == 128)
+    return launch<float, 128, 16>(q, k, v, out, b, L, Kv, G, mode,
+                                  prompt_len, block_size, window, scale,
+                                  softcap, s);
+  return cudaErrorInvalidValue;
 }

@@ -6,9 +6,14 @@
 a full sequence under a CDLM visibility mode (bidirectional, causal or
 block-causal, with an optional window and softcap) in the model's GQA
 layout, returning fp32. The model's prefill calls it
-(``models/transformer.py::forward``'s ``prefill_attention_fn``). A CPU
-tensor takes the plain version (``ref.py``); a CUDA tensor launches the
-kernel or raises.
+(``models/transformer.py::forward``'s ``prefill_attention_fn``) and the
+trajectory collector's forwards. A CPU tensor takes the plain version
+(``ref.py``); a CUDA tensor launches the kernel or raises.
+
+The kernel's route is chosen by dtype, and both are kernels: bf16 runs on
+the tensor cores (wgmma, K and V tiles by TMA, 128 folded query rows a
+block, the probabilities as a bf16 pair), fp32 on CUDA cores in fp32, since
+fp32 on the tensor cores would be TF32.
 """
 from __future__ import annotations
 
@@ -59,6 +64,9 @@ def flash_block_attention(q, k, v, *, mode: str = ref.BLOCK_CAUSAL,
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_block_attention: q, k and v must be "
                          "contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_block_attention: q, k and v must be 16-byte "
+                         "aligned (16-byte loads and TMA)")
     if ((softcap is not None and softcap <= 0)
             or (window is not None and window <= 0) or block_size <= 0
             or prompt_len < 0):

@@ -15,6 +15,9 @@
 //    are k, the 64 columns are M (or N). Eight k-rows make one atom (SBO =
 //    1024 B to the next 8 k-rows); the next 64 M/N values are in the next
 //    box (LBO = 8192 B). A k-step of 16 moves the start address 2048 bytes.
+// A may instead come from registers (the RS form, wgmma_*_rs): the fp32
+// accumulator fragment of one product, packed to bf16 pairs, is the A
+// fragment of the next, as attention's P V takes P.
 #pragma once
 
 #include <cuda.h>
@@ -249,6 +252,84 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// D(64 x 64, fp32) (+)= A(64 x 16) B(16 x 64), A from registers (the
+// RS form), B from shared memory (TB: 0 = K-major, 1 = MN-major). `acc` 0
+// writes D. a[] is warp wq's fragment of rows 16 wq .. 16 wq + 15, bf16
+// pairs packed low column first: a[0] row lane / 4, columns 2 (lane % 4)
+// + {0, 1}; a[1] the same columns 8 rows down; a[2], a[3] as a[0], a[1]
+// 8 columns right. That is the accumulator fragment of an m64nK tile's 16
+// columns 16 ks.. packed in order: a[e] = (d[8 ks + 2 e], d[8 ks + 2 e + 1]).
+template <int TB>
+__device__ __forceinline__ void wgmma_64_rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+
+// D(64 x 128, fp32) (+)= A(64 x 16) B(16 x 128), A from registers (the
+// RS form), B from shared memory (TB: 0 = K-major, 1 = MN-major). `acc` 0
+// writes D. a[] is warp wq's fragment of rows 16 wq .. 16 wq + 15, bf16
+// pairs packed low column first: a[0] row lane / 4, columns 2 (lane % 4)
+// + {0, 1}; a[1] the same columns 8 rows down; a[2], a[3] as a[0], a[1]
+// 8 columns right. That is the accumulator fragment of an m64nK tile's 16
+// columns 16 ks.. packed in order: a[e] = (d[8 ks + 2 e], d[8 ks + 2 e + 1]).
+template <int TB>
+__device__ __forceinline__ void wgmma_128_rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared)
+// before later reads by the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // 2^x, the special-function unit's approximation (about 2 ulp).

@@ -11,23 +11,32 @@
 // = 256 rows, d = 896, V = 151,936, bf16) the unembedding W is 272 MB, so
 // reading it once takes about 81 us at 3.35 TB/s, and the product is
 // 70 GFLOP, about 70 us at the tensor cores' 989 TFLOP/s: bytes bound it.
-// This first kernel runs the product on CUDA cores in fp32, whose peak is
-// some 67 TFLOP/s, so it is bound by operations and is expected to take
-// milliseconds; the tensor-core (wgmma) version is a later change.
-// What the design does:
+// What the design does, on both routes:
 //  - W is read in its (V, d) row layout (the tied token embedding itself):
 //    no transposed copy of 272 MB per call;
 //  - one row tile alone cannot fill 132 SMs, so the vocabulary is split
-//    into chunks across blocks: block (row tile, chunk) computes 64 x 64
-//    logit tiles of its chunk with a classic shared-memory tiled product
-//    (depth 32, 4 x 4 outputs per thread; 17 KB of shared memory whatever
-//    d is), folds each tile into per-row running (max, sum-exp, argmax) in
-//    registers, and writes one (m, l, i) partial per (row, chunk);
+//    into chunks across blocks: block (row tile, chunk) walks the logit
+//    tiles of its chunk, folds each tile into per-row running (max,
+//    sum-exp, argmax) in registers, and writes one (m, l, i) partial per
+//    (row, chunk);
 //  - blocks that share a chunk are launched next to each other (row tile is
 //    the fastest grid axis), so W is read from memory about once and from
 //    L2 by the other row tiles;
 //  - a second small kernel merges the chunks of each row in vocab order.
-// Tie rule, as jnp.argmax: within a tile the lowest index of the maximum;
+// Two routes, chosen by dtype:
+//  - bf16 (select_partial_tc, the serving path): the logit tiles are the
+//    fused cross-entropy's (../../common/csrc/tc_mainloop.cuh): 128 rows x
+//    128 vocab rows, TMA loads of h and W into a 4-stage ring paced by
+//    mbarriers, one producer warp and two consumer warpgroups, wgmma with
+//    each 64-deep stage's products added into the logits in fp32. A row's
+//    128 columns live in the 4 lanes of a quad, 32 each.
+//  - fp32 (select_partial_kernel): 64 x 64 logit tiles by a classic
+//    shared-memory tiled product on CUDA cores (depth 32, 4 x 4 outputs
+//    per thread; 17 KB of shared memory whatever d is); fp32 on the tensor
+//    cores would be TF32, three decimal digits.
+// Tie rule, as jnp.argmax: within a tile the lowest index of the maximum
+// (each thread scans its columns in ascending order keeping a strict >, and
+// merging threads take the greater value or, if equal, the lower index);
 // across tiles and chunks only a strictly greater maximum replaces the
 // running argmax. The final-logit softcap is applied before the vocabulary
 // padding mask, as in the JAX kernel; any V works.
@@ -36,6 +45,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "../../common/csrc/hopper.cuh"
+#include "../../common/csrc/tc_mainloop.cuh"
 
 namespace {
 
@@ -50,17 +63,6 @@ __device__ __forceinline__ void load8(const float* p, float* x) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(v[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
 }
 
 // (max, index) of two candidates; equal maxima keep the lower index
@@ -216,18 +218,106 @@ __global__ void select_merge_kernel(const float* __restrict__ part_m,
   conf[t] = mask[t] != 0 ? 1.f / l : -INFINITY;
 }
 
-template <typename T>
-cudaError_t launch(const void* h, const void* w, const void* mask, void* cand,
-                   void* conf, void* part_m, void* part_l, void* part_i,
-                   int n_rows, int V, int d, int per_chunk, int n_chunks,
-                   float softcap, cudaStream_t stream) {
-  const dim3 grid((n_rows + kBM - 1) / kBM, n_chunks);
-  select_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<int*>(part_i), n_rows, V, d, per_chunk, softcap);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+// grid: (ceil(T / 128), n_chunks); chunk c covers the 128-row vocab tiles
+// [c * per_chunk, (c + 1) * per_chunk).
+__global__ void __launch_bounds__(tc::kThreads, 1)
+select_partial_tc(const __grid_constant__ CUtensorMap hmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  float* __restrict__ part_m, float* __restrict__ part_l,
+                  int* __restrict__ part_i, int n_rows, int V, int d,
+                  int per_chunk, float softcap) {
+  extern __shared__ char smem[];
+  char* rest;
+  const tc::Ring r =
+      tc::ring_init(smem, tc::kLogitStages, tc::kLogitStage, &rest);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t0 = blockIdx.x * tc::kTile, chunk = blockIdx.y;
+  const int vocab_tiles = (V + tc::kTile - 1) / tc::kTile;
+  const int vt0 = chunk * per_chunk;
+  const int vt1 = min(vt0 + per_chunk, vocab_tiles);
+  const int nk = (d + tc::kBK - 1) / tc::kBK;
+  tc::Cursor c;
+  if (warp == tc::kConsumers / 32) {  // producer
+    if (lane == 0) {
+      hopper::prefetch_map(&hmap);
+      hopper::prefetch_map(&wmap);
+      for (int vt = vt0; vt < vt1; ++vt)
+        tc::load_logit_tile(r, c, &hmap, &wmap, t0, vt * tc::kTile, nk);
+    }
+    return;
+  }
+  const int wg = warp / 4;
+  const bool signal = threadIdx.x % 128 == 0;
+  float run_m[2] = {-INFINITY, -INFINITY}, run_l[2] = {0.f, 0.f};
+  int run_i[2] = {0, 0};
+  float acc[64] = {};
+  for (int vt = vt0; vt < vt1; ++vt) {
+    tc::logit_tile(r, c, acc, wg, nk, signal);
+    const int v0 = vt * tc::kTile;
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = softcap * tanhf(acc[i] / softcap);
+    }
+    if (v0 + tc::kTile > V) {  // the ragged last tile: padding to -inf
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (v0 + tc::frag_col(i, lane) >= V) acc[i] = -INFINITY;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      // this thread's 32 columns of the row, in ascending order
+      float tm = -INFINITY;
+      int ti = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int i = (j / 2) * 4 + hf * 2 + (j & 1);
+        if (acc[i] > tm) {
+          tm = acc[i];
+          ti = tc::frag_col(i, lane);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float om = __shfl_xor_sync(kFull, tm, o);
+        const int oi = __shfl_xor_sync(kFull, ti, o);
+        argmax_merge(tm, ti, om, oi);
+      }
+      const float m_new = fmaxf(run_m[hf], tm);
+      // exp(x - m) as 2^((x - m) log2 e); 2^-inf = 0 takes the padding out
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        ps += hopper::exp2_approx(
+            (acc[(j / 2) * 4 + hf * 2 + (j & 1)] - m_new) * tc::kLog2e);
+      ps += __shfl_xor_sync(kFull, ps, 1);
+      ps += __shfl_xor_sync(kFull, ps, 2);
+      const float alpha =
+          run_m[hf] == -INFINITY
+              ? 0.f
+              : hopper::exp2_approx((run_m[hf] - m_new) * tc::kLog2e);
+      run_l[hf] = run_l[hf] * alpha + ps;
+      if (tm > run_m[hf]) run_i[hf] = v0 + ti;  // strict: earlier tiles win
+      run_m[hf] = m_new;
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int t = t0 + 64 * wg + tc::frag_row(hf, warp, lane);
+    if ((lane & 3) == 0 && t < n_rows) {
+      const long long o = (long long)chunk * n_rows + t;
+      part_m[o] = run_m[hf];
+      part_l[o] = run_l[hf];
+      part_i[o] = run_i[hf];
+    }
+  }
+}
+
+cudaError_t merge(const void* mask, void* cand, void* conf,
+                  const void* part_m, const void* part_l, const void* part_i,
+                  int n_rows, int n_chunks, cudaStream_t stream) {
   select_merge_kernel<<<(n_rows + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const int*>(part_i), static_cast<const int*>(mask),
@@ -235,22 +325,76 @@ cudaError_t launch(const void* h, const void* w, const void* mask, void* cand,
   return cudaGetLastError();
 }
 
+cudaError_t launch_tc(const void* h, const CUtensorMap& wmap,
+                      const void* mask, void* cand, void* conf, void* part_m,
+                      void* part_l, void* part_i, int n_rows, int V, int d,
+                      int per_chunk, int n_chunks, float softcap,
+                      cudaStream_t stream) {
+  CUtensorMap hmap;
+  if (!hopper::make_map(&hmap, h, n_rows, d, d)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      select_partial_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc::kLogitSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_rows + tc::kTile - 1) / tc::kTile, n_chunks);
+  select_partial_tc<<<grid, tc::kThreads, tc::kLogitSmem, stream>>>(
+      hmap, wmap, static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<int*>(part_i), n_rows, V, d, per_chunk, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge(mask, cand, conf, part_m, part_l, part_i, n_rows, n_chunks,
+               stream);
+}
+
+cudaError_t launch(const void* h, const void* w, const void* mask, void* cand,
+                   void* conf, void* part_m, void* part_l, void* part_i,
+                   int n_rows, int V, int d, int per_chunk, int n_chunks,
+                   float softcap, cudaStream_t stream) {
+  const dim3 grid((n_rows + kBM - 1) / kBM, n_chunks);
+  select_partial_kernel<float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
+      static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<int*>(part_i), n_rows, V, d, per_chunk, softcap);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge(mask, cand, conf, part_m, part_l, part_i, n_rows, n_chunks,
+               stream);
+}
+
 }  // namespace
+
+// The TMA tensor map of a bf16 unembedding w (V, d) (contiguous, 16-byte
+// aligned, d % 8 == 0) into `map` (128 bytes, CUtensorMap): encoded once
+// per weight by the caller and handed to every select_forward call.
+// Returns 0, or cudaErrorInvalidValue if the driver refuses the map.
+extern "C" int select_encode_map(void* map, const void* w, int V, int d) {
+  CUtensorMap m;
+  if (!hopper::make_map(&m, w, V, d, d)) return cudaErrorInvalidValue;
+  memcpy(map, &m, sizeof(m));
+  return cudaSuccess;
+}
 
 // h (T, d) and w (V, d) contiguous, 16-byte aligned, d % 8 == 0; mask (T,)
 // int32; cand (T,) int32 and conf (T,) fp32 outputs; part_m/part_l/part_i
-// (n_chunks, T) scratch, allocated by the caller. softcap <= 0 means none.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
-extern "C" int select_forward(const void* h, const void* w, const void* mask,
-                              void* cand, void* conf, void* part_m,
-                              void* part_l, void* part_i, int n_rows, int V,
-                              int d, int per_chunk, int n_chunks,
-                              float softcap, int is_bf16, void* stream) {
+// (n_chunks, T) scratch, allocated by the caller, the vocab split into
+// n_chunks chunks of per_chunk tiles (128 vocab rows a tile in bf16, 64 in
+// fp32). bf16 runs on the tensor cores and reads w through `wmap`, the map
+// select_encode_map made for it (fp32: unused, may be null). softcap <= 0
+// means none. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (cudaErrorInvalidValue if h's tensor map is refused).
+extern "C" int select_forward(const void* h, const void* w, const void* wmap,
+                              const void* mask, void* cand, void* conf,
+                              void* part_m, void* part_l, void* part_i,
+                              int n_rows, int V, int d, int per_chunk,
+                              int n_chunks, float softcap, int is_bf16,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(h, w, mask, cand, conf, part_m, part_l,
-                                 part_i, n_rows, V, d, per_chunk, n_chunks,
-                                 softcap, s);
-  return launch<float>(h, w, mask, cand, conf, part_m, part_l, part_i, n_rows,
-                       V, d, per_chunk, n_chunks, softcap, s);
+  if (is_bf16) {
+    CUtensorMap m;
+    memcpy(&m, wmap, sizeof(m));
+    return launch_tc(h, m, mask, cand, conf, part_m, part_l, part_i, n_rows,
+                     V, d, per_chunk, n_chunks, softcap, s);
+  }
+  return launch(h, w, mask, cand, conf, part_m, part_l, part_i, n_rows, V, d,
+                per_chunk, n_chunks, softcap, s);
 }

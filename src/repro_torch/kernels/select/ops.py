@@ -6,6 +6,13 @@ without a ``(..., V)`` logits tensor, as the JAX package's
 ``kernels/select/ops.py::fused_select`` does. A CPU tensor takes the plain
 online version (``ref.select_streaming``); a CUDA tensor launches the
 kernel or raises.
+
+The kernel's route is chosen by dtype, and both are kernels: bf16 runs on
+the tensor cores (wgmma fed by TMA, 128 x 128 logit tiles, one block per
+SM, the fused cross-entropy's mainloop), fp32 on CUDA cores in fp32 (64 x
+64 tiles, four blocks per SM), since fp32 on the tensor cores would be
+TF32. The bf16 route reads W through a TMA tensor map encoded once per
+weight (``_w_map``): W is the same tied embedding on every call.
 """
 from __future__ import annotations
 
@@ -17,12 +24,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.select import ref
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
+_MAP_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int]
 DTYPES = (torch.float32, torch.bfloat16)
-ROW_TILE = 64     # hidden rows per block (BM in select.cu)
-VOCAB_TILE = 64   # vocab rows per inner tile (BN in select.cu)
-BLOCKS_PER_SM = 4  # resident blocks per SM the vocab split aims for
+# (hidden rows per block, vocab rows per tile, resident blocks per SM the
+# vocab split aims for): select.cu's tc::kTile for bf16, kBM / kBN for fp32
+TILES = {torch.bfloat16: (128, 128, 1), torch.float32: (64, 64, 4)}
+MAP_BYTES = 128          # sizeof(CUtensorMap)
+_W_MAPS: dict = {}       # (device, data_ptr, V, d) -> W's encoded TMA map
+_W_MAPS_MAX = 8
 
 
 def fused_select(hidden, w, masked, *, softcap: Optional[float] = None):
@@ -66,22 +78,38 @@ def _launch(h, w, masked, softcap):
     if T == 0:
         return cand, conf
     n_sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    per_chunk, n_chunks = _build.chunking(T, V, n_sms, ROW_TILE, VOCAB_TILE,
-                                          BLOCKS_PER_SM)
+    per_chunk, n_chunks = _build.chunking(T, V, n_sms, *TILES[h.dtype])
+    bf16 = h.dtype == torch.bfloat16
     part_m = torch.empty((n_chunks, T), dtype=torch.float32, device=h.device)
     part_l = torch.empty_like(part_m)
     part_i = torch.empty((n_chunks, T), dtype=torch.int32, device=h.device)
     mask_i32 = masked.to(torch.int32)
     fn = _build.function("select_forward", _ARGTYPES)
-    rc = fn(h.data_ptr(), w.data_ptr(), mask_i32.data_ptr(), cand.data_ptr(),
-            conf.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_i.data_ptr(), T, V, d, per_chunk, n_chunks,
-            0.0 if softcap is None else softcap,
-            int(h.dtype == torch.bfloat16),
-            torch.cuda.current_stream(h.device).cuda_stream)
+    rc = fn(h.data_ptr(), w.data_ptr(), _w_map(w) if bf16 else None,
+            mask_i32.data_ptr(), cand.data_ptr(), conf.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_i.data_ptr(), T, V, d,
+            per_chunk, n_chunks, 0.0 if softcap is None else softcap,
+            int(bf16), torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(rc, "select_forward")
     fused_select.launches += 1
     return cand, conf
+
+
+def _w_map(w):
+    """W's TMA tensor map, encoded on first use and kept per (device,
+    data_ptr, V, d): the map holds only the address, shape and strides, so
+    it is right for whatever tensor lies there with that shape."""
+    key = (w.device.index, w.data_ptr(), *w.shape)
+    buf = _W_MAPS.get(key)
+    if buf is None:
+        if len(_W_MAPS) >= _W_MAPS_MAX:
+            _W_MAPS.clear()
+        buf = ctypes.create_string_buffer(MAP_BYTES)
+        fn = _build.function("select_encode_map", _MAP_ARGTYPES)
+        _build.check(fn(buf, w.data_ptr(), w.shape[0], w.shape[1]),
+                     "select_encode_map")
+        _W_MAPS[key] = buf
+    return buf
 
 
 fused_select.launches = 0

@@ -152,3 +152,50 @@ def test_prefill_hook_matches_generic_and_jax_forward(mode):
     forward(params, torch.as_tensor(tokens), cfg=cfg, device="cpu",
             positions=torch.arange(24), prefill_attention_fn=hook, **kw)
     assert len(calls) == cfg.n_layers
+
+
+# the shapes of test_torch_cuda.py's bf16 (tensor-core) block attention
+# cases, b = 2: (mode, L, G, hd, prompt_len, block_size, window, softcap)
+TC_SHAPES = [
+    ("block_causal", 100, 7, 64, 40, 16, None, None),
+    ("causal", 96, 7, 128, 0, 1, None, None),
+    ("block_causal", 130, 7, 64, 50, 16, 20, None),
+    ("bidirectional", 70, 7, 128, 0, 1, None, 5.0),
+    ("causal", 77, 4, 128, 0, 1, 9, 3.0),
+    ("block_causal", 512, 7, 64, 512, 32, None, None),
+    ("bidirectional", 384, 7, 64, 128, 32, None, None),
+]
+
+@pytest.mark.parametrize("mode,L,G,hd,prompt_len,block_size,window,softcap",
+                         TC_SHAPES)
+def test_probabilities_as_a_bf16_pair_hold_the_kernel_limit(
+        mode, L, G, hd, prompt_len, block_size, window, softcap):
+    """Why the bf16 route's PV product takes P as a pair: a model of it in
+    plain torch. With p_hi = bf16(p) and p_lo = bf16(p - p_hi), what is
+    left of p is at most half a bf16 ulp of p_lo, 2^-18 p, so (p_hi + p_lo)
+    v lies within 2^-18 max|v| (plus fp32 rounding, 1e-6) of the fp32
+    output, under 2e-5 at the shapes the CUDA tests hold to 1e-4; one bf16
+    rounding of p (2^-9 p) lies outside 1e-4 there."""
+    b, Kv = 2, 2
+    q, k, v = (torch.as_tensor(a).bfloat16().float()
+               for a in _inputs(b, L, Kv, G, hd, seed=L + G + hd))
+    kw = dict(mode=mode, prompt_len=prompt_len, block_size=block_size,
+              window=window, scale=hd ** -0.5, softcap=softcap)
+    want = bref.block_attention(q, k, v, **kw)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q, k) * kw["scale"]
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    vis = bref.visibility(L, L, mode=mode, prompt_len=prompt_len,
+                          block_size=block_size, window=window)
+    p = torch.softmax(torch.where(vis, s, torch.full_like(s, bref.NEG_INF)),
+                      -1)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+
+    def pv(pp):
+        return torch.einsum("bkgqs,bskh->bqkgh", pp, v)
+
+    bound = 2 ** -18 * v.abs().max().item() + 1e-6
+    assert bound < 2e-5
+    assert (pv(p_hi + p_lo) - want).abs().max().item() <= bound
+    assert (pv(p_hi) - want).abs().max().item() > 1e-4

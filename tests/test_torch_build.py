@@ -30,7 +30,10 @@ def test_the_shared_header_is_hashed_but_not_compiled(tree):
 
 
 @pytest.mark.parametrize("edited", ["common/csrc/hopper.cuh",
-                                    "xent/csrc/xent.cu"])
+                                    "common/csrc/tc_mainloop.cuh",
+                                    "xent/csrc/xent.cu",
+                                    "select/csrc/select.cu",
+                                    "block_attn/csrc/block_attn.cu"])
 def test_editing_a_source_or_header_changes_the_library(tree, edited):
     before = _build.library_path()
     assert _build.library_path() == before          # stable when unchanged
@@ -38,6 +41,17 @@ def test_editing_a_source_or_header_changes_the_library(tree, edited):
     path.write_text(path.read_text() + "\n// edited\n")
     after = _build.library_path()
     assert after != before and after.parent == before.parent
+
+
+def test_the_mainloop_header_is_hashed_but_not_compiled(tree):
+    header = tree / "common" / "csrc" / "tc_mainloop.cuh"
+    assert header in _build.hashed_files()
+    assert header not in _build.sources()
+    for name in ("xent/csrc/xent.cu", "select/csrc/select.cu",
+                 "block_attn/csrc/block_attn.cu"):
+        assert tree / name in _build.sources()
+        assert '#include "../../common/csrc/tc_mainloop.cuh"' in (
+            tree / name).read_text()
 
 
 def test_python_files_do_not_change_the_library(tree):

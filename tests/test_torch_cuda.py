@@ -139,6 +139,17 @@ def test_paged_kernel_equals_dense_kernel_bitwise(cuda, page, dtype):
     ("causal", 64, 4, 128, 0, 1, 9, None, torch.bfloat16),
     ("bidirectional", 45, 2, 64, 0, 1, None, None, torch.float32),
     ("bidirectional", 64, 5, 64, 0, 1, 10, None, torch.float32),
+    # the bf16 route (tensor cores): L * G not a multiple of the 128-row
+    # block, L not a multiple of the 64-key tile, hd 128, a window, a
+    # softcap, the prompt ending inside a key tile, the prefill's
+    # all-visible tiles, the collector's bidirectional canvas
+    ("block_causal", 100, 7, 64, 40, 16, None, None, torch.bfloat16),
+    ("causal", 96, 7, 128, 0, 1, None, None, torch.bfloat16),
+    ("block_causal", 130, 7, 64, 50, 16, 20, None, torch.bfloat16),
+    ("bidirectional", 70, 7, 128, 0, 1, None, 5.0, torch.bfloat16),
+    ("causal", 77, 4, 128, 0, 1, 9, 3.0, torch.bfloat16),
+    ("block_causal", 512, 7, 64, 512, 32, None, None, torch.bfloat16),
+    ("bidirectional", 384, 7, 64, 128, 32, None, None, torch.bfloat16),
 ])
 def test_block_attention_kernel_matches_plain(cuda, mode, L, G, hd, P, bs,
                                               window, softcap, dtype):
@@ -152,9 +163,30 @@ def test_block_attention_kernel_matches_plain(cuda, mode, L, G, hd, P, bs,
     got = flash_block_attention(q, k, v, **kw)
     assert flash_block_attention.launches == before + 1
     want = bref.block_attention(q, k, v, **kw)
-    # both sides read the same inputs and keep scores and probabilities in
-    # fp32
+    # both sides read the same inputs and keep scores in fp32; the bf16
+    # kernel's probabilities enter the PV product as a bf16 pair (about
+    # 2^-18 relative), the others' in fp32
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_block_attention_keys_past_L_get_probability_zero(cuda):
+    """A key tile that runs past L reads the next lane's rows (or TMA's zero
+    fill for the last lane); those keys must weigh exactly 0. Lane 1's keys
+    and values are huge: any weight on them would show in lane 0."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, L, Kv, G, hd = 2, 70, 2, 7, 64
+    q = _randn(gen, b, L, Kv, G, hd).bfloat16()
+    k, v = (_randn(gen, b, L, Kv, hd) for _ in range(2))
+    k[1] *= 100.0
+    v[1] = 1e30
+    k, v = k.bfloat16(), v.bfloat16()
+    for mode in ("bidirectional", "causal"):
+        kw = dict(mode=mode, scale=hd ** -0.5)
+        got = flash_block_attention(q, k, v, **kw)
+        want = bref.block_attention(q[:1], k[:1], v[:1], **kw)
+        torch.testing.assert_close(got[:1], want, rtol=1e-4, atol=1e-4)
+        assert bool(torch.isfinite(got[1]).all())
 
 
 @pytest.mark.cuda
@@ -179,6 +211,44 @@ def test_select_kernel_matches_plain(cuda, T, d, V, softcap, dtype):
     assert torch.equal(torch.isfinite(conf), masked)
     fin = torch.isfinite(want_f)
     torch.testing.assert_close(conf[fin], want_f[fin], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V,w_scale,softcap", [
+    (32, 128, 5001, 0.1, None),     # one partial row tile, ragged vocab
+    (300, 128, 5001, 0.1, None),    # three row tiles, the last partial
+    (300, 64, 2000, 1.0, None),     # sharp: W unscaled
+    (130, 256, 1000, 0.1, 30.0),    # softcap
+])
+def test_select_tensor_core_route_ties_and_edges(cuda, T, d, V, w_scale,
+                                                 softcap):
+    """Planted exact ties resolve to the lower index: row 0 across vocab
+    chunks, row 1 across the two 64-column halves of one 128-column tile
+    (columns 444 and 450), row 2 across the lanes of a quad (columns 646 in
+    lane 3 and 649 in lane 0). The planted rows are the row's own hidden
+    state, scaled: its logit there is far above its others, and other rows'
+    logits there stay below their maxima. Elsewhere the candidates equal the
+    plain version's, but at a near-tie (top-2 logit gap under 1e-4)."""
+    gen = torch.Generator(device=cuda).manual_seed(T + V + d)
+    h = (_randn(gen, T, d) * 0.5).bfloat16()
+    w = (_randn(gen, V, d) * w_scale).bfloat16()
+    masked = torch.rand((T,), generator=gen, device=cuda) < 0.7
+    planted = {0: (3, V - 2), 1: (444, 450), 2: (646, 649)}
+    for row, cols in planted.items():
+        w[list(cols)] = (h[row].float() * 1.5 * w_scale).bfloat16()
+    before = fused_select.launches
+    cand, conf = fused_select(h, w, masked, softcap=softcap)
+    assert fused_select.launches == before + 1
+    want_c, want_f = sref.select_ref(h, w, masked, softcap=softcap)
+    for row, cols in planted.items():
+        assert int(cand[row]) == min(cols), row
+    logits = h.float() @ w.float().t()
+    top2 = logits.topk(2, dim=-1).values
+    differ = cand != want_c
+    assert bool((top2[:, 0] - top2[:, 1])[differ].lt(1e-4).all())
+    assert torch.equal(torch.isfinite(conf), masked)
+    same = torch.isfinite(want_f) & ~differ
+    torch.testing.assert_close(conf[same], want_f[same], rtol=1e-4, atol=0)
 
 
 @pytest.mark.cuda
@@ -218,6 +288,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         fused_select(h, torch.zeros((10, 12), device=cuda),
                      torch.ones((4,), dtype=torch.bool, device=cuda))
+    # the bf16 (tensor-core) routes
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_block_attention(q.to(bf), blk.to(bf), blk.to(bf))
+    buf = torch.zeros((4 * 64 + 8,), dtype=bf, device=cuda)
+    off = buf[1:1 + 4 * 64].view(1, 4, 1, 64)              # 2-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        flash_block_attention(q64.to(bf), off, kv64.to(bf))
+    ones = torch.ones((4,), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_select(h.to(bf), torch.zeros((10, 12), dtype=bf, device=cuda),
+                     ones)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_select(buf[1:1 + 4 * 64].view(4, 64),
+                     torch.zeros((10, 64), dtype=bf, device=cuda), ones)
 
 
 def _xent_case(cuda, T, d, V, dtype, seed, w_scale=0.3):
@@ -317,6 +402,8 @@ def test_kernel_wrappers_refuse_grad_on_cuda(cuda):
     pool = torch.zeros((1, 8, 1, 64), device=cuda)
     h = torch.zeros((4, 64), device=cuda, requires_grad=True)
     w = torch.zeros((10, 64), device=cuda)
+    qb = q.detach().bfloat16().requires_grad_()
+    hb = h.detach().bfloat16().requires_grad_()
     calls = {
         "decode_attention": (decode_attention, lambda: decode_attention(
             q, cache, cache, blk, blk, lens)),
@@ -328,6 +415,13 @@ def test_kernel_wrappers_refuse_grad_on_cuda(cuda):
                                       q, blk, blk, mode="bidirectional")),
         "fused_select": (fused_select, lambda: fused_select(
             h, w, torch.ones((4,), dtype=torch.bool, device=cuda))),
+        # the bf16 (tensor-core) routes
+        "flash_block_attention bf16": (
+            flash_block_attention, lambda: flash_block_attention(
+                qb, blk.bfloat16(), blk.bfloat16(), mode="bidirectional")),
+        "fused_select bf16": (fused_select, lambda: fused_select(
+            hb, w.bfloat16(), torch.ones((4,), dtype=torch.bool,
+                                         device=cuda))),
     }
     for name, (fn, call) in calls.items():
         before = fn.launches

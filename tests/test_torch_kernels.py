@@ -158,3 +158,25 @@ def test_select_ties_and_finalized_rows():
     zeros = sref.select_streaming(torch.zeros((4, d)), tw,
                                   torch.ones(4, dtype=torch.bool), chunk=64)
     assert np.all(zeros[0].numpy() == 0)
+
+
+@pytest.mark.parametrize("T", [32, 128, 256])
+@pytest.mark.parametrize("V", [151_936, 152_064, 50_021])
+def test_tensor_core_chunking_covers_every_vocab_tile_once(T, V):
+    """The bf16 select's (and the xent forward's) vocab split on a 132-SM
+    card, 128-row and 128-vocab-row tiles, one block per SM: the chunks of
+    per_chunk tiles cover every vocab tile exactly once, none is empty, and
+    the grid is about one wave."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.select import ops as sops
+    n_sms = 132
+    row_tile, vocab_tile, per_sm = sops.TILES[torch.bfloat16]
+    assert (row_tile, vocab_tile, per_sm) == (128, 128, 1)
+    per_chunk, n_chunks = _build.chunking(T, V, n_sms, row_tile, vocab_tile,
+                                          per_sm)
+    tiles = -(-V // vocab_tile)
+    covered = [t for c in range(n_chunks)
+               for t in range(c * per_chunk, min((c + 1) * per_chunk, tiles))]
+    assert covered == list(range(tiles))
+    assert all(c * per_chunk < tiles for c in range(n_chunks))
+    assert -(-T // row_tile) * n_chunks <= n_sms
