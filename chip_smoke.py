@@ -7,15 +7,21 @@ Phases, each timed, any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions, and an nvcc build of every kernel source of the checkout; the
-   tensor-core kernels' (xent, block attention, select) registers, shared
-   memory and spills (ptxas: none may spill) and every kernel's HGMMA
-   instructions (cuobjdump: present in the bf16 kernels, absent from the
-   fp32 ones);
+   tensor-core kernels' (xent, block attention, select, decode attention)
+   registers, shared memory and spills, and the fp32 decode kernel's
+   (ptxas: none may spill), each template instance apart
+   (the dense and paged decode instances too), and every kernel's HGMMA
+   instructions (cuobjdump: present in every bf16 instance, absent from
+   every fp32 one);
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (and small softcap / window / mode cases), each timed with
    CUDA events beside its plain version and one PyTorch yardstick call; the
    paged decode kernel also equals the dense one bit for bit on identity
-   and permuted page tables; the fused cross-entropy forward and backward
+   and permuted page tables; decode attention at qwen2-0.5b's, dream-7b's
+   and llada-8b's head layouts, at lengths on and past the bf16 route's
+   split edges (S not a multiple of 64, a lane at 0), and over NaN in
+   every cache and pool row at or past cache_len (outputs equal to those
+   over a finite residue); the fused cross-entropy forward and backward
    at the training path's shape (T=1,024, d=896, V=151,936) in bf16 and
    fp32, with sharp logits (W unscaled) in bf16, and at a ragged vocabulary
    (T=300, d=256, V=50,021) in both dtypes and sharp, the loss also against
@@ -48,7 +54,9 @@ Phases, each timed, any failure raises and exits non-zero:
    step by step through the plain collector step (generic attention and
    logits, bf16 and fp32); the DLM term of a student step with the kernel
    and with the plain cross-entropy; warm step times and a profiled
-   student step.
+   student step, beside one profiled with the forward indexing every
+   period-stacked leaf in each period, as it did before each leaf was
+   split once (the adds, fills and copies of both).
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -89,11 +97,17 @@ XENT_FP32_KERNELS = ["xent_partial_kernel", "xent_probs_kernel",
 BLOCK_KERNELS = ["block_attn_tc", "block_attn_kernel"]
 SELECT_KERNELS = ["select_partial_tc", "select_partial_kernel",
                   "select_merge_kernel"]
+DECODE_KERNELS = ["decode_attn_tc", "decode_attn_kernel",
+                  "decode_merge_kernel"]
 # source -> its tensor-core kernels, and the fp32 kernels beside them
 TC_KERNELS = {"xent.cu": XENT_TC_KERNELS, "block_attn.cu": ["block_attn_tc"],
-              "select.cu": ["select_partial_tc"]}
+              "select.cu": ["select_partial_tc"],
+              "decode_attn.cu": ["decode_attn_tc"]}
 FP32_KERNELS = XENT_FP32_KERNELS + ["block_attn_kernel",
-                                    "select_partial_kernel"]
+                                    "select_partial_kernel",
+                                    "decode_attn_kernel"]
+# source -> further kernels whose ptxas report must show no spills
+NO_SPILL = {"decode_attn.cu": ["decode_attn_kernel"]}
 XENT_FWD_KERNELS = ["xent_partial_tc", "xent_partial_kernel",
                     "xent_merge_kernel"]
 XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
@@ -168,12 +182,15 @@ def bound_ms(n_bytes, n_ops, dtype):
 # phase 1: what the compiler made of the tensor-core kernels
 # ---------------------------------------------------------------------------
 def _kernel_of(mangled, names):
-    """The kernel of ``names`` a mangled name is, labelled with its template
-    arguments (``block_attn_tc<64>``), or None."""
+    """The kernel of ``names`` a mangled name is, labelled with its int and
+    bool template arguments (``block_attn_tc<64>``, ``decode_attn_tc<64,
+    paged>``: the bool of the decode kernels is PAGED), or None."""
     name = next((n for n in names if n in mangled), None)
     if name is None:
         return None
-    args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+    args = [v if t == "i" else ("paged" if v == "1" else "dense")
+            for t, v in re.findall(r"L([ib])(\d+)E",
+                                   mangled.split(name, 1)[1])]
     return f"{name}<{','.join(args)}>" if args else name
 
 
@@ -203,10 +220,11 @@ def ptxas_report(report, names):
 
 
 def ptxas_check(ptxas):
-    """The tensor-core kernels' ptxas reports: every kernel (and template
-    instance) reported, with its registers and no spills."""
+    """The tensor-core kernels' ptxas reports (and NO_SPILL's): every kernel
+    (and template instance) reported, with its registers and no spills."""
     out = {}
-    for src, names in TC_KERNELS.items():
+    for src in TC_KERNELS.keys() | NO_SPILL.keys():
+        names = TC_KERNELS.get(src, []) + NO_SPILL.get(src, [])
         rep = ptxas_report(ptxas.get(src, ""), names)
         for name in names:
             if not any(k.split("<")[0] == name for k in rep):
@@ -302,7 +320,12 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
                    kernel_device_ms=device_ms(
                        torch, lambda: decode_attention(q, kc, vc, kb, vb, cl,
                                                        **kw),
-                       50, ["decode_attn_kernel"]))
+                       50, DECODE_KERNELS),
+                   merge_device_ms=device_ms(
+                       torch, lambda: decode_attention(q, kc, vc, kb, vb, cl,
+                                                       **kw),
+                       50, ["decode_merge_kernel"]),
+                   library_device_ms=device_ms(torch, library, 50, [""]))
     log(json.dumps(rec))
     return rec
 
@@ -403,7 +426,12 @@ def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
                    kernel_device_ms=device_ms(
                        torch, lambda: paged_decode_attention(
                            q, kp, vp, kb, vb, table, cl, **kw),
-                       50, ["decode_attn_kernel"]))
+                       50, DECODE_KERNELS),
+                   merge_device_ms=device_ms(
+                       torch, lambda: paged_decode_attention(
+                           q, kp, vp, kb, vb, table, cl, **kw),
+                       50, ["decode_merge_kernel"]),
+                   library_device_ms=device_ms(torch, library, 50, [""]))
     log(json.dumps(rec))
     return rec
 
@@ -730,20 +758,82 @@ def check_xent(torch, dev, *, T, d, V, dtype, scale=0.02, timed=False,
     return rec
 
 
+def check_nan_residue(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
+                      page, name=""):
+    """NaN in every cache row at or past each lane's length, and in every
+    pool row that holds no key below it: both kernels' outputs equal
+    their outputs over the finite residue, bit for bit."""
+    from repro_torch.kernels.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(len(name) + 3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa
+    q = rnd(b, Bq, Kv, G, hd)
+    kc, vc = rnd(b, S, Kv, hd), rnd(b, S, Kv, hd)
+    kb, vb = rnd(b, Bq, Kv, hd), rnd(b, Bq, Kv, hd)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(scale=hd ** -0.5)
+    kp, vp, table = _paged_pool(torch, dev, kc, vc, cl, page, g)
+    want = decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    want_paged = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
+    past = torch.arange(S, device=dev)[None, :] >= cl[:, None]
+    kc[past], vc[past] = float("nan"), float("nan")
+    held = torch.zeros(kp.shape[:2], dtype=torch.bool, device=dev)
+    for lane, n in enumerate(lens):
+        for j in range(-(-n // page)):
+            held[int(table[lane, j]), :min(page, n - j * page)] = True
+    kp[~held], vp[~held] = float("nan"), float("nan")
+    got = decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    got_paged = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
+    torch.cuda.synchronize()
+    ok = {"finite": bool(torch.isfinite(got).all()
+                         and torch.isfinite(got_paged).all()),
+          "dense_equal": torch.equal(got, want),
+          "paged_equal": torch.equal(got_paged, want_paged)}
+    if not all(ok.values()):
+        raise AssertionError(f"NaN residue {name}: {ok}")
+    rec = {"kernel": "decode_attention", "case": name, "dtype": dtype,
+           "shape": dict(b=b, Bq=Bq, Kv=Kv, G=G, hd=hd, S=S, lens=lens,
+                         page=page), "nan_residue": ok}
+    log(json.dumps(rec))
+    return rec
+
+
 def phase_kernels(torch, dev):
+    from repro_torch.kernels.decode_attn import ref as dref
     lens8 = [0, 512, 536, 577, 608, 640, 700, 736]
     main = {}
-    for name, kv, hd in (("qwen2-0.5b", 2, 64), ("dream-7b", 4, 128)):
-        for dtype in ("bfloat16", "float32"):
-            rec = check_decode(torch, dev, b=8, Bq=32, Kv=kv, G=7, hd=hd,
+    for name, kv, g, hd, dtypes in (
+            ("qwen2-0.5b", 2, 7, 64, ("bfloat16", "float32")),
+            ("dream-7b", 4, 7, 128, ("bfloat16", "float32")),
+            ("llada-8b", 32, 1, 128, ("bfloat16",))):
+        for dtype in dtypes:
+            rec = check_decode(torch, dev, b=8, Bq=32, Kv=kv, G=g, hd=hd,
                                S=768, lens=lens8, dtype=dtype, timed=True,
                                name=f"{name}/{dtype}")
-            prec = check_paged(torch, dev, b=8, Bq=32, Kv=kv, G=7, hd=hd,
+            prec = check_paged(torch, dev, b=8, Bq=32, Kv=kv, G=g, hd=hd,
                                S=768, lens=lens8, dtype=dtype, timed=True,
                                name=f"{name}/{dtype}")
             if name == "qwen2-0.5b" and dtype == "bfloat16":
                 main["decode_attention"] = rec
                 main["paged_decode_attention"] = prec
+    # the bf16 route's split edges: cache_len 0, on the first split edge,
+    # one past it, and S, with S not a multiple of 64
+    for name, kv, g, hd in (("qwen2-0.5b", 2, 7, 64), ("dream-7b", 4, 7, 128),
+                            ("llada-8b", 32, 1, 128)):
+        edge = dref.tiles_per_split(kv, 32 * g) * 64
+        S = edge + 40
+        edges = dict(b=4, Bq=32, Kv=kv, G=g, hd=hd, S=S,
+                     lens=[0, edge, edge + 1, S])
+        for dtype in ("bfloat16", "float32"):
+            check_decode(torch, dev, **edges, dtype=dtype,
+                         name=f"{name} split edge {dtype}")
+            check_paged(torch, dev, **edges, dtype=dtype, page=8,
+                        name=f"{name} split edge {dtype}")
+            check_nan_residue(torch, dev, **edges, dtype=dtype, page=8,
+                              name=f"{name} NaN residue {dtype}")
     small = dict(b=2, Bq=8, Kv=2, G=2, hd=64, S=64, lens=[5, 40])
     for check in (check_decode, check_paged):
         check(torch, dev, **small, dtype="float32", softcap=5.0,
@@ -998,7 +1088,7 @@ def device_groups(prof):
     groups = {"decode_attention": 0.0, "block_attention": 0.0,
               "fused_select": 0.0, "xent": 0.0, "matmul": 0.0, "other": 0.0}
     for key, (ms, _) in by_kernel.items():
-        if "decode_attn" in key:
+        if "decode_attn" in key or "decode_merge" in key:
             groups["decode_attention"] += ms
         elif "block_attn" in key:
             groups["block_attention"] += ms
@@ -1012,6 +1102,23 @@ def device_groups(prof):
         else:
             groups["other"] += ms
     return groups, by_kernel
+
+
+def elementwise_kinds(by_kernel):
+    """Device ms and launches of the elementwise adds, fills and copies in
+    a trace (by kernel name), all dtypes and bf16 alone: the kernels a
+    period-stacked gradient multiplies."""
+    kinds = {"add": ("CUDAFunctor_add", "AddFunctor"),
+             "fill": ("FillFunctor",), "copy": ("copy_kernel",),
+             "bf16_add": ("CUDAFunctor_add<c10::BFloat16>",),
+             "bf16_fill": ("FillFunctor<c10::BFloat16>",)}
+    out = {k: {"ms": 0.0, "count": 0} for k in kinds}
+    for key, (ms, n) in by_kernel.items():
+        for kind, pats in kinds.items():
+            if any(p in key for p in pats):
+                out[kind]["ms"] += ms
+                out[kind]["count"] += n
+    return out
 
 
 def profile_block(torch, dev, eng, prompts, B):
@@ -1335,7 +1442,9 @@ def phase_training(torch, dev):
     from repro_torch.data import Corpus, TaskSpec
     from repro_torch.kernels.xent import fused_xent
     from repro_torch.kernels.xent import ref as xref
+    from repro_torch import tree as T
     from repro_torch.models import forward
+    from repro_torch.models import transformer as TR
     from repro_torch.optim import adamw
     from repro_torch.training import steps as S
     from repro_torch.training import trainer
@@ -1453,13 +1562,39 @@ def phase_training(torch, dev):
     t_ssteps = [_timed(torch, dev, lambda: sstep(
         student, opt_s, None, head, batch, draws))[1]
         for _ in range(WARM_STUDENT_STEPS)]
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sstep(student, opt_s, None, head, batch, draws)
+
+    def profiled_step():
         torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    groups, by_kernel = device_groups(prof)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sstep(student, opt_s, None, head, batch, draws)
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0,) + device_groups(prof)
+
+    # the forward as it was before each stacked leaf was split once: every
+    # period indexes every leaf, and the backward of each index fills and
+    # adds a zero tensor of the whole stack. One profile to warm the
+    # profiler, then split, indexed, indexed, split.
+    split_once = TR._by_period
+
+    def indexed(tree, n):
+        return [T.tree_map(lambda x: x[p], tree) for p in range(n)]
+
+    profiled_step()
+    stacked_grads = {"split_once": [], "indexed_per_period": []}
+    for name, variant in (("split_once", split_once),
+                          ("indexed_per_period", indexed),
+                          ("indexed_per_period", indexed),
+                          ("split_once", split_once)):
+        TR._by_period = variant
+        try:
+            wall, groups, by_kernel = profiled_step()
+        finally:
+            TR._by_period = split_once
+        stacked_grads[name].append({
+            "wall_ms": wall * 1e3, "device_busy_ms": sum(groups.values()),
+            "kernels": sum(n for _, n in by_kernel.values()),
+            **elementwise_kinds(by_kernel)})
     busy = sum(groups.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     rec = {"phase": "training", "config": "qwen2-0.5b", "dtype": "bfloat16",
@@ -1484,6 +1619,7 @@ def phase_training(torch, dev):
         "phase": "profile", "what": "one full fine-tune student step",
         "wall_ms": wall * 1e3, "device_busy_ms": busy,
         "idle_share": 1 - busy / (wall * 1e3), "device_ms_by_group": groups,
+        "stacked_param_grads": stacked_grads,
         "top_kernels": [{"name": k[:120], "ms": ms, "count": n}
                         for k, (ms, n) in top]}))
     return launches

@@ -18,6 +18,8 @@
 // A may instead come from registers (the RS form, wgmma_*_rs): the fp32
 // accumulator fragment of one product, packed to bf16 pairs, is the A
 // fragment of the next, as attention's P V takes P.
+// Rows no TMA box reaches (a paged cache's, one address per row) come by
+// cp.async, 16 bytes a thread, into the same swizzled layout.
 #pragma once
 
 #include <cuda.h>
@@ -104,6 +106,25 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// ---- cp.async ---------------------------------------------------------------
+// 16 bytes from global `src` to shared `dst` (both 16-byte aligned), of
+// which the first `src_bytes` (16 or 0) are read and the rest zero-filled:
+// with 0 nothing is read at `src`. Completion is per thread, by group.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------

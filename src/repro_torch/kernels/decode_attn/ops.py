@@ -8,6 +8,13 @@ normalized. ``paged_decode_attention`` does the same over a block-paged
 pool read through per-lane page tables (the JAX
 ``ops.py::paged_decode_attention``). A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises.
+
+The kernel's route is chosen by dtype, and both are kernels: bf16 runs on
+the tensor cores (wgmma; each lane's keys in 64-key tiles, a fixed number
+of tiles per split, ``ref.split_plan``; the splits' partials, in scratch
+allocated with the output, merged in order by a second kernel of the same
+call), fp32 on CUDA cores in fp32, since fp32 on the tensor cores would be
+TF32. Neither reads ``cache_lens`` on the host.
 """
 from __future__ import annotations
 
@@ -19,10 +26,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import ref
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
@@ -50,18 +57,16 @@ def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
         raise ValueError("decode_attention: shapes q "
                          f"{tuple(q.shape)}, cache {tuple(k_cache.shape)} "
                          "do not match")
-    out = torch.empty((b, Bq, Kv, G, hd), dtype=torch.float32,
-                      device=q.device)
+    out, T, n_splits, scratch = _out_and_scratch(q, S)
     if out.numel() == 0:
         return out
     fn = _build.function("decode_attn_forward", _ARGTYPES)
     sb, ss, sk, _ = k_cache.stride()
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_blk.data_ptr(), v_blk.data_ptr(), cache_lens.data_ptr(),
-            out.data_ptr(), b, Bq, Kv, G, hd, S, sb, ss, sk, scale,
-            0.0 if softcap is None else softcap,
-            0 if window is None else window,
-            int(q.dtype == torch.bfloat16),
+            out.data_ptr(), scratch, b, Bq, Kv, G, hd, S, T, n_splits, sb,
+            ss, sk, scale, 0.0 if softcap is None else softcap,
+            0 if window is None else window, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attn_forward")
     decode_attention.launches += 1
@@ -101,16 +106,16 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
         raise ValueError("paged_decode_attention: page_table must be a "
                          f"contiguous ({b}, n_t) int32 tensor on {q.device}")
     n_t = page_table.shape[1]
-    out = torch.empty((b, Bq, Kv, G, hd), dtype=torch.float32,
-                      device=q.device)
+    out, T, n_splits, scratch = _out_and_scratch(q, n_t * page)
     if out.numel() == 0:
         return out
     fn = _build.function("paged_decode_attn_forward", _PAGED_ARGTYPES)
     sp, ss, sk, _ = k_pages.stride()
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_blk.data_ptr(), v_blk.data_ptr(), page_table.data_ptr(),
-            cache_lens.data_ptr(), out.data_ptr(), b, Bq, Kv, G, hd, n_t,
-            page, sp, ss, sk, scale, 0.0 if softcap is None else softcap,
+            cache_lens.data_ptr(), out.data_ptr(), scratch, b, Bq, Kv, G, hd,
+            n_t, page, T, n_splits, sp, ss, sk, scale,
+            0.0 if softcap is None else softcap,
             0 if window is None else window, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_decode_attn_forward")
@@ -119,6 +124,25 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
 
 
 paged_decode_attention.launches = 0
+
+
+def _out_and_scratch(q, S: int):
+    """(out, tiles per split, splits, scratch pointer) for caches of S
+    rows. out is (b, Bq, Kv, G, hd) fp32; on the bf16 route it is the head
+    of one allocation whose tail is the scratch of the splits' partials,
+    acc (n_splits, b, Kv, Bq G, hd) then (m, l): one allocation a call on
+    q's stream, no host sync, nothing kept between calls. The fp32 route
+    takes no scratch: (out, 0, 0, None)."""
+    b, Bq, Kv, G, hd = q.shape
+    n_out = b * Bq * Kv * G * hd
+    if q.dtype != torch.bfloat16 or n_out == 0:
+        return (torch.empty((b, Bq, Kv, G, hd), dtype=torch.float32,
+                            device=q.device), 0, 0, None)
+    T, n_splits = ref.split_plan(Kv, Bq, G, S)
+    buf = torch.empty(n_out + n_splits * b * Kv * Bq * G * (hd + 2),
+                      dtype=torch.float32, device=q.device)
+    return (buf[:n_out].view(b, Bq, Kv, G, hd), T, n_splits,
+            buf.data_ptr() + 4 * n_out)
 
 
 def _check(name, q, k_cache, v_cache, k_blk, v_blk, cache_lens, softcap,

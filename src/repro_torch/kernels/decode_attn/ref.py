@@ -11,6 +11,13 @@ lanes), this version takes ``cache_lens (b,)``, and reads the cache in its
 ``(b, S, Kv, hd)`` model layout. ``paged_decode_attention`` is the plain
 version of the paged kernel: the JAX oracle's gather into the dense view,
 then the dense math.
+
+``split_plan`` and ``decode_attention_split`` model how the bf16 kernel
+splits the work: each lane's keys in 64-key tiles (the cache rows below
+``cache_len``, then the block's fresh keys), a fixed number of tiles per
+split, one set of online-softmax partials per split, merged in split order.
+The CPU tests hold the model against the plain version and the JAX kernel;
+nothing on the main path calls it.
 """
 from __future__ import annotations
 
@@ -125,3 +132,103 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
                             gather_pages(v_pages, page_table), k_blk, v_blk,
                             cache_lens, scale=scale, softcap=softcap,
                             window=window)
+
+
+KEY_TILE = 64   # keys per tile of the bf16 kernel
+
+
+def tiles_per_split(Kv: int, rows: int) -> int:
+    """Key tiles each split of the bf16 kernel walks, from the KV heads and
+    the folded rows Bq * G only (never from the cache length or layout, so
+    the dense and paged kernels split alike): 2 where a lane brings at most
+    8 (KV head, 64-row tile) pairs (qwen2-0.5b: 2 x 4), so short splits fill
+    the card; 8 where it brings more (dream-7b: 4 x 4, llada-8b: 32 x 1),
+    so fewer partials are written and merged."""
+    return 2 if Kv * -(-rows // 64) <= 8 else 8
+
+
+def split_plan(Kv: int, Bq: int, G: int, S: int):
+    """(tiles per split, splits in the grid) for caches of S rows: a lane
+    has at most ceil(S / 64) cache tiles and ceil(Bq / 64) fresh ones."""
+    T = tiles_per_split(Kv, Bq * G)
+    tiles = -(-S // KEY_TILE) + -(-Bq // KEY_TILE)
+    return T, -(-tiles // T)
+
+
+def _bf16_pair(p):
+    hi = p.bfloat16().float()
+    return hi + (p - hi).bfloat16().float()
+
+
+def decode_attention_split(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
+                           scale: float = 1.0,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None, page_table=None,
+                           p_round: Optional[str] = None):
+    """The bf16 kernel's split of :func:`decode_attention`, in fp32.
+
+    Lane j's logical key tiles are its ceil(c / 64) cache tiles (c =
+    ``cache_lens[j]``; keys at or past c invisible) and then ceil(Bq / 64)
+    tiles of the block's fresh keys; split s walks tiles [s T, s T + T)
+    (``tiles_per_split``), and its partials (acc, m, l) over those keys are
+    merged in split order by :func:`softmax_combine`. With ``page_table``
+    the caches are pools (n_pages, page, Kv, hd) and cache key kp sits at
+    row kp % page of page ``page_table[j, kp // page]`` (a -1 page's keys
+    are invisible and never read). ``p_round`` models the rounding of the
+    probabilities before the PV product: None (fp32), "pair" (p_hi + p_lo,
+    the kernel's form) or "bf16" (one rounding). Returns (b, Bq, Kv, G, hd)
+    fp32."""
+    b, Bq, Kv, G, hd = q.shape
+    R = Bq * G
+    S = (k_cache.shape[1] if page_table is None
+         else page_table.shape[1] * k_cache.shape[1])
+    T = tiles_per_split(Kv, R)
+    nb = -(-Bq // KEY_TILE)
+    qpos = torch.arange(R, device=q.device) // G
+    rnd = {None: lambda p: p, "pair": _bf16_pair,
+           "bf16": lambda p: p.bfloat16().float()}[p_round]
+    out = []
+    for j in range(b):
+        c = min(max(int(cache_lens[j]), 0), S)
+        nc = -(-c // KEY_TILE)
+        n_keys = (nc + nb) * KEY_TILE
+        kl = torch.zeros((n_keys, Kv, hd), device=q.device)
+        vl = torch.zeros_like(kl)
+        ok = torch.zeros(n_keys, dtype=torch.bool, device=q.device)
+        kp = torch.arange(c, device=q.device)
+        if page_table is None:
+            kl[:c], vl[:c] = k_cache[j, :c].float(), v_cache[j, :c].float()
+            ok[:c] = True
+        else:
+            pid = page_table[j].long()[kp // k_cache.shape[1]]
+            got = pid >= 0
+            page, row = pid[got], (kp % k_cache.shape[1])[got]
+            kl[kp[got]] = k_cache[page, row].float()
+            vl[kp[got]] = v_cache[page, row].float()
+            ok[kp[got]] = True
+        f0 = nc * KEY_TILE
+        kl[f0:f0 + Bq], vl[f0:f0 + Bq] = k_blk[j].float(), v_blk[j].float()
+        ok[f0:f0 + Bq] = True
+        # (Kv, R, keys) scores of this lane, softcap, then visibility
+        qj = q[j].permute(1, 0, 2, 3).reshape(Kv, R, hd).float()
+        s = torch.einsum("krh,nkh->krn", qj, kl) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        vis = ok[None, :].expand(R, n_keys)
+        if window is not None:
+            pos = torch.arange(n_keys, device=q.device)
+            cache_vis = (c + qpos[:, None]) - pos[None, :] < window
+            blk_vis = (qpos[:, None] - (pos[None, :] - f0)).abs() < window
+            vis = vis & torch.where(pos[None, :] < f0, cache_vis, blk_vis)
+        s = torch.where(vis, s, torch.full_like(s, -torch.inf))
+        parts = []
+        for t0 in range(0, nc + nb, T):
+            sl = slice(t0 * KEY_TILE, min(t0 + T, nc + nb) * KEY_TILE)
+            ss = s[..., sl]
+            m = ss.amax(-1, keepdim=True)
+            p = torch.exp(ss - torch.where(torch.isfinite(m), m, 0.0))
+            parts.append((torch.einsum("krn,nkh->krh", rnd(p), vl[sl]), m,
+                          p.sum(-1, keepdim=True)))
+        o = softmax_combine(parts)
+        out.append(o.reshape(Kv, Bq, G, hd).permute(1, 0, 2, 3))
+    return torch.stack(out)

@@ -3,7 +3,8 @@
 
 A model is ``cfg.n_periods`` repeats of ``cfg.layer_period``; each slot's
 params are stacked over periods and the stack runs as a Python loop over
-periods (the JAX package scans it). ``forward`` covers:
+periods (the JAX package scans it), each stacked leaf split once per
+forward. ``forward`` covers:
 
 - the full-sequence forward (prefill), in any mask mode;
 - the cached block decode: a block of queries per lane against that lane's
@@ -49,11 +50,16 @@ def check_dense(cfg: ModelConfig) -> None:
                          f"got layer_period={cfg.layer_period}")
 
 
-def _period(tree, p: int):
-    """Period ``p`` of a tree whose leaves are stacked over periods."""
+def _by_period(tree, n: int):
+    """A tree whose leaves are stacked over ``n`` periods as ``n`` trees,
+    each leaf split once with ``torch.unbind``. The backward of one unbind
+    stacks the periods' gradients once; indexing ``leaf[p]`` in every
+    period would fill and add a zero tensor of the whole stack per period
+    instead (O(n^2) bytes per leaf)."""
     if isinstance(tree, dict):
-        return {k: _period(v, p) for k, v in tree.items()}
-    return tree[p]
+        per_key = {k: _by_period(v, n) for k, v in tree.items()}
+        return [{k: v[p] for k, v in per_key.items()} for p in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
@@ -188,12 +194,17 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
                paged_decode_attention_fn=paged_decode_attention_fn,
                prefill_attention_fn=prefill_attention_fn)
 
+    n = cfg.n_periods
+    slots = [_by_period(slot_params, n) for slot_params in params["slots"]]
+    cache_slots = (None if cache is None
+                   else [_by_period(c, n) for c in cache])
+
     def period_body(x, p: int):
         ems = []
-        for i, slot_params in enumerate(params["slots"]):
-            slot = _period(slot_params, p)
+        for i, slot_by_period in enumerate(slots):
+            slot = slot_by_period[p]
             c = dict(ctx, cache_slot=None if cache is None
-                     else _period(cache[i], p))
+                     else cache_slots[i][p])
             x, em = _self_attention_slot(slot, x, cfg=cfg, ctx=c)
             h = L.apply_norm(slot["norm2"], x, cfg)
             x = x + L.apply_mlp(slot["mlp"], h, cfg)
@@ -202,7 +213,7 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
 
     checkpointed = remat and torch.is_grad_enabled()
     emitted = [[] for _ in cfg.layer_period]
-    for p in range(cfg.n_periods):
+    for p in range(n):
         if checkpointed:
             x, ems = checkpoint(period_body, x, p, use_reentrant=False)
         else:

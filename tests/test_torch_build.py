@@ -33,7 +33,8 @@ def test_the_shared_header_is_hashed_but_not_compiled(tree):
                                     "common/csrc/tc_mainloop.cuh",
                                     "xent/csrc/xent.cu",
                                     "select/csrc/select.cu",
-                                    "block_attn/csrc/block_attn.cu"])
+                                    "block_attn/csrc/block_attn.cu",
+                                    "decode_attn/csrc/decode_attn.cu"])
 def test_editing_a_source_or_header_changes_the_library(tree, edited):
     before = _build.library_path()
     assert _build.library_path() == before          # stable when unchanged
@@ -48,7 +49,8 @@ def test_the_mainloop_header_is_hashed_but_not_compiled(tree):
     assert header in _build.hashed_files()
     assert header not in _build.sources()
     for name in ("xent/csrc/xent.cu", "select/csrc/select.cu",
-                 "block_attn/csrc/block_attn.cu"):
+                 "block_attn/csrc/block_attn.cu",
+                 "decode_attn/csrc/decode_attn.cu"):
         assert tree / name in _build.sources()
         assert '#include "../../common/csrc/tc_mainloop.cuh"' in (
             tree / name).read_text()

@@ -41,6 +41,8 @@ def _randn(gen, *shape):
     (2, 128, None, 5.0, torch.float32),
     (7, 128, 6, 5.0, torch.bfloat16),
     (7, 64, None, None, torch.bfloat16),
+    (1, 128, None, None, torch.bfloat16),   # llada-8b's G and head_dim
+    (1, 128, 6, 5.0, torch.float32),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, G, hd, window, softcap,
                                                dtype):
@@ -83,6 +85,7 @@ def _paged_case(gen, dev, *, b, Bq, Kv, G, hd, page, n_t, lens, dtype):
     (2, 128, 5, None, 5.0, torch.float32),
     (7, 128, 32, 6, 5.0, torch.bfloat16),
     (7, 64, 32, None, None, torch.bfloat16),
+    (1, 128, 7, None, None, torch.bfloat16),
 ])
 def test_paged_decode_kernel_matches_plain(cuda, G, hd, page, window,
                                            softcap, dtype):
@@ -128,6 +131,117 @@ def test_paged_kernel_equals_dense_kernel_bitwise(cuda, page, dtype):
         table = perm.to(torch.int32).reshape(b, n_t)
         assert torch.equal(paged_decode_attention(q, kq, vq, kb, vb, table,
                                                   lens, **kw), dense)
+
+
+def _decode_pair(cuda, gen, *, b, Bq, Kv, G, hd, S, lens, dtype, page):
+    """Dense inputs with S cache rows, and a shuffled pool of pages of
+    `page` rows holding the same rows (-1 past each lane's length)."""
+    q = _randn(gen, b, Bq, Kv, G, hd).to(dtype)
+    kc, vc = (_randn(gen, b, S, Kv, hd).to(dtype) for _ in range(2))
+    kb, vb = (_randn(gen, b, Bq, Kv, hd).to(dtype) for _ in range(2))
+    n_t = S // page
+    perm = torch.randperm(2 * b * n_t, generator=gen, device=cuda)[:b * n_t]
+    kp, vp = (torch.zeros((2 * b * n_t, page, Kv, hd), dtype=dtype,
+                          device=cuda) for _ in range(2))
+    kp[perm], vp[perm] = (x.reshape(b * n_t, page, Kv, hd) for x in (kc, vc))
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    table = perm.to(torch.int32).reshape(b, n_t).clone()
+    table[torch.arange(n_t, device=cuda)[None, :] * page
+          >= lens[:, None]] = -1
+    return (q, kc, vc, kb, vb, lens), (q, kp, vp, kb, vb, table, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,G,hd", [(2, 7, 64), (4, 7, 128), (32, 1, 128),
+                                     (2, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_split_edges(cuda, Kv, G, hd, dtype):
+    """Lengths on the bf16 route's first split edge (ref.tiles_per_split
+    tiles of 64 keys), one past it, 0, and S, with S not a multiple of 64:
+    both kernels against their plain versions, paged equal to dense."""
+    gen = torch.Generator(device=cuda).manual_seed(Kv + G + hd)
+    edge = dref.tiles_per_split(Kv, 32 * G) * 64
+    S = edge + 40
+    dense, paged = _decode_pair(cuda, gen, b=4, Bq=32, Kv=Kv, G=G, hd=hd,
+                                S=S, lens=[0, edge, edge + 1, S],
+                                dtype=dtype, page=8)
+    kw = dict(scale=hd ** -0.5)
+    got = decode_attention(*dense, **kw)
+    torch.testing.assert_close(got, dref.decode_attention(*dense, **kw),
+                               rtol=1e-4, atol=1e-4)
+    got_paged = paged_decode_attention(*paged, **kw)
+    torch.testing.assert_close(got_paged,
+                               dref.paged_decode_attention(*paged, **kw),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got_paged, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_ignore_nan_residue(cuda, dtype):
+    """NaN in every cache row and pool row at or past each lane's length
+    (and in the pages no lane holds): the outputs are finite and equal the
+    outputs over a zero residue, dense and paged."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, S, page = 4, 200, 8
+    lens = [0, 128, 129, 77]
+    dense, paged = _decode_pair(cuda, gen, b=b, Bq=32, Kv=2, G=7, hd=64,
+                                S=S, lens=lens, dtype=dtype, page=page)
+    kw = dict(scale=0.125, window=150)
+    want = decode_attention(*dense, **kw)
+    want_paged = paged_decode_attention(*paged, **kw)
+    q, kc, vc, kb, vb, cl = dense
+    past = torch.arange(S, device=cuda)[None, :] >= cl[:, None]
+    kc, vc = kc.clone(), vc.clone()
+    kc[past], vc[past] = float("nan"), float("nan")
+    got = decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    _, kp, vp, _, _, table, _ = paged
+    kp, vp = kp.clone(), vp.clone()
+    held = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for lane, n in enumerate(lens):
+        for j in range(-(-n // page)):
+            rows = min(page, n - j * page)
+            held[table[lane, j], :rows] = True
+    kp[~held], vp[~held] = float("nan"), float("nan")
+    got_paged = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    assert torch.equal(got_paged, want_paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_kernels_are_deterministic(cuda, hd):
+    """Two calls give the same bits (the splits merge in order, no
+    atomics on values)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    dense, paged = _decode_pair(cuda, gen, b=8, Bq=32, Kv=2, G=7, hd=hd,
+                                S=768, lens=[0, 512, 536, 577, 608, 640,
+                                             700, 736],
+                                dtype=torch.bfloat16, page=32)
+    for fn, args in ((decode_attention, dense),
+                     (paged_decode_attention, paged)):
+        first = fn(*args, scale=hd ** -0.5)
+        assert torch.equal(fn(*args, scale=hd ** -0.5), first)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_reads_rows_that_are_not_16_byte_aligned(cuda):
+    """The bf16 kernel streams rows with 16-byte copies where every row is
+    16-byte aligned; a cache viewed at a 2-byte offset takes 2-byte loads
+    and gives the plain version's result."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, Bq, Kv, G, hd, S = 2, 32, 2, 7, 64, 100
+    q = _randn(gen, b, Bq, Kv, G, hd).bfloat16()
+    n = b * S * Kv * hd
+    kc, vc = (_randn(gen, n + 1).bfloat16()[1:].view(b, S, Kv, hd)
+              for _ in range(2))
+    kb, vb = (_randn(gen, b, Bq, Kv, hd).bfloat16() for _ in range(2))
+    lens = torch.tensor([70, 100], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, kc, vc, kb, vb, lens, scale=0.125)
+    torch.testing.assert_close(
+        got, dref.decode_attention(q, kc, vc, kb, vb, lens, scale=0.125),
+        rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -416,6 +530,13 @@ def test_kernel_wrappers_refuse_grad_on_cuda(cuda):
         "fused_select": (fused_select, lambda: fused_select(
             h, w, torch.ones((4,), dtype=torch.bool, device=cuda))),
         # the bf16 (tensor-core) routes
+        "decode_attention bf16": (decode_attention, lambda: decode_attention(
+            qb, cache.bfloat16(), cache.bfloat16(), blk.bfloat16(),
+            blk.bfloat16(), lens)),
+        "paged_decode_attention bf16": (
+            paged_decode_attention, lambda: paged_decode_attention(
+                qb, pool.bfloat16(), pool.bfloat16(), blk.bfloat16(),
+                blk.bfloat16(), table, lens)),
         "flash_block_attention bf16": (
             flash_block_attention, lambda: flash_block_attention(
                 qb, blk.bfloat16(), blk.bfloat16(), mode="bidirectional")),

@@ -134,6 +134,40 @@ def test_bf16_forward_matches_jax():
     _close(got.logits, want.logits, tol=2e-2)
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_each_stacked_leaf_reaches_the_backward_once(remat):
+    """The forward splits each period-stacked leaf once (``unbind``), so the
+    backward graph reaches each stacked leaf's ``AccumulateGrad`` through
+    one edge (the unbind's), not through one whole-stack index per period,
+    with ``remat`` off and on."""
+    from repro_torch import tree as T
+    _, cfg = _configs(n_layers=3)
+    params = params_from_jax(_np_params(_configs(n_layers=3)[0]), cfg, "cpu")
+    stacked = [leaf for path, leaf in T.leaves_with_path(params)
+               if path[0] == "slots"]
+    assert cfg.n_periods == 3 and stacked
+    assert all(leaf.shape[0] == cfg.n_periods for leaf in stacked)
+    for leaf in T.leaves(params):
+        leaf.requires_grad_()
+    tokens = torch.as_tensor(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (2, P + G)))
+    out = forward(params, tokens, cfg=cfg, device="cpu",
+                  mode=jmasks.BLOCK_CAUSAL, prompt_len=P, block_size=B,
+                  remat=remat).logits.sum()
+    edges, seen, stack = {}, set(), [out.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is not None and hasattr(nxt, "variable"):
+                key = id(nxt.variable)
+                edges[key] = edges.get(key, 0) + 1
+            stack.append(nxt)
+    assert [edges.get(id(leaf), 0) for leaf in stacked] == [1] * len(stacked)
+
+
 def test_forward_refuses_params_on_another_device():
     _, cfg = _configs()
     params = params_from_jax(_np_params(_configs()[0]), cfg, "cpu")
