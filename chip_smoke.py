@@ -33,13 +33,20 @@ Phases, each timed, any failure raises and exits non-zero:
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
    prompt prefill through the block attention kernel, the decode through
-   the dense decode attention and fused select kernels; the kernels' launch
-   counters must equal the engine's call accounting;
-3b. the main path, paged layout, same trace and width: with a
-   dense-equivalent pool, tokens equal phase 3's and every cached forward
-   goes through the paged kernel; with a tight pool (40 pages of 32
-   tokens, the first 8 requests), at least one stall round and one
+   the dense decode attention and fused select kernels, replayed as the
+   engine's CUDA graphs (one refinement iteration, the commit forward);
+   the kernels' launch counters must equal the engine's call accounting;
+3b. the main path, paged layout, same trace and width, through the graphs:
+   with a dense-equivalent pool, tokens equal phase 3's and every cached
+   forward goes through the paged kernel; with a tight pool (40 pages of
+   32 tokens, the first 8 requests), at least one stall round and one
    preemption, the pool fully free at the end, tokens equal phase 3's;
+3c. graph against eager: phase 3's trace and phase 3b's tight-pool case,
+   each through an eager engine (``graphs=False``) and a graph engine in
+   turns (eager, graph, graph, eager): tokens, steps, gen_length,
+   finish_reason, call counts, page statistics and launch counts equal,
+   launches equal to the call accounting on both paths; tokens/s, mean
+   latency and a profiled block's device busy and idle share of each;
 4. kernel path against plain path: the first block of a 2-request trace
    decoded at fp32 with the kernels (block attention prefill, dense and
    paged decode attention, fused select) and with their plain versions,
@@ -48,15 +55,15 @@ Phases, each timed, any failure raises and exits non-zero:
 5. the training path at qwen2-0.5b's full width (bf16, seeded random
    init, b=4, P=128, G=256, B=32): 2 teacher SFT steps, one greedy
    collection batch (256 full-canvas forwards through the block attention
-   and fused select kernels), 2 full fine-tune and 1 LoRA student steps,
-   every loss finite and the launch counters equal to the loss
-   evaluations and collector forwards; the collected trajectories replayed
-   step by step through the plain collector step (generic attention and
-   logits, bf16 and fp32); the DLM term of a student step with the kernel
-   and with the plain cross-entropy; warm step times and a profiled
-   student step, beside one profiled with the forward indexing every
-   period-stacked leaf in each period, as it did before each leaf was
-   split once (the adds, fills and copies of both).
+   and fused select kernels, the forward a CUDA graph), 2 full fine-tune
+   and 1 LoRA student steps, every loss finite and the launch counters
+   equal to the loss evaluations and collector forwards; the batch
+   collected again eagerly and through the graph, trajectories bit for bit
+   equal, with the ms per collection forward of each; the collected
+   trajectories replayed step by step through the plain collector step
+   (generic attention and logits, bf16 and fp32); the DLM term of a
+   student step with the kernel and with the plain cross-entropy; warm
+   step times and a profiled student step.
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1001,8 +1008,11 @@ def phase_serving(torch, dev):
     check_outputs(cfg, outs, dict(enumerate(caps)), B)
     check_launches(cfg, calls, launches, "dense")
     tokens = sum(o.gen_length for o in outs.values())
+    if eng._graphs is None:
+        raise AssertionError("serving: the engine did not capture its graphs")
     rec = {"phase": "serving", "config": "qwen2-0.5b", "dtype": "bfloat16",
-           "layout": "dense", "requests": len(outs), "max_batch": 8,
+           "layout": "dense", "graphs": True, "requests": len(outs),
+           "max_batch": 8,
            "block": B, "gen": G, "prompt_len": P, "tau": 0.9,
            "tokens": tokens, "wall_s": wall, "tps": tokens / wall,
            "mean_latency_s": float(np.mean([o.latency_s
@@ -1043,6 +1053,8 @@ def phase_paged(torch, dev, ctx):
                 for i in range(n_req)]
         outs, wall, counts = serve_counted(torch, dev, eng, reqs)
         calls = eng.call_counts()
+        if eng._graphs is None:
+            raise AssertionError(f"paged {case}: no graphs captured")
         check_outputs(cfg, outs, {i: caps[i] for i in range(n_req)}, B)
         check_launches(cfg, calls, counts, "paged")
         for rid, o in outs.items():
@@ -1074,6 +1086,77 @@ def phase_paged(torch, dev, ctx):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     return launches
+
+
+def phase_graph_vs_eager(torch, dev, ctx):
+    """Phase 3's trace on the dense layout and phase 3b's tight-pool case,
+    each through an eager engine (``graphs=False``) and a graph engine, in
+    turns: eager, graph, graph, eager. Every run equals the first eager
+    run in tokens, steps, gen_length, finish_reason, call counts, page
+    statistics and launches, and its launches equal the call accounting;
+    then a profiled block of each engine."""
+    import dataclasses
+
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    caps, prompts = ctx["caps"], ctx["prompts"]
+    tight = dataclasses.replace(ctx["serve"], cache_layout="paged",
+                                page_pool_pages=40)
+    for case, serve, n_req in (("dense", ctx["serve"], len(caps)),
+                               ("paged tight", tight, 8)):
+        layout = serve.cache_layout
+        engines = {name: ContinuousEngine(ctx["params"], cfg, serve,
+                                          prompt_len=P, device=dev,
+                                          graphs=graphs)
+                   for name, graphs in (("eager", False), ("graph", None))}
+        for eng in engines.values():
+            eng.warmup()
+        if engines["graph"]._graphs is None or engines["eager"]._graphs:
+            raise AssertionError(f"{case}: graphs on the wrong engine")
+        reqs = [Request(prompt=prompts[i], id=i, max_tokens=caps[i])
+                for i in range(n_req)]
+        runs, ref = {"eager": [], "graph": []}, None
+        for name in ("eager", "graph", "graph", "eager"):
+            eng = engines[name]
+            outs, wall, counts = serve_counted(torch, dev, eng, reqs)
+            calls = eng.call_counts()
+            check_outputs(cfg, outs, {i: caps[i] for i in range(n_req)}, B)
+            check_launches(cfg, calls, counts, layout)
+            got = ({rid: (o.tokens.tolist(), o.steps, o.gen_length,
+                          o.finish_reason) for rid, o in outs.items()},
+                   calls, eng.page_pool_stats(), counts)
+            ref = ref or got
+            for what, a, b in zip(("outputs", "calls", "page stats",
+                                   "launches"), got, ref):
+                if a != b:
+                    raise AssertionError(f"{case}: {name} run's {what} "
+                                         "differ from the eager run's")
+            tokens = sum(o.gen_length for o in outs.values())
+            runs[name].append({
+                "wall_s": wall, "tps": tokens / wall,
+                "mean_latency_s": float(np.mean([o.latency_s
+                                                 for o in outs.values()]))})
+        stats = ref[2]
+        if layout == "paged" and not (stats["stall_rounds"] >= 1
+                                      and stats["preemptions"] >= 1):
+            raise AssertionError(f"{case}: no stall or no preemption {stats}")
+        # the profiled block: as many one-block requests as one admission
+        # round takes (8 lanes; the tight pool admits 2)
+        lanes = (engines["graph"].n_pages // engines["graph"]._admit_pages
+                 if layout == "paged" else 8)
+        profiles = {}
+        for name, eng in engines.items():
+            prof = profile_block(torch, dev, eng, prompts[:lanes], B)
+            profiles[name] = {k: prof[k] for k in (
+                "requests", "wall_ms", "device_busy_ms", "idle_share",
+                "unprofiled_wall_ms", "idle_share_of_unprofiled_wall",
+                "trace_read_s", "device_ms_by_group")}
+        log(json.dumps({"phase": "graph vs eager", "case": case,
+                        "config": "qwen2-0.5b", "dtype": "bfloat16",
+                        "requests": n_req, "calls": ref[1],
+                        "page_pool_stats": stats, "launches": ref[3],
+                        "equal": True, "runs": runs,
+                        "profiled_block": profiles}))
 
 
 def device_groups(prof):
@@ -1122,15 +1205,17 @@ def elementwise_kinds(by_kernel):
 
 
 def profile_block(torch, dev, eng, prompts, B):
-    """Where the time goes: 8 one-block requests (one admission, 32
-    refinement iterations, one commit pass) under the profiler; device time
-    by kernel, grouped, and the share of the wall time the device was
-    busy."""
+    """Where the time goes: one-block requests, one per prompt (one
+    admission, 32 refinement iterations, one commit pass), once without
+    and once under the profiler; device time by kernel, grouped, and the
+    share of the wall time the device was busy, of the profiled wall and
+    of the unprofiled one (the profiler slows the host, not the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
     reqs = [Request(prompt=p, id=1000 + i, max_tokens=B)
             for i, p in enumerate(prompts)]
+    _, plain_wall = _timed(torch, dev, lambda: eng.generate(reqs))
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1142,6 +1227,9 @@ def profile_block(torch, dev, eng, prompts, B):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return {"phase": "profile", "requests": len(reqs), "wall_ms": wall * 1e3,
             "device_busy_ms": busy, "idle_share": 1 - busy / (wall * 1e3),
+            "unprofiled_wall_ms": plain_wall * 1e3,
+            "idle_share_of_unprofiled_wall": 1 - busy / (plain_wall * 1e3),
+            "trace_read_s": time.perf_counter() - t0 - wall,
             "device_ms_by_group": groups, "calls": eng.call_counts(),
             "top_kernels": [{"name": k[:120], "ms": ms, "count": n}
                             for k, (ms, n) in top]}
@@ -1425,6 +1513,44 @@ def check_collection(torch, teacher, ds, cfg, cdlm, per_forward=64):
             "logit_delta_max": d_max}
 
 
+def compare_collection(torch, dev, teacher, ds, cfg, cdlm):
+    """The collected batch (its forward a CUDA graph) collected again
+    eagerly and through the graph, in that order: every trajectory
+    (canvas, finalized_at, hidden) equal to the collected one bit for bit.
+    Returns the ms per collection forward of each run."""
+    from repro_torch.core.block_loop import SamplerSpec, _top1_loop
+    prompt = ds["prompt"]
+    P, G = prompt.shape[1], cdlm.gen_length
+    spec = SamplerSpec(prompt_len=P, gen_len=G, block_size=cdlm.block_size,
+                       fused_select=True)
+    from repro_torch.core.block_loop import _canvas_hidden
+    from repro_torch.graphs import Graph
+    ms = {}
+    for name, graphs in (("eager", False), ("graph", None)):
+        (res, fat, hid), wall = _timed(torch, dev, lambda: _top1_loop(
+            teacher, prompt, cfg=cfg, spec=spec, record_hidden=True,
+            graphs=graphs))
+        if not (torch.equal(res.tokens[:, :P], prompt)
+                and torch.equal(res.tokens[:, P:], ds["final"])
+                and torch.equal(fat, ds["finalized_at"])
+                and torch.equal(hid, ds["hidden"])):
+            raise AssertionError(f"collection: the {name} collector's "
+                                 "trajectories differ from the collected "
+                                 "batch's")
+        ms[name] = wall * 1e3 / G
+    # the forward's replay alone, back to back (CUDA events): its device
+    # time; the rest of a collection step is the eager selection
+    canvas = torch.cat([prompt, ds["final"]], 1)
+    with torch.no_grad():
+        graph = Graph(lambda: _canvas_hidden(teacher, canvas, cfg=cfg,
+                                             spec=spec))
+        replay_ms = time_ms(torch, graph.replay, 20)
+    del graph
+    return {"forwards": G, "equal": True, "eager_ms_per_forward": ms["eager"],
+            "graph_ms_per_forward": ms["graph"],
+            "graph_forward_replay_ms": replay_ms}
+
+
 def phase_training(torch, dev):
     """Teacher SFT -> greedy collection -> student (full and LoRA) through
     the trainer's entry points at qwen2-0.5b's full width, counted; then
@@ -1442,9 +1568,7 @@ def phase_training(torch, dev):
     from repro_torch.data import Corpus, TaskSpec
     from repro_torch.kernels.xent import fused_xent
     from repro_torch.kernels.xent import ref as xref
-    from repro_torch import tree as T
     from repro_torch.models import forward
-    from repro_torch.models import transformer as TR
     from repro_torch.optim import adamw
     from repro_torch.training import steps as S
     from repro_torch.training import trainer
@@ -1506,6 +1630,9 @@ def phase_training(torch, dev):
                              tree["slots"][0]["attn"]["wq"])):
             raise AssertionError("student params not finite")
 
+    collection = compare_collection(torch, dev, teacher, ds, cfg, cdlm)
+    log(json.dumps({"phase": "collection graph vs eager", **collection}))
+
     replay = check_collection(torch, teacher, ds, cfg, cdlm)
     log(json.dumps({"phase": "collection replay", **replay}))
 
@@ -1563,38 +1690,13 @@ def phase_training(torch, dev):
         student, opt_s, None, head, batch, draws))[1]
         for _ in range(WARM_STUDENT_STEPS)]
 
-    def profiled_step():
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sstep(student, opt_s, None, head, batch, draws)
         torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            sstep(student, opt_s, None, head, batch, draws)
-            torch.cuda.synchronize(dev)
-        return (time.perf_counter() - t0,) + device_groups(prof)
-
-    # the forward as it was before each stacked leaf was split once: every
-    # period indexes every leaf, and the backward of each index fills and
-    # adds a zero tensor of the whole stack. One profile to warm the
-    # profiler, then split, indexed, indexed, split.
-    split_once = TR._by_period
-
-    def indexed(tree, n):
-        return [T.tree_map(lambda x: x[p], tree) for p in range(n)]
-
-    profiled_step()
-    stacked_grads = {"split_once": [], "indexed_per_period": []}
-    for name, variant in (("split_once", split_once),
-                          ("indexed_per_period", indexed),
-                          ("indexed_per_period", indexed),
-                          ("split_once", split_once)):
-        TR._by_period = variant
-        try:
-            wall, groups, by_kernel = profiled_step()
-        finally:
-            TR._by_period = split_once
-        stacked_grads[name].append({
-            "wall_ms": wall * 1e3, "device_busy_ms": sum(groups.values()),
-            "kernels": sum(n for _, n in by_kernel.values()),
-            **elementwise_kinds(by_kernel)})
+    wall = time.perf_counter() - t0
+    groups, by_kernel = device_groups(prof)
     busy = sum(groups.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     rec = {"phase": "training", "config": "qwen2-0.5b", "dtype": "bfloat16",
@@ -1611,6 +1713,7 @@ def phase_training(torch, dev):
            "losses": {k: [{n: float(v) for n, v in m.items()} for m in rows]
                       for k, rows in hist.items()},
            "collected_lanes_with_mask_token": int((~clean).sum()),
+           "collection_graph_vs_eager": collection,
            "collection_replay": replay, "kernel_vs_plain_rel": rel,
            "dlm_dh_max_abs_err": err_h, "dlm_dw_max_abs_err": err_w,
            "max_memory_allocated_bytes": peak}
@@ -1619,7 +1722,8 @@ def phase_training(torch, dev):
         "phase": "profile", "what": "one full fine-tune student step",
         "wall_ms": wall * 1e3, "device_busy_ms": busy,
         "idle_share": 1 - busy / (wall * 1e3), "device_ms_by_group": groups,
-        "stacked_param_grads": stacked_grads,
+        "kernels": sum(n for _, n in by_kernel.values()),
+        **elementwise_kinds(by_kernel),
         "top_kernels": [{"name": k[:120], "ms": ms, "count": n}
                         for k, (ms, n) in top]}))
     return launches
@@ -1657,6 +1761,10 @@ def main():
     t = time.perf_counter()
     paged_launches = phase_paged(torch, dev, ctx)
     log(f"phase 3b (serving, paged): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    phase_graph_vs_eager(torch, dev, ctx)
+    log(f"phase 3c (graph vs eager): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     phase_paths(torch, dev)

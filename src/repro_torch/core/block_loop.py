@@ -6,10 +6,11 @@ collector)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import graphs as GR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import diffusion as D
 from repro_torch.core import masks
@@ -116,28 +117,45 @@ def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
     (V, d) unembedding); otherwise through the generic attention and the
     block's logits, as the JAX collector does. Call it under
     ``torch.no_grad()``."""
-    P, B = spec.prompt_len, spec.block_size
-    fused = spec.fused_select
+    B = spec.block_size
+    if spec.fused_select:
+        return _fused_pick(_canvas_hidden(params, tokens, cfg=cfg,
+                                          spec=spec),
+                           tokens, start, cfg=cfg, spec=spec, w=w)
     out = forward(params, tokens, cfg=cfg, device=tokens.device,
-                  mode=masks.BIDIRECTIONAL, prompt_len=P, block_size=B,
-                  return_logits=not fused,
-                  logits_slice=None if fused else (start, start + B),
-                  prefill_attention_fn=(flash_block_attention if fused
-                                        else None))
+                  mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
+                  block_size=B, logits_slice=(start, start + B))
     bt = tokens[:, start:start + B]
-    hidden = out.hidden[:, start:start + B]
-    if fused:
-        cand, conf = D.confidence_and_candidates_fused(
-            hidden, w, bt, cfg.mask_token_id,
-            softcap=cfg.final_logit_softcap)
-    else:
-        cand, conf = D.confidence_and_candidates(out.logits, bt,
-                                                 cfg.mask_token_id)
+    cand, conf = D.confidence_and_candidates(out.logits, bt,
+                                             cfg.mask_token_id)
+    return cand, conf, out.hidden[:, start:start + B]
+
+
+def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec):
+    """The fused top-1 step's forward: post-norm hidden states (b, P+G, d)
+    of the whole canvases, bidirectional, through the block attention
+    kernel (the collector captures it as a CUDA graph)."""
+    return forward(params, tokens, cfg=cfg, device=tokens.device,
+                   mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
+                   block_size=spec.block_size, return_logits=False,
+                   prefill_attention_fn=flash_block_attention).hidden
+
+
+def _fused_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
+                spec: SamplerSpec, w):
+    """The fused top-1 step's selection from the canvas' hidden states:
+    the block's candidates and confidences through the fused select
+    kernel, and the block's hidden states."""
+    B = spec.block_size
+    hidden = hidden[:, start:start + B]
+    cand, conf = D.confidence_and_candidates_fused(
+        hidden, w, tokens[:, start:start + B], cfg.mask_token_id,
+        softcap=cfg.final_logit_softcap)
     return cand, conf, hidden
 
 
 def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
-               record_hidden: bool):
+               record_hidden: bool, graphs: Optional[bool] = None):
     """N = G steps, one most-confident token finalized per step, each step a
     bidirectional forward over the whole canvas (the ``vanilla`` strategy,
     :func:`top1_step`), greedy only. Runs under ``torch.no_grad()``.
@@ -146,11 +164,21 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
     step at which each position was finalized (the monotone trajectory's
     exact encoding), and the fp32 hidden buffer (b, G, d): the teacher's
     last hidden state at each position's finalization.
+
+    ``graphs``: None (the default) runs the fused step's forward as a CUDA
+    graph over the canvas (captured once per call, its warm-up run serving
+    as the first step's forward) on CUDA with ``spec.fused_select``, and
+    eagerly otherwise; False runs it eagerly; True where it cannot apply
+    raises. The selection after each forward runs eagerly either way.
     """
     if spec.temperature > 0:
         raise ValueError("sampled (temperature > 0) decoding is not ported "
                          "yet: ROADMAP Queue 1 item 7 (per-request "
                          "sampling)")
+    graphable = spec.fused_select and prompt_tokens.device.type == "cuda"
+    if graphs and not graphable:
+        raise ValueError("graphs=True needs spec.fused_select and a CUDA "
+                         "device")
     with torch.no_grad():
         tokens = init_canvas(prompt_tokens, spec, cfg)
         b = tokens.shape[0]
@@ -161,12 +189,23 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                                  device=dev)
         w = unembed_matrix(params, cfg) if spec.fused_select else None
         whole_block = torch.ones((1, B), dtype=torch.bool, device=dev)
+        graph = None
+        if graphable and graphs is not False:
+            # the canvas is written in place below: the graph reads it at
+            # its fixed address
+            graph = GR.Graph(lambda: _canvas_hidden(params, tokens, cfg=cfg,
+                                                    spec=spec))
         step = 0
         for blk in range(spec.n_blocks):
             start = P + blk * B
             for _ in range(B):
-                cand, conf, hidden = top1_step(params, tokens, start, cfg=cfg,
-                                               spec=spec, w=w)
+                if graph is None:
+                    cand, conf, hidden = top1_step(params, tokens, start,
+                                                   cfg=cfg, spec=spec, w=w)
+                else:
+                    full = graph.warm if step == 0 else graph.replay()
+                    cand, conf, hidden = _fused_pick(full, tokens, start,
+                                                     cfg=cfg, spec=spec, w=w)
                 bt = tokens[:, start:start + B]
                 sel = D.select_topk_in_block(conf, whole_block, 1)
                 tokens[:, start:start + B] = torch.where(

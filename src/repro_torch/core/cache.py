@@ -19,8 +19,9 @@ while the others keep decoding, and both dispatch on the layout.
 
 The paged layout keeps its allocator on the host: ``page_table`` and
 ``page_owner`` are numpy arrays, and the device holds an int32 copy of the
-table that is uploaded when the table has changed. Allocation is a loop
-over at most ``batch`` lanes and never reads the device.
+table, one tensor for the cache's life, into which the table is copied
+when it has changed. Allocation is a loop over at most ``batch`` lanes and
+never reads the device.
 """
 from __future__ import annotations
 
@@ -108,7 +109,8 @@ class PagedCache:
     ``page_owner`` (n_pages,) int32 records the lane holding each page
     (``FREE`` = available). Both are numpy arrays, changed in place by
     :func:`alloc` and :func:`free`; :meth:`device_table` is the table on the
-    pools' device, uploaded again only after a change.
+    pools' device, at one address for the cache's life (a CUDA graph reads
+    it there), copied again only after a change.
     """
 
     def __init__(self, slots: tuple, page_table: np.ndarray,
@@ -116,7 +118,9 @@ class PagedCache:
         self.slots = slots
         self.page_table = page_table
         self.page_owner = page_owner
-        self._table_dev = None
+        self._table_dev = torch.empty(page_table.shape, dtype=torch.int32,
+                                      device=self.device)
+        self._stale = True
 
     @property
     def page_size(self) -> int:
@@ -136,16 +140,16 @@ class PagedCache:
 
     def touch(self) -> None:
         """Mark the host table changed: the next :meth:`device_table`
-        uploads it."""
-        self._table_dev = None
+        copies it to the device."""
+        self._stale = True
 
     def device_table(self) -> torch.Tensor:
         """The page table as a (b, n_tables) int32 tensor on the pools'
-        device (a host-to-device copy when the table changed, else the
-        cached tensor)."""
-        if self._table_dev is None:
-            self._table_dev = torch.as_tensor(self.page_table,
-                                              device=self.device)
+        device, always the same tensor: the host table is copied into it
+        (on the current stream) when it changed since the last call."""
+        if self._stale:
+            self._table_dev.copy_(torch.from_numpy(self.page_table))
+            self._stale = False
         return self._table_dev
 
 

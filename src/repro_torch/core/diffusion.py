@@ -5,7 +5,6 @@ ported yet."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.select import fused_select
 
@@ -65,7 +64,10 @@ def select_topk_in_block(conf, block_mask, k: int = 1):
                               torch.full_like(conf, -torch.inf))
     if k == 1:
         idx = torch.argmax(masked_conf, dim=-1)
-        sel = F.one_hot(idx, conf.shape[-1]).bool()
+        # a one-hot by comparison: no host check of idx (a CUDA graph
+        # captures this)
+        sel = idx[..., None] == torch.arange(conf.shape[-1],
+                                             device=conf.device)
         # nothing to select once the whole block is finalized
         return sel & torch.isfinite(masked_conf).any(-1, keepdim=True)
     thresh = torch.topk(masked_conf, k, dim=-1).values[..., -1:]

@@ -33,6 +33,20 @@ budgeted by free pages (prompt + first block per request), the survivors'
 next blocks are claimed right after the decode, and finished lanes'
 pages are freed at once. The allocator lives on the host, so no
 allocation result is ever read off the device.
+
+On CUDA the block decode replays CUDA graphs (``repro_torch.graphs``), the
+port's counterpart of the JAX engine's ``jax.jit``: one refinement
+iteration (the cached forward, the fused select, the threshold rule, the
+scatter into the canvas and the next iteration's ``active`` mask) and the
+commit pass's forward, each captured once per engine at :meth:`warmup`
+(or at the first :meth:`step`). The engine's device state (canvases, the
+dense cache or the paged pools, the device page table and the per-lane
+``starts``, ``live``, ``taus`` and ``active`` vectors) is allocated once
+per engine and written in place, so the graphs read it at fixed
+addresses. The host loop and its stop rule stay as they are: one read of
+``active`` per iteration, so tokens, steps, call counts and page
+statistics are the eager path's. ``graphs=False`` keeps the eager path on
+CUDA, for A/B runs and tests; the CPU runs eagerly.
 """
 from __future__ import annotations
 
@@ -43,6 +57,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import graphs as GR
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import cache as C
@@ -151,14 +166,42 @@ class _Flight:
 
 
 class _Slots:
-    """Decode state of the lane batch: canvases and KV cache on the device,
-    per-lane bookkeeping on the host (the host loop reads it every
-    iteration anyway)."""
+    """Decode state of the lane batch: canvases, KV cache and the block
+    loop's per-lane vectors on the device, allocated once and written in
+    place (a CUDA graph reads them at fixed addresses); per-lane
+    bookkeeping on the host (the host loop reads it every iteration
+    anyway)."""
 
-    def __init__(self, tokens, cache, n_blocks: int, tau: float, eos: int):
+    def __init__(self, tokens, cache, n_blocks: int, tau: float, eos: int,
+                 mask_id: int):
         N = tokens.shape[0]
+        dev = tokens.device
         self.tokens = tokens                       # (N, P+G) on the device
         self.cache = cache                         # dense tuple or paged
+        self.mask_id = mask_id
+        self.defaults = (n_blocks, tau, eos)
+        # the current block's inputs and the refinement loop's mask
+        self.starts_t = torch.zeros((N,), dtype=torch.int64, device=dev)
+        self.live_t = torch.zeros((N,), dtype=torch.bool, device=dev)
+        self.taus_t = torch.zeros((N, 1), dtype=torch.float32, device=dev)
+        self.active_t = torch.zeros((N,), dtype=torch.bool, device=dev)
+        self.clear()
+
+    def clear(self) -> None:
+        """Empty every lane, in place: mask-token canvases, a zeroed cache
+        (paged: every page back in the pool) and host records."""
+        N = self.tokens.shape[0]
+        n_blocks, tau, eos = self.defaults
+        self.tokens.fill_(self.mask_id)
+        if isinstance(self.cache, C.PagedCache):
+            C.free(self.cache, np.ones((N,), bool))
+            bufs = [b for slot in self.cache.slots for b in slot.values()]
+        else:
+            bufs = [b for slot in self.cache for b in slot.values()]
+        for buf in bufs:
+            buf.zero_()
+        for t in (self.starts_t, self.live_t, self.taus_t, self.active_t):
+            t.zero_()
         self.blk = np.zeros((N,), np.int64)        # current block per lane
         self.lane_nblocks = np.full((N,), n_blocks, np.int64)
         self.live = np.zeros((N,), bool)           # occupied and unfinished
@@ -172,10 +215,12 @@ class ContinuousEngine(_RequestStepper):
     """Slot-based continuous batching over the CDLM exact-cache strategy
     (dense or paged layout, greedy). ``device`` defaults to the CUDA
     device; pass ``device="cpu"`` to run on the CPU (the kernels' plain
-    versions)."""
+    versions). ``graphs``: None (the default) decodes through CUDA graphs
+    on CUDA and eagerly on the CPU; False decodes eagerly on CUDA too;
+    True on the CPU raises."""
 
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
-                 prompt_len: int, *, device="cuda"):
+                 prompt_len: int, *, device="cuda", graphs=None):
         if serve.sampler != "cdlm":
             raise ValueError(
                 "ContinuousEngine requires the 'cdlm' strategy (exact "
@@ -196,6 +241,11 @@ class ContinuousEngine(_RequestStepper):
                              "kernel only: set ServeConfig(fused_select=True)")
         check_dense(cfg)
         self.device = resolve_device(device)
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device, the engine "
+                             f"runs on {self.device}")
+        self.graphed = self.device.type == "cuda" and graphs is not False
+        self._graphs = None        # (refine, commit), captured at warmup
         if params["embed"]["tok"].device != self.device:
             raise ValueError(f"params live on {params['embed']['tok'].device}"
                              f", the engine runs on {self.device}")
@@ -224,6 +274,10 @@ class ContinuousEngine(_RequestStepper):
         else:
             self.n_pages = 0
         self._next_id = 0
+        self._state = self._init_state()
+        self._arange_b = torch.arange(B, device=self.device)
+        self._all_block = torch.ones((1, B), dtype=torch.bool,
+                                     device=self.device)
         self._reset()
 
     # -- state transitions ---------------------------------------------------
@@ -240,7 +294,8 @@ class ContinuousEngine(_RequestStepper):
         else:
             cache = C.init_cache(self.cfg, N, T, device=self.device)
         return _Slots(tokens, cache, self.spec.n_blocks,
-                      self.spec.conf_threshold, self.cfg.eos_token_id)
+                      self.spec.conf_threshold, self.cfg.eos_token_id,
+                      self.cfg.mask_token_id)
 
     def _admit(self, state: _Slots, prompts, admit, nblocks, taus, eos):
         """Write the admitted lanes' canvases, reset their cache rows (paged:
@@ -253,7 +308,7 @@ class ContinuousEngine(_RequestStepper):
                                              device=self.device), spec,
                              self.cfg)
         rows = torch.as_tensor(admit, device=self.device)
-        state.tokens = torch.where(rows[:, None], canvas, state.tokens)
+        state.tokens.copy_(torch.where(rows[:, None], canvas, state.tokens))
         C.reset(state.cache, admit)
         if self.paged:
             _, ok = C.alloc(state.cache, admit, 0,
@@ -290,51 +345,98 @@ class ContinuousEngine(_RequestStepper):
         _, ok = C.alloc(state.cache, state.live, starts, starts + B)
         return ok
 
+    def _block_positions(self, state: _Slots) -> torch.Tensor:
+        """(N, B) canvas positions of each lane's current block."""
+        return state.starts_t[:, None] + self._arange_b
+
+    def _refresh_active(self, state: _Slots) -> None:
+        """``active``: the live lanes whose block still holds a mask
+        token."""
+        bt = state.tokens.gather(1, self._block_positions(state))
+        state.active_t.copy_((bt == self.cfg.mask_token_id).any(-1)
+                             & state.live_t)
+
+    def _refine(self) -> None:
+        """One refinement iteration of the active lanes, on the device
+        state alone (captured as a CUDA graph): the cached forward of each
+        lane's block, the fused select, the threshold rule and the scatter
+        of the selected candidates into the canvases, then the next
+        iteration's ``active``."""
+        state, cfg = self._state, self.cfg
+        pos = self._block_positions(state)
+        bt = state.tokens.gather(1, pos)
+        hidden, _ = lane_block_forward(
+            self.params, state.tokens, state.starts_t, state.cache, cfg=cfg,
+            spec=self.spec, return_hidden=True)
+        cand, conf = D.confidence_and_candidates_fused(
+            hidden, unembed_matrix(self.params, cfg), bt, cfg.mask_token_id,
+            softcap=cfg.final_logit_softcap)
+        sel = D.select_threshold_in_block(conf, self._all_block,
+                                          state.taus_t)
+        sel = sel & state.active_t[:, None]
+        state.tokens.scatter_(1, pos, torch.where(sel, cand.to(bt.dtype),
+                                                  bt))
+        self._refresh_active(state)
+
+    def _commit_forward(self) -> tuple:
+        """The commit pass's forward (captured as a CUDA graph): the
+        finalized blocks' KV emissions, each lane at its own offset."""
+        state = self._state
+        _, emissions = lane_block_forward(
+            self.params, state.tokens, state.starts_t, state.cache,
+            cfg=self.cfg, spec=self.spec, return_hidden=True)
+        return emissions
+
+    def _write_block_inputs(self, state: _Slots, starts, live) -> None:
+        """The block's inputs into the static device buffers, before its
+        first iteration: ``starts``, ``live``, ``taus``, the device page
+        table, and ``active``."""
+        state.starts_t.copy_(torch.from_numpy(starts))
+        state.live_t.copy_(torch.from_numpy(live))
+        state.taus_t.copy_(torch.from_numpy(state.taus)[:, None])
+        if self.paged:
+            state.cache.device_table()
+        self._refresh_active(state)
+
+    def _capture(self, state: _Slots, starts, live) -> tuple:
+        """Capture the refinement iteration and the commit forward, sharing
+        one memory pool. The refinement's warm-up run changes the canvases:
+        the caller clears the state after."""
+        self._write_block_inputs(state, starts, live)
+        pool = torch.cuda.graph_pool_handle()
+        return (GR.Graph(self._refine, pool=pool),
+                GR.Graph(self._commit_forward, pool=pool))
+
     def _decode_block(self, state: _Slots, run) -> None:
         """Advance the lanes in ``run`` by one block: threshold refinement
         to completion, then the exact commit pass into each lane's rows."""
-        spec, cfg, dev = self.spec, self.cfg, self.device
+        spec, dev = self.spec, self.device
         P, B = spec.prompt_len, spec.block_size
         live = state.live & run
         starts = P + np.clip(state.blk, 0, spec.n_blocks - 1) * B
-        pos = (torch.as_tensor(starts, device=dev)[:, None]
-               + torch.arange(B, device=dev))
-        live_t = torch.as_tensor(live, device=dev)
-        taus = torch.as_tensor(state.taus, device=dev)[:, None]
-        all_block = torch.ones((1, B), dtype=torch.bool, device=dev)
-        w = unembed_matrix(self.params, cfg)
+        self._write_block_inputs(state, starts, live)
+        refine, commit = ((self._refine, self._commit_forward)
+                          if self._graphs is None
+                          else (g.replay for g in self._graphs))
         it = 0
         while it < B:
-            bt = state.tokens.gather(1, pos)
-            active_t = (bt == cfg.mask_token_id).any(-1) & live_t
             # the loop condition is read back to the host: one device sync
-            # per refinement iteration
-            active = active_t.cpu().numpy()
+            # per refinement iteration (a copy: on the CPU, .cpu() aliases
+            # the buffer the iteration rewrites)
+            active = state.active_t.cpu().numpy().copy()
             if not active.any():
                 break
-            hidden, _ = lane_block_forward(
-                self.params, state.tokens, starts, state.cache, cfg=cfg,
-                spec=spec, return_hidden=True)
-            cand, conf = D.confidence_and_candidates_fused(
-                hidden, w, bt, cfg.mask_token_id,
-                softcap=cfg.final_logit_softcap)
-            sel = D.select_threshold_in_block(conf, all_block, taus)
-            sel = sel & active_t[:, None]
-            state.tokens.scatter_(1, pos, torch.where(sel, cand.to(bt.dtype),
-                                                      bt))
+            refine()
             state.steps += active
             state.calls["refine"] += 1
             it += 1
 
         # commit pass: recompute the finalized blocks' KV exactly, for the
         # lanes that ran, each at its own offset
-        _, emissions = lane_block_forward(self.params, state.tokens, starts,
-                                          state.cache, cfg=cfg, spec=spec,
-                                          return_hidden=True)
-        C.commit_rows(state.cache, emissions, starts, live)
+        C.commit_rows(state.cache, commit(), starts, live)
         state.calls["commit"] += 1
 
-        bt = state.tokens.gather(1, pos)
+        bt = state.tokens.gather(1, self._block_positions(state))
         eos_hit = (bt == torch.as_tensor(state.eos, device=dev)[:, None]
                    ).any(-1).cpu().numpy()
         state.blk = np.where(live, state.blk + 1, state.blk)
@@ -343,7 +445,7 @@ class ContinuousEngine(_RequestStepper):
 
     # -- host-side scheduler -------------------------------------------------
     def _reset(self) -> None:
-        self._state = self._init_state()
+        self._state.clear()
         self._queue: List[GenerationRequest] = []
         self._flights: List[Optional[_Flight]] = [None] * self.n_lanes
         self._resolved: Dict[int, ResolvedSamplingParams] = {}
@@ -359,18 +461,26 @@ class ContinuousEngine(_RequestStepper):
         self._stall_rounds = 0
 
     def warmup(self) -> None:
-        """Build and load the kernels and run one admission and one block
-        decode on a throwaway state."""
-        state = self._init_state()
+        """Build and load the kernels, capture the decode's CUDA graphs
+        (once per engine), and run one admission and one block decode on
+        the engine's state, which is cleared after. Refused while a request
+        is in flight."""
+        if any(f is not None for f in self._flights):
+            raise RuntimeError("engine busy: warmup() needs every lane free")
+        state = self._state
         N, P = self.n_lanes, self.spec.prompt_len
         lanes = np.ones((N,), bool)
         if self.paged:     # as many lanes as the pool admits at once
             lanes[self.n_pages // self._admit_pages:] = False
         self._admit(state, np.zeros((N, P), np.int64), lanes,
                     state.lane_nblocks, state.taus, state.eos)
+        if self.graphed and self._graphs is None:
+            self._graphs = self._capture(state, np.full((N,), P, np.int64),
+                                         lanes)
         self._decode_block(state, lanes)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        state.clear()
 
     def _lane_nblocks(self, rp: ResolvedSamplingParams) -> int:
         if rp.max_tokens is None:
@@ -445,6 +555,8 @@ class ContinuousEngine(_RequestStepper):
         :class:`BlockEvent` per block finalized (final blocks carry the
         request's :class:`GenerationOutput`)."""
         N, P, B = self.n_lanes, self.spec.prompt_len, self.spec.block_size
+        if self.graphed and self._graphs is None:
+            self.warmup()      # no step has run yet: every lane is free
         state = self._state
         now = time.perf_counter() - self._t0
 

@@ -553,3 +553,108 @@ def test_kernel_wrappers_refuse_grad_on_cuda(cuda):
             call()
         torch.cuda.synchronize()
         assert fn.launches == before + 1, name
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the block decode and the collector against the eager path
+# ---------------------------------------------------------------------------
+def _reduced_params(cuda, dtype="float32"):
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-0.5b").reduced(dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda, dtype)
+    with torch.no_grad():
+        params["embed"]["tok"] *= 40.0   # a sharp head: >1 token an iteration
+        params["embed"]["tok"][cfg.mask_token_id] = 0
+    return cfg, params
+
+
+def _counted(fn):
+    """fn() with every kernel's launch counter from 0; (result, counts)."""
+    from repro_torch.graphs import COUNTERS
+    for wrapper, attr in COUNTERS:
+        setattr(wrapper, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [getattr(wrapper, attr) for wrapper, attr in COUNTERS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,pool", [("dense", None), ("paged", None),
+                                         ("paged", 8)])
+def test_graph_serving_equals_eager(cuda, layout, pool):
+    """The engine through its CUDA graphs and eagerly (``graphs=False``) on
+    one trace: tokens, steps, gen_length, finish_reason, call counts, page
+    statistics and every kernel's launch count equal, and the launches
+    equal the call accounting (a tight pool of 8 pages stalls and
+    preempts)."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _reduced_params(cuda)
+    P, G, B = 8, 16, 4
+    serve = ServeConfig(max_batch=2, block_size=B, gen_length=G,
+                        conf_threshold=0.5, scheduler="continuous",
+                        fused_select=True, cache_layout=layout,
+                        page_pool_pages=pool)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
+                                                (5, P))
+    caps = [None, B, None, 2 * B, None]
+    runs = {}
+    for graphs in (False, None):
+        eng = ContinuousEngine(params, cfg, serve, prompt_len=P,
+                               device=cuda, graphs=graphs)
+        eng.warmup()
+        assert (eng._graphs is not None) == (graphs is None)
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i, max_tokens=c)
+             for i, (p, c) in enumerate(zip(prompts, caps))]))
+        calls = eng.call_counts()
+        cached = cfg.n_layers * (calls["refine"] + calls["commit"])
+        # COUNTERS order: decode, paged decode, block attention, select,
+        # xent forward, xent backward
+        assert counts == [cached if layout == "dense" else 0,
+                          cached if layout == "paged" else 0,
+                          cfg.n_layers * calls["admit"], calls["refine"],
+                          0, 0]
+        runs[graphs] = ({o.id: o for o in outs}, calls,
+                        eng.page_pool_stats(), counts)
+    (eager, e_calls, e_stats, e_counts), (graph, g_calls, g_stats, g_counts) \
+        = runs[False], runs[None]
+    assert sorted(graph) == sorted(eager) == list(range(5))
+    for rid, o in eager.items():
+        np.testing.assert_array_equal(graph[rid].tokens, o.tokens)
+        assert (graph[rid].steps, graph[rid].gen_length,
+                graph[rid].finish_reason) == (o.steps, o.gen_length,
+                                              o.finish_reason)
+    assert (g_calls, g_stats, g_counts) == (e_calls, e_stats, e_counts)
+    if pool is not None:
+        assert g_stats["preemptions"] >= 1 and g_stats["stall_rounds"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_collector_equals_eager(cuda, dtype):
+    """The greedy collector with its forward as a CUDA graph and eagerly:
+    tokens, finalized_at and hidden bit for bit, and the same launches
+    (one block attention per layer and one select per step)."""
+    from repro_torch.core.block_loop import SamplerSpec, _top1_loop
+    cfg, params = _reduced_params(cuda, dtype)
+    P, G, B = 8, 16, 4
+    spec = SamplerSpec(prompt_len=P, gen_len=G, block_size=B,
+                       fused_select=True)
+    prompts = torch.randint(2, cfg.vocab_size - 1, (3, P), device=cuda,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(1))
+    got = {}
+    for graphs in (None, False):
+        got[graphs] = _counted(lambda: _top1_loop(
+            params, prompts, cfg=cfg, spec=spec, record_hidden=True,
+            graphs=graphs))
+    (res_g, fat_g, hid_g), counts_g = got[None]
+    (res_e, fat_e, hid_e), counts_e = got[False]
+    assert torch.equal(res_g.tokens, res_e.tokens)
+    assert torch.equal(fat_g, fat_e) and torch.equal(hid_g, hid_e)
+    assert counts_g == counts_e == [0, 0, G * cfg.n_layers, G, 0, 0]
