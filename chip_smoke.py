@@ -63,7 +63,21 @@ Phases, each timed, any failure raises and exits non-zero:
    trajectories replayed step by step through the plain collector step
    (generic attention and logits, bf16 and fp32); the DLM term of a
    student step with the kernel and with the plain cross-entropy; warm
-   step times and a profiled student step.
+   step times and a profiled student step;
+6. sampled serving and the HTTP frontend: (a) the threefry PRNG on the
+   card equals the CPU's (keys and bits at the per-lane draw's shape bit
+   for bit, Gumbel noise within 2 ulp), one per-lane draw timed; (b) phase
+   3's trace with every other request at temperature 0.7 and its own
+   seed, through an engine without fused select, graph, eager, graph,
+   every run equal, launches equal to the call accounting, the greedy
+   trace through the dense-logits iteration, four of the requests on the
+   paged layout equal to the dense one, and a profiled sampled block; (c) the
+   static engine, 8 requests greedy through fused select and at an engine
+   default of 0.7, each twice, deterministic; (d) ``serve_http`` on a
+   loopback port over (b)'s graph engine, a greedy and a seeded sampled
+   completion streamed and not, equal to the eager engine's ``generate``,
+   ``/healthz`` and ``/metrics``; (e) phase 5's collection shape at
+   temperature 0.5 through the forward's graph and eagerly, bit for bit.
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -122,6 +136,10 @@ XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
 KERNELS = ("decode_attention", "fused_select", "paged_decode_attention",
            "block_attention", "xent_forward", "xent_backward")
 NEAR_TIE = 1e-4
+# the per-lane draw's kernels in a trace: threefry's int32 elementwise ops,
+# the uniform's shifts and masks and the Gumbel's logs and clamp
+DRAW_KERNEL_MARKS = ("bitwise", "shift", "<int>", "(int, int)",
+                     "log_kernel", "clamp")
 
 
 def log(msg):
@@ -1026,7 +1044,9 @@ def phase_serving(torch, dev):
     log(json.dumps(profile_block(torch, dev, eng, prompts[:8], B)))
     return {"cfg": cfg, "params": params, "serve": serve, "P": P, "B": B,
             "caps": caps, "prompts": prompts, "outs": outs,
-            "launches": launches}
+            "launches": launches,
+            "rec": {k: rec[k] for k in ("tokens", "wall_s", "tps",
+                                        "mean_latency_s")}}
 
 
 def phase_paged(torch, dev, ctx):
@@ -1204,16 +1224,20 @@ def elementwise_kinds(by_kernel):
     return out
 
 
-def profile_block(torch, dev, eng, prompts, B):
+def profile_block(torch, dev, eng, prompts, B, sampling=None):
     """Where the time goes: one-block requests, one per prompt (one
     admission, 32 refinement iterations, one commit pass), once without
     and once under the profiler; device time by kernel, grouped, and the
     share of the wall time the device was busy, of the profiled wall and
-    of the unprofiled one (the profiler slows the host, not the kernels)."""
+    of the unprofiled one (the profiler slows the host, not the kernels).
+    ``sampling(i)``, where given, is request i's ``SamplingParams``; the
+    per-lane draw's kernels (DRAW_KERNEL_MARKS) then form a group of their
+    own, taken out of "other"."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
-    reqs = [Request(prompt=p, id=1000 + i, max_tokens=B)
+    reqs = [Request(prompt=p, id=1000 + i, max_tokens=B,
+                    params=None if sampling is None else sampling(i))
             for i, p in enumerate(prompts)]
     _, plain_wall = _timed(torch, dev, lambda: eng.generate(reqs))
     torch.cuda.synchronize(dev)
@@ -1223,6 +1247,14 @@ def profile_block(torch, dev, eng, prompts, B):
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     groups, by_kernel = device_groups(prof)
+    if sampling is not None:
+        groups["draw"] = 0.0
+        for key, (ms, _) in by_kernel.items():
+            if (not any(g in key for g in ("decode_attn", "decode_merge",
+                                           "block_attn", "select_", "xent_"))
+                    and any(m in key for m in DRAW_KERNEL_MARKS)):
+                groups["draw"] += ms
+                groups["other"] -= ms
     busy = sum(groups.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return {"phase": "profile", "requests": len(reqs), "wall_ms": wall * 1e3,
@@ -1729,6 +1761,378 @@ def phase_training(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: sampled serving and the HTTP frontend
+# ---------------------------------------------------------------------------
+GUMBEL_ULP = 2          # Gumbel noise, CUDA against the CPU: ulps of max(|g|, 1)
+STATIC_GEN = 64         # the static engine's generation (2 blocks)
+HTTP_MAX_TOKENS = 64    # each HTTP completion's cap (2 blocks)
+COLLECT_SHAPE = (4, 128, 256, 32)   # phase 5's collection: b, P, G, block
+PAGED_IDS = (1, 3, 6, 11)   # (b)'s paged run: caps 64, 32, 32, 32
+
+
+def _ulps(torch, got, want):
+    """|got - want| in ulps of max(|want|, 1), the noise's scale where it
+    meets the logits."""
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+    return float(((got - want).abs() / ulp).max())
+
+
+def check_prng(torch, dev, cfg):
+    """(a) The threefry stream on the card: keys and bits at the per-lane
+    draw's shape (8 lanes, 32 x V) equal the CPU's bit for bit, the Gumbel
+    noise within GUMBEL_ULP; one per-lane draw and the whole per-lane
+    selection timed with CUDA events, beside the greedy selection."""
+    from repro_torch import prng
+    from repro_torch.core import diffusion as D
+    shape = (32, cfg.vocab_size)
+    keys = prng.split(prng.key(42), 8)
+    kd = keys.to(dev)
+    for what, fn in (("split", lambda k: prng.split(k, 3)),
+                     ("bits", lambda k: prng.bits(k, shape))):
+        if not torch.equal(fn(kd).cpu(), fn(keys)):
+            raise AssertionError(f"prng: {what} on the card differs from "
+                                 "the CPU's")
+    ulps = _ulps(torch, prng.gumbel(kd, shape).cpu(),
+                 prng.gumbel(keys, shape))
+    if ulps > GUMBEL_ULP:
+        raise AssertionError(f"prng: Gumbel noise {ulps} ulp from the CPU's")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = 3 * torch.randn((8,) + shape, generator=gen, device=dev)
+    tokens = torch.full((8, 32), cfg.mask_token_id, device=dev)
+    temps = torch.full((8,), 0.7, device=dev)
+    draw_ms = time_ms(torch, lambda: prng.categorical(kd, logits), 10)
+    sel_ms = time_ms(torch, lambda: D.confidence_and_candidates_per_lane(
+        logits, tokens, cfg.mask_token_id, temps, kd), 10)
+    greedy_ms = time_ms(torch, lambda: D.confidence_and_candidates_per_lane(
+        logits, tokens, cfg.mask_token_id, temps, None), 10)
+    n = logits.numel()
+    rec = {"phase": "prng", "draw_shape": [8, *shape], "bits_equal": True,
+           "split_equal": True, "gumbel_max_ulp": ulps,
+           "draw_ms": draw_ms, "draw_bytes_bound_ms": n * 4 / PEAK_BYTES * 1e3,
+           "per_lane_select_sampled_ms": sel_ms,
+           "per_lane_select_greedy_ms": greedy_ms}
+    log(json.dumps(rec))
+    return rec
+
+
+def _sampled_trace(ctx, sampling_params):
+    """Phase 3's 12 requests, every other one at temperature 0.7 with its
+    own seed."""
+    from repro_torch.serving import Request
+    caps, prompts = ctx["caps"], ctx["prompts"]
+    return [Request(prompt=prompts[i], id=i, max_tokens=caps[i],
+                    params=(sampling_params(temperature=0.7, seed=100 + i)
+                            if i % 2 else None))
+            for i in range(len(caps))]
+
+
+def _dense_launches(cfg, calls, layout):
+    """The launches of an engine without fused select: the call accounting
+    of ``check_launches`` with no select."""
+    cached = cfg.n_layers * (calls["refine"] + calls["commit"])
+    return {"decode_attention": cached if layout == "dense" else 0,
+            "fused_select": 0,
+            "paged_decode_attention": cached if layout == "paged" else 0,
+            "block_attention": cfg.n_layers * calls["admit"],
+            "xent_forward": 0, "xent_backward": 0}
+
+
+def check_sampled_serving(torch, dev, ctx):
+    """(b) Phase 3's trace with every other request sampled, through an
+    engine without fused select: graph, eager, graph, every run equal in
+    tokens, steps, gen_length, finish_reason, call counts and launches
+    (which equal the call accounting); phase 3's greedy trace through the
+    dense-logits greedy iteration; then four of the requests on the paged
+    layout through its graphs, tokens and steps equal to the dense
+    layout's; a profiled sampled block. Returns (record, the graph engine, the eager engine,
+    the first graph run's launches)."""
+    import dataclasses
+
+    from repro_torch.serving import ContinuousEngine, Request, SamplingParams
+    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    serve = dataclasses.replace(ctx["serve"], fused_select=False)
+    engines = {name: ContinuousEngine(ctx["params"], cfg, serve,
+                                      prompt_len=P, device=dev,
+                                      graphs=graphs)
+               for name, graphs in (("graph", None), ("eager", False))}
+    for eng in engines.values():
+        eng.warmup(per_request=True)
+    if set(engines["graph"]._graphs) != {"dense", "sampled", "commit"}:
+        raise AssertionError(f"sampled serving: graphs "
+                             f"{sorted(engines['graph']._graphs)}")
+    runs, ref, first = [], None, None
+    for name in ("graph", "eager", "graph"):
+        eng = engines[name]
+        outs, wall, counts = serve_counted(
+            torch, dev, eng, _sampled_trace(ctx, SamplingParams))
+        calls = eng.call_counts()
+        check_outputs(cfg, outs, dict(enumerate(ctx["caps"])), B)
+        want = _dense_launches(cfg, calls, "dense")
+        if counts != want:
+            raise AssertionError(f"sampled serving, {name}: launches "
+                                 f"{counts} != {want}")
+        got = ({rid: (o.tokens.tolist(), o.steps, o.gen_length,
+                      o.finish_reason) for rid, o in outs.items()},
+               calls, counts)
+        ref = ref or got
+        first = first or counts
+        if got != ref:
+            raise AssertionError(f"sampled serving: the {name} run differs "
+                                 "from the first graph run")
+        tokens = sum(o.gen_length for o in outs.values())
+        runs.append({"path": name, "wall_s": wall, "tps": tokens / wall,
+                     "mean_latency_s": float(np.mean(
+                         [o.latency_s for o in outs.values()]))})
+    greedy = {rid: o.tokens.tolist() for rid, o in ctx["outs"].items()}
+    sampled_differ = sum(ref[0][rid][0] != greedy[rid]
+                         for rid in range(1, len(greedy), 2))
+    # phase 3's greedy trace through the dense-logits greedy iteration
+    outs, wall, counts = serve_counted(torch, dev, engines["graph"], [
+        Request(prompt=ctx["prompts"][i], id=i, max_tokens=c)
+        for i, c in enumerate(ctx["caps"])])
+    check_outputs(cfg, outs, dict(enumerate(ctx["caps"])), B)
+    if counts != _dense_launches(cfg, engines["graph"].call_counts(),
+                                 "dense"):
+        raise AssertionError(f"dense greedy: launches {counts}")
+    tokens = sum(o.gen_length for o in outs.values())
+    runs.append({"path": "graph, dense-logits greedy", "wall_s": wall,
+                 "tps": tokens / wall, "mean_latency_s": float(np.mean(
+                     [o.latency_s for o in outs.values()]))})
+    dense_equal_fused = sum(o.tokens.tolist() == greedy[rid]
+                            for rid, o in outs.items())
+    # the paged layout on the trace's short requests (a lane's tokens do
+    # not depend on its batch)
+    peng = ContinuousEngine(ctx["params"], cfg, dataclasses.replace(
+        serve, cache_layout="paged"), prompt_len=P, device=dev)
+    peng.warmup(per_request=True)
+    outs, wall, counts = serve_counted(torch, dev, peng, [
+        r for r in _sampled_trace(ctx, SamplingParams)
+        if r.id in PAGED_IDS])
+    if counts != _dense_launches(cfg, peng.call_counts(), "paged"):
+        raise AssertionError(f"sampled serving, paged: launches {counts}")
+    for rid, o in outs.items():
+        if (o.tokens.tolist(), o.steps) != ref[0][rid][:2]:
+            raise AssertionError(f"sampled serving: paged request {rid} "
+                                 "differs from the dense layout")
+    tokens = sum(o.gen_length for o in outs.values())
+    runs.append({"path": "graph, paged", "wall_s": wall,
+                 "tps": tokens / wall, "mean_latency_s": float(np.mean(
+                     [o.latency_s for o in outs.values()]))})
+    del peng
+    profile = profile_block(
+        torch, dev, engines["graph"], ctx["prompts"][:8], B,
+        sampling=lambda i: SamplingParams(temperature=0.7, seed=i))
+    rec = {"phase": "sampled serving", "config": "qwen2-0.5b",
+           "dtype": "bfloat16", "requests": len(ref[0]),
+           "sampled_requests": len(ref[0]) // 2, "temperature": 0.7,
+           "calls": ref[1], "launches": ref[2], "equal": True,
+           "paged_equals_dense": True,
+           "sampled_tokens_differ_from_greedy": sampled_differ,
+           "dense_greedy_equal_fused_greedy": dense_equal_fused,
+           "runs": runs, "fused_greedy_phase3": ctx["rec"],
+           "profiled_sampled_block": profile}
+    log(json.dumps(rec))
+    return rec, engines, first
+
+
+def check_static(torch, dev, ctx):
+    """(c) The static engine: 8 requests through ``Engine.generate`` with
+    fused select (greedy) and without it at an engine default of 0.7,
+    each twice: equal outputs and launches, which equal the call
+    accounting. Returns (records, launches of each case's first run)."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, Request
+    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    base = dataclasses.replace(ctx["serve"], gen_length=STATIC_GEN,
+                               scheduler="static", fused_select=True)
+    recs, launches = [], []
+    for case, serve in (("greedy, fused select", base),
+                        ("sampled default 0.7", dataclasses.replace(
+                            base, fused_select=False, temperature=0.7))):
+        # no warmup: the kernels are loaded, and the first call is held
+        # against the second
+        eng = Engine(ctx["params"], cfg, serve, prompt_len=P, device=dev)
+        got = []
+        for _ in range(2):
+            outs, wall, counts = serve_counted(torch, dev, eng, [
+                Request(prompt=ctx["prompts"][i], id=i) for i in range(8)])
+            calls = eng.call_counts()
+            n_blocks = STATIC_GEN // B
+            cached = calls["total"] - calls["batches"]
+            want = {"decode_attention": cfg.n_layers * cached,
+                    "fused_select": (cached - n_blocks * calls["batches"]
+                                     if serve.fused_select else 0),
+                    "paged_decode_attention": 0,
+                    "block_attention": cfg.n_layers * calls["batches"],
+                    "xent_forward": 0, "xent_backward": 0}
+            if counts != want:
+                raise AssertionError(f"static {case}: launches {counts} != "
+                                     f"{want} ({calls})")
+            for rid, o in outs.items():
+                # early stop leaves the blocks after an EOS masked: only
+                # the span before it must hold real tokens
+                if (np.any(o.tokens[:o.gen_length] == cfg.mask_token_id)
+                        or not 1 <= o.steps <= STATIC_GEN):
+                    raise AssertionError(f"static {case}: request {rid} "
+                                         f"steps {o.steps}, mask token left")
+            got.append(({rid: (o.tokens.tolist(), o.steps)
+                         for rid, o in outs.items()}, calls, counts, wall,
+                        sum(o.gen_length for o in outs.values())))
+        if got[0][:3] != got[1][:3]:
+            raise AssertionError(f"static {case}: two calls differ")
+        launches.append(got[0][2])
+        recs.append({"case": case, "calls": got[0][1],
+                     "tps": [g[4] / g[3] for g in got],
+                     "wall_s": [g[3] for g in got], "deterministic": True})
+    log(json.dumps({"phase": "static engine", "config": "qwen2-0.5b",
+                    "dtype": "bfloat16", "requests": 8, "prompt_len": P,
+                    "gen": STATIC_GEN, "cases": recs}))
+    return recs, launches
+
+
+def check_http(torch, dev, ctx, engines):
+    """(d) ``serve_http(block=False, port=0)`` over the graphed engine of
+    (b): a greedy and a seeded sampled completion, each streamed and not;
+    the chunks reassemble to the non-streamed ``token_ids``, which equal
+    the eager engine's ``generate``; ``/healthz`` answers 200 and
+    ``/metrics`` counts the requests."""
+    import urllib.request
+
+    from repro_torch.serving import Request, SamplingParams
+    from repro_torch.serving.server import serve_http
+    server = serve_http(engines["graph"], "127.0.0.1", 0, block=False)
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+
+    def post(body):
+        req = urllib.request.Request(
+            f"{base}/v1/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=300)
+
+    rec = {"phase": "http", "requests": []}
+    try:
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            if r.status != 200:
+                raise AssertionError(f"http: /healthz {r.status}")
+        for i, extra in enumerate(({}, {"temperature": 0.7, "seed": 4242})):
+            prompt = ctx["prompts"][i]
+            body = dict(extra, prompt=prompt.tolist(),
+                        max_tokens=HTTP_MAX_TOKENS)
+            t0 = time.perf_counter()
+            with post(body) as r:
+                full = json.load(r)["choices"][0]["token_ids"]
+            t_full = time.perf_counter() - t0
+            streamed, chunks = [], 0
+            t0 = time.perf_counter()
+            with post(dict(body, stream=True)) as r:
+                for raw in r:
+                    line = raw.decode().strip()
+                    if line == "data: [DONE]":
+                        break
+                    if line.startswith("data: "):
+                        streamed += json.loads(line[6:])["choices"][0][
+                            "token_ids"]
+                        chunks += 1
+            t_stream = time.perf_counter() - t0
+            ref = engines["eager"].generate([Request(
+                prompt=prompt, id=0, max_tokens=HTTP_MAX_TOKENS,
+                params=SamplingParams(**extra) if extra else None)])[0]
+            want = ref.tokens[:ref.gen_length].tolist()
+            if not (streamed == full == want):
+                raise AssertionError(f"http: request {i}: streamed, "
+                                     "non-streamed and generate differ")
+            rec["requests"].append({"sampled": bool(extra),
+                                    "tokens": len(full), "chunks": chunks,
+                                    "full_s": t_full, "stream_s": t_stream})
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        for line in ("cdlm_requests_total 4",
+                     "cdlm_requests_completed_total 4"):
+            if line not in metrics:
+                raise AssertionError(f"http: /metrics lacks {line!r}")
+    finally:
+        server.shutdown()
+    rec["equal"] = True
+    log(json.dumps(rec))
+    return rec
+
+
+def check_sampled_collection(torch, dev, ctx):
+    """(e) One collection batch at phase 5's shape (b=4, P=128, G=256,
+    block 32) at temperature 0.5 from one key, through the graph of the
+    forward and eagerly: trajectories bit for bit equal; ms per forward of
+    each. Returns (record, the graph run's launches)."""
+    from repro_torch import prng
+    from repro_torch.core.block_loop import SamplerSpec, _top1_loop
+    cfg = ctx["cfg"]
+    b, P, G, B = COLLECT_SHAPE
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.mask_token_id, (b, P)), device=dev)
+    spec = SamplerSpec(prompt_len=P, gen_len=G, block_size=B,
+                       temperature=0.5, fused_select=True)
+    got, ms, launches = {}, {}, None
+    for name, graphs in (("graph", None), ("eager", False)):
+        zero_counts()
+        got[name], wall = _timed(torch, dev, lambda: _top1_loop(
+            ctx["params"], prompts, cfg=cfg, spec=spec, record_hidden=True,
+            key=prng.key(7, dev), graphs=graphs))
+        counts = read_counts()
+        launches = launches or counts
+        want = {k: 0 for k in counts}
+        want["block_attention"] = G * cfg.n_layers
+        if counts != want:
+            raise AssertionError(f"sampled collection, {name}: launches "
+                                 f"{counts} != {want}")
+        ms[name] = wall * 1e3 / G
+    (rg, fg, hg), (re_, fe, he) = got["graph"], got["eager"]
+    if not (torch.equal(rg.tokens, re_.tokens) and torch.equal(fg, fe)
+            and torch.equal(hg, he)):
+        raise AssertionError("sampled collection: graph and eager differ")
+    final = rg.tokens[:, P:]
+    clean = (final != cfg.mask_token_id).all(-1)
+    perm = (fg.sort(-1).values == torch.arange(G, device=dev)).all(-1)
+    if not bool((perm | ~clean).all()):
+        raise AssertionError("sampled collection: a lane without a mask "
+                             "token did not finalize one position per step")
+    rec = {"phase": "sampled collection", "config": "qwen2-0.5b",
+           "dtype": "bfloat16", "lanes": b, "prompt_len": P, "gen": G,
+           "temperature": 0.5, "forwards": G, "equal": True,
+           "graph_ms_per_forward": ms["graph"],
+           "eager_ms_per_forward": ms["eager"]}
+    log(json.dumps(rec))
+    return rec, launches
+
+
+def phase_sampled(torch, dev, ctx):
+    """Phase 6: (a) the PRNG on the card, (b) sampled continuous serving,
+    (c) the static engine, (d) HTTP, (e) sampled collection. Returns the
+    launches of its main-path runs, summed."""
+    t = time.perf_counter()
+    check_prng(torch, dev, ctx["cfg"])
+    log(f"phase 6a (prng): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _, engines, serve_launches = check_sampled_serving(torch, dev, ctx)
+    log(f"phase 6b (sampled serving): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _, static_launches = check_static(torch, dev, ctx)
+    log(f"phase 6c (static engine): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    check_http(torch, dev, ctx, engines)
+    log(f"phase 6d (http): {time.perf_counter() - t:.1f} s")
+    del engines
+    t = time.perf_counter()
+    _, collect_launches = check_sampled_collection(torch, dev, ctx)
+    log(f"phase 6e (sampled collection): {time.perf_counter() - t:.1f} s")
+    total = {}
+    for counts in [serve_launches, collect_launches] + static_launches:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1773,10 +2177,14 @@ def main():
     t = time.perf_counter()
     train_launches = phase_training(torch, dev)
     log(f"phase 5 (training): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    sampled_launches = phase_sampled(torch, dev, ctx)
+    log(f"phase 6 (sampled serving, HTTP): {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     # launches: summed over the main-path runs (phase 3, both runs of phase
-    # 3b and phase 5), each counted from 0
+    # 3b, phase 5 and phase 6's), each counted from 0
     sources = {"decode_attention": (DECODE_SRC, DECODE_TPU),
                "fused_select": (SELECT_SRC, SELECT_TPU),
                "paged_decode_attention": (DECODE_SRC, PAGED_TPU),
@@ -1793,7 +2201,7 @@ def main():
     for name in KERNELS:
         rec = main_recs[name]
         launches = (ctx["launches"][name] + paged_launches[name]
-                    + train_launches[name])
+                    + train_launches[name] + sampled_launches[name])
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the main path")
         src, tpu = sources[name]

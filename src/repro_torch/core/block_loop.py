@@ -1,8 +1,23 @@
-"""Block-decode helpers (paper §4.3), ported from the JAX package's
-``core/block_loop.py``: the sampler spec, the canvas, the generation
-length, the per-lane block forward that the continuous engine is built on,
-and the top-1 loop of the teacher decode (Alg. 1's trajectory
-collector)."""
+"""The block-decode loop (paper §4.3), ported from the JAX package's
+``core/block_loop.py``: the sampler spec, the decode strategies, the
+canvas, the generation length, the per-lane block forward that the
+continuous engine is built on, the top-1 loop of the teacher decode (Alg.
+1's trajectory collector) and the threshold loop of the CDLM student's
+exact-commit decode, each greedy or sampled, and :func:`run_block_loop`
+over them.
+
+Of the JAX package's six strategies two are ported, ``vanilla`` (top-1,
+full recompute) and ``cdlm`` (threshold, exact block-causal cache with a
+commit pass, on the dense or the paged layout); the others are declared
+and refused by :func:`run_block_loop` (ROADMAP Queue 1 item 9).
+
+Sampled decoding draws from the reference's threefry streams
+(:mod:`repro_torch.prng`), split in the reference's order, so its tokens
+are the JAX package's. A scalar-temperature draw is shaped like the
+reference's canvas logits ``(b, T, V)``; the port hashes the active
+block's counters of that draw only (the selection reads nothing else).
+The loops run eagerly with one host read per iteration (the reference's
+``while_loop`` condition), apart from the collector's CUDA graph."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,8 +25,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
+import numpy as np
+
 from repro_torch import graphs as GR
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cache as C
 from repro_torch.core import diffusion as D
 from repro_torch.core import masks
 from repro_torch.kernels.block_attn import flash_block_attention
@@ -29,9 +48,13 @@ class SamplerSpec:
     block_size: int
     conf_threshold: float = 0.9
     temperature: float = 0.0
+    early_stop: bool = True
+    # KV memory layout of the exact-commit policy (core.cache.CACHE_LAYOUTS)
+    cache_layout: str = "dense"
     # Route greedy candidate selection through the fused unembed + select
     # kernel (no (b, ., V) logits); the top-1 loop then also runs its
-    # full-canvas forwards through the block attention kernel
+    # full-canvas forwards through the block attention kernel. Sampled
+    # decoding takes dense logits either way (its draw is logits-shaped).
     fused_select: bool = False
 
     @property
@@ -44,6 +67,58 @@ class SampleResult(NamedTuple):
     steps: torch.Tensor          # (b,) refinement iterations
     n_model_calls: int           # forward passes
     gen_lengths: torch.Tensor    # (b,) tokens before the first EOS
+
+
+class LaneParams(NamedTuple):
+    """Per-lane (= per-request) sampling parameters of the threshold loop,
+    ``(b,)`` tensors on the canvas' device: lanes at ``temperature <= 0``
+    take the greedy argmax, the others draw with their own key (advanced
+    only on the lane's active iterations,
+    :func:`repro_torch.core.diffusion.split_lane_keys`), so a lane decodes
+    as it does alone whatever its batch."""
+    temperature: torch.Tensor    # (b,) float32
+    conf_threshold: torch.Tensor  # (b,) float32
+    eos_id: torch.Tensor         # (b,) int64
+    key: torch.Tensor            # (b, 2) int64 (uint32 values)
+
+
+CACHE_POLICIES = ("none", "approx-dual", "approx-interval", "exact-commit",
+                  "ar")
+FINALIZE_RULES = ("top1", "threshold", "greedy-next")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeStrategy:
+    """Declarative description of a decoding algorithm."""
+    name: str
+    attn_mode: str              # masks.BIDIRECTIONAL | BLOCK_CAUSAL | CAUSAL
+    cache_policy: str           # see CACHE_POLICIES
+    finalize: str               # see FINALIZE_RULES
+
+    def __post_init__(self):
+        if self.cache_policy not in CACHE_POLICIES:
+            raise ValueError(f"unknown cache policy {self.cache_policy!r}")
+        if self.finalize not in FINALIZE_RULES:
+            raise ValueError(f"unknown finalize rule {self.finalize!r}")
+
+
+#: The six decoding algorithms of the paper's Tables 1-2, as the JAX
+#: package declares them.
+STRATEGIES = {
+    "vanilla": DecodeStrategy("vanilla", masks.BIDIRECTIONAL, "none", "top1"),
+    "fast_dllm": DecodeStrategy("fast_dllm", masks.BIDIRECTIONAL, "none",
+                                "threshold"),
+    "dual_cache": DecodeStrategy("dual_cache", masks.BIDIRECTIONAL,
+                                 "approx-dual", "threshold"),
+    "interval_cache": DecodeStrategy("interval_cache", masks.BIDIRECTIONAL,
+                                     "approx-interval", "threshold"),
+    "cdlm": DecodeStrategy("cdlm", masks.BLOCK_CAUSAL, "exact-commit",
+                           "threshold"),
+    "ar": DecodeStrategy("ar", masks.CAUSAL, "ar", "greedy-next"),
+}
+
+#: (cache policy, finalize rule) pairs the port runs.
+PORTED = {("none", "top1"), ("exact-commit", "threshold")}
 
 
 def init_canvas(prompt_tokens: torch.Tensor, spec: SamplerSpec,
@@ -106,28 +181,55 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
     return (out.hidden if return_hidden else out.logits), out.emissions
 
 
+def _canvas_index(b: int, T: int, V: int, start: int, B: int, device):
+    """The flat counters of a ``(b, T, V)`` draw at the block ``[start,
+    start + B)`` of every lane: ``(b, B, V)``, int32 where they fit."""
+    dt = torch.int32 if b * T * V <= 1 << 31 else torch.int64
+    rows = ((torch.arange(b, device=device)[:, None] * T + start
+             + torch.arange(B, device=device)) * V).to(dt)
+    return rows[..., None] + torch.arange(V, dtype=dt, device=device)
+
+
+def _canvas_draw(logits, tokens, start: int, T: int, temperature: float,
+                 key, cfg: ModelConfig):
+    """Candidates and confidences of the block ``[start, start + B)`` from
+    its logits ``(b, B, V)``, the draw taken as the reference takes it over
+    the whole canvas' ``(b, T, V)`` logits (the block's counters only)."""
+    b, B, V = logits.shape
+    return D.confidence_and_candidates(
+        logits, tokens, cfg.mask_token_id, temperature, key,
+        draw_shape=(b, T, V),
+        draw_index=_canvas_index(b, T, V, start, B, logits.device))
+
+
 def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
-              spec: SamplerSpec, w=None):
+              spec: SamplerSpec, w=None, key=None):
     """One step of the top-1 loop before its selection: a bidirectional
-    forward over the whole canvases ``tokens`` (b, P+G), then the greedy
+    forward over the whole canvases ``tokens`` (b, P+G), then the
     candidates, their confidences and the post-norm hidden states of the
     block at canvas coordinate ``start``, each (b, B[, d]). With
     ``spec.fused_select`` the forward runs through the block attention
-    kernel and the selection through the fused select kernel (``w``: the
-    (V, d) unembedding); otherwise through the generic attention and the
-    block's logits, as the JAX collector does. Call it under
-    ``torch.no_grad()``."""
+    kernel (``w``: the (V, d) unembedding); otherwise through the generic
+    attention, as the JAX collector does. Greedy selection then goes
+    through the fused select kernel (``spec.fused_select``) or the block's
+    logits; a sampled step (``spec.temperature > 0`` and ``key``) draws
+    from the block's logits as the reference draws over the canvas. Call
+    it under ``torch.no_grad()``."""
     B = spec.block_size
     if spec.fused_select:
         return _fused_pick(_canvas_hidden(params, tokens, cfg=cfg,
                                           spec=spec),
-                           tokens, start, cfg=cfg, spec=spec, w=w)
+                           tokens, start, cfg=cfg, spec=spec, w=w, key=key)
     out = forward(params, tokens, cfg=cfg, device=tokens.device,
                   mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
                   block_size=B, logits_slice=(start, start + B))
     bt = tokens[:, start:start + B]
-    cand, conf = D.confidence_and_candidates(out.logits, bt,
-                                             cfg.mask_token_id)
+    if spec.temperature > 0 and key is not None:
+        cand, conf = _canvas_draw(out.logits, bt, start, tokens.shape[1],
+                                  spec.temperature, key, cfg)
+    else:
+        cand, conf = D.confidence_and_candidates(out.logits, bt,
+                                                 cfg.mask_token_id)
     return cand, conf, out.hidden[:, start:start + B]
 
 
@@ -142,23 +244,31 @@ def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec):
 
 
 def _fused_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
-                spec: SamplerSpec, w):
-    """The fused top-1 step's selection from the canvas' hidden states:
-    the block's candidates and confidences through the fused select
-    kernel, and the block's hidden states."""
+                spec: SamplerSpec, w, key=None):
+    """The fused top-1 step's selection from the canvas' hidden states: the
+    block's candidates and confidences (greedy: through the fused select
+    kernel; sampled: the block's logits and the canvas-shaped draw), and
+    the block's hidden states."""
     B = spec.block_size
     hidden = hidden[:, start:start + B]
+    bt = tokens[:, start:start + B]
+    if spec.temperature > 0 and key is not None:
+        logits = D.dense_logits(hidden, w, cfg.final_logit_softcap)
+        cand, conf = _canvas_draw(logits, bt, start, tokens.shape[1],
+                                  spec.temperature, key, cfg)
+        return cand, conf, hidden
     cand, conf = D.confidence_and_candidates_fused(
-        hidden, w, tokens[:, start:start + B], cfg.mask_token_id,
-        softcap=cfg.final_logit_softcap)
+        hidden, w, bt, cfg.mask_token_id, softcap=cfg.final_logit_softcap)
     return cand, conf, hidden
 
 
 def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
-               record_hidden: bool, graphs: Optional[bool] = None):
+               record_hidden: bool, key=None, graphs: Optional[bool] = None):
     """N = G steps, one most-confident token finalized per step, each step a
     bidirectional forward over the whole canvas (the ``vanilla`` strategy,
-    :func:`top1_step`), greedy only. Runs under ``torch.no_grad()``.
+    :func:`top1_step`). Runs under ``torch.no_grad()``. ``key`` (default
+    ``PRNGKey(0)``) is split once per step, as in the reference; a sampled
+    step (``spec.temperature > 0``) draws with the second half.
 
     With ``record_hidden`` also returns ``finalized_at`` (b, G) int32, the
     step at which each position was finalized (the monotone trajectory's
@@ -169,21 +279,20 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
     graph over the canvas (captured once per call, its warm-up run serving
     as the first step's forward) on CUDA with ``spec.fused_select``, and
     eagerly otherwise; False runs it eagerly; True where it cannot apply
-    raises. The selection after each forward runs eagerly either way.
+    raises. The selection after each forward (a sampled step's logits and
+    draw too) runs eagerly either way.
     """
-    if spec.temperature > 0:
-        raise ValueError("sampled (temperature > 0) decoding is not ported "
-                         "yet: ROADMAP Queue 1 item 7 (per-request "
-                         "sampling)")
     graphable = spec.fused_select and prompt_tokens.device.type == "cuda"
     if graphs and not graphable:
         raise ValueError("graphs=True needs spec.fused_select and a CUDA "
                          "device")
+    sampled = spec.temperature > 0
     with torch.no_grad():
         tokens = init_canvas(prompt_tokens, spec, cfg)
         b = tokens.shape[0]
         P, B, G = spec.prompt_len, spec.block_size, spec.gen_len
         dev = tokens.device
+        key = prng.key(0, dev) if key is None else key.to(dev)
         finalized_at = torch.full((b, G), -1, dtype=torch.int32, device=dev)
         hidden_buf = torch.zeros((b, G, cfg.d_model), dtype=torch.float32,
                                  device=dev)
@@ -199,13 +308,18 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
         for blk in range(spec.n_blocks):
             start = P + blk * B
             for _ in range(B):
+                sub = None
+                if sampled:      # a greedy step never reads its subkey
+                    key, sub = prng.split(key)
                 if graph is None:
                     cand, conf, hidden = top1_step(params, tokens, start,
-                                                   cfg=cfg, spec=spec, w=w)
+                                                   cfg=cfg, spec=spec, w=w,
+                                                   key=sub)
                 else:
                     full = graph.warm if step == 0 else graph.replay()
                     cand, conf, hidden = _fused_pick(full, tokens, start,
-                                                     cfg=cfg, spec=spec, w=w)
+                                                     cfg=cfg, spec=spec, w=w,
+                                                     key=sub)
                 bt = tokens[:, start:start + B]
                 sel = D.select_topk_in_block(conf, whole_block, 1)
                 tokens[:, start:start + B] = torch.where(
@@ -224,3 +338,238 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
     if record_hidden:
         return res, finalized_at, hidden_buf
     return res
+
+
+# ---------------------------------------------------------------------------
+# Finalization family: threshold (the CDLM student, exact-commit)
+# ---------------------------------------------------------------------------
+def _finalize(tokens, start: int, cand, conf, tau, active) -> None:
+    """The threshold rule in block coordinates: the active lanes' positions
+    of the block ``[start, start + B)`` whose confidence reaches ``tau``
+    (scalar or (b, 1)), and always the most confident masked one, take
+    their candidates; written into ``tokens`` in place."""
+    B = cand.shape[1]
+    bt = tokens[:, start:start + B]
+    whole = torch.ones((1, B), dtype=torch.bool, device=tokens.device)
+    sel = D.select_threshold_in_block(conf, whole, tau) & active[:, None]
+    tokens[:, start:start + B] = torch.where(sel, cand.to(bt.dtype), bt)
+
+
+def _threshold_update(tokens, logits, start: int, spec: SamplerSpec,
+                      cfg: ModelConfig, key, active) -> None:
+    """The reference's canvas-coordinate threshold update, the scalar
+    sampled path: the draw is shaped like the ``(b, T, V)`` canvas logits
+    (zero outside the block), and only the block's elements are hashed.
+    Writes the finalized tokens into ``tokens`` in place."""
+    B = spec.block_size
+    cand, conf = _canvas_draw(logits, tokens[:, start:start + B], start,
+                              tokens.shape[1], spec.temperature, key, cfg)
+    _finalize(tokens, start, cand, conf, spec.conf_threshold, active)
+
+
+def _block_candidates(params, cfg: ModelConfig, spec: SamplerSpec, net,
+                      block_tokens, key):
+    """(cand, conf) of the active block in block coordinates (b, B): ``net``
+    is the block forward's hidden states with ``spec.fused_select`` (the
+    fused select kernel reads them) and its logits otherwise."""
+    if spec.fused_select:
+        return D.confidence_and_candidates_fused(
+            net, unembed_matrix(params, cfg), block_tokens,
+            cfg.mask_token_id, spec.temperature, key,
+            softcap=cfg.final_logit_softcap)
+    return D.confidence_and_candidates(net, block_tokens, cfg.mask_token_id,
+                                       spec.temperature, key)
+
+
+def _threshold_block_update(params, cfg: ModelConfig, spec: SamplerSpec,
+                            tokens, net, start: int, key, active) -> None:
+    """Block-coordinate threshold finalization (the scalar greedy path):
+    select on the block's (b, B) candidates, write the finalized tokens
+    into ``tokens`` in place."""
+    bt = tokens[:, start:start + spec.block_size]
+    cand, conf = _block_candidates(params, cfg, spec, net, bt, key)
+    _finalize(tokens, start, cand, conf, spec.conf_threshold, active)
+
+
+def _block_candidates_per_lane(params, cfg: ModelConfig, spec: SamplerSpec,
+                               net, block_tokens, lanes: LaneParams, subs, *,
+                               fused: bool, sampled: bool):
+    """(cand, conf) of the active block under per-lane params: ``fused``
+    (all-greedy batches) through the fused select kernel from the hidden
+    states, otherwise per lane from the logits (greedy lanes argmax,
+    sampled lanes draw with their subkeys ``subs (b, 2)``)."""
+    if fused:
+        return D.confidence_and_candidates_fused(
+            net, unembed_matrix(params, cfg), block_tokens,
+            cfg.mask_token_id, softcap=cfg.final_logit_softcap)
+    return D.confidence_and_candidates_per_lane(
+        net, block_tokens, cfg.mask_token_id, lanes.temperature,
+        subs if sampled else None)
+
+
+def _threshold_lane_update(params, cfg: ModelConfig, spec: SamplerSpec,
+                           tokens, net, start: int, lanes: LaneParams, subs,
+                           active, *, fused: bool, sampled: bool) -> None:
+    """Block-coordinate threshold finalization with per-lane params: the
+    lane's temperature picks greedy or sampled candidates, its τ the
+    threshold. Writes into ``tokens`` in place."""
+    bt = tokens[:, start:start + spec.block_size]
+    cand, conf = _block_candidates_per_lane(params, cfg, spec, net, bt,
+                                            lanes, subs, fused=fused,
+                                            sampled=sampled)
+    _finalize(tokens, start, cand, conf, lanes.conf_threshold[:, None],
+              active)
+
+
+def _commit_any(kv_cache, emissions, offset: int, b: int):
+    """Layout-agnostic whole-batch commit at a shared offset."""
+    if isinstance(kv_cache, C.PagedCache):
+        return C.commit_rows(kv_cache, emissions, offset, np.ones((b,), bool))
+    return C.commit(kv_cache, emissions, offset)
+
+
+def _init_exact_cache(cfg: ModelConfig, b: int, S: int, spec: SamplerSpec,
+                      device):
+    """The exact-commit cache in the layout ``spec.cache_layout`` selects.
+    The paged one is a dense-equivalent pool with every lane's pages
+    assigned up front (the single-batch loop is the layout's
+    bit-equivalence harness; page-at-a-time admission is the engine's)."""
+    if spec.cache_layout == C.DENSE:
+        return C.init_cache(cfg, b, S, device=device)
+    if spec.cache_layout != C.PAGED:
+        raise ValueError(f"unknown cache layout {spec.cache_layout!r} "
+                         f"(expected one of {C.CACHE_LAYOUTS})")
+    page = spec.block_size
+    n_tables = -(-S // page)
+    paged = C.init_paged_cache(cfg, b, n_tables * page, n_pages=b * n_tables,
+                               page_size=page, device=device)
+    C.alloc(paged, np.ones((b,), bool), 0, S)
+    return paged
+
+
+def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
+                    spec: SamplerSpec, strategy: DecodeStrategy, key,
+                    lane_params: Optional[LaneParams] = None,
+                    lane_sampled: bool = False) -> SampleResult:
+    """The exact-commit threshold loop: the prompt prefilled block-causally
+    through the block attention kernel and committed, then per block the
+    refinement iterations (each a cached forward of the block through the
+    layout's decode attention kernel and the threshold rule) while a
+    running lane holds a mask token in it and fewer than B ran, then the
+    commit pass. One host read per iteration (the reference's
+    ``while_loop`` condition).
+
+    Selection as in the reference: per-lane params (``lane_params``) in
+    block coordinates with per-lane streams (``lane_sampled``: some lane
+    draws, so the forwards carry logits); scalar greedy in block
+    coordinates (through the fused select kernel with
+    ``spec.fused_select``); scalar sampled with the canvas-shaped draw."""
+    with torch.no_grad():
+        tokens = init_canvas(prompt_tokens, spec, cfg)
+        b, T = tokens.shape
+        P, B = spec.prompt_len, spec.block_size
+        dev = tokens.device
+        lanes = lane_params is not None
+        blockwise = True if lanes else spec.temperature <= 0
+        fused = spec.fused_select and (not lane_sampled if lanes
+                                       else blockwise)
+        key_state = lane_params.key if lanes else key
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        steps = torch.zeros((b,), dtype=torch.int32, device=dev)
+        kv_cache = _init_exact_cache(cfg, b, T, spec, dev)
+        out = forward(params, tokens[:, :P], cfg=cfg, device=dev,
+                      mode=strategy.attn_mode, prompt_len=P, block_size=B,
+                      return_logits=False,
+                      prefill_attention_fn=flash_block_attention)
+        _commit_any(kv_cache, out.emissions, 0, b)
+        calls = 1
+        for blk in range(spec.n_blocks):
+            start = P + blk * B
+            starts = torch.full((b,), start, dtype=torch.int64, device=dev)
+
+            def block_out(return_hidden):
+                return lane_block_forward(
+                    params, tokens, starts, kv_cache, cfg=cfg, spec=spec,
+                    return_hidden=return_hidden)
+
+            for _ in range(B):
+                masked = (tokens[:, start:start + B]
+                          == cfg.mask_token_id).any(-1)
+                active = masked & ~done
+                if not bool(active.any()):
+                    break
+                if lanes:
+                    key_state, sub = D.split_lane_keys(key_state, active)
+                else:
+                    key_state, sub = prng.split(key_state)
+                net, _ = block_out(fused)
+                if lanes:
+                    _threshold_lane_update(params, cfg, spec, tokens, net,
+                                           start, lane_params, sub, active,
+                                           fused=fused, sampled=lane_sampled)
+                elif blockwise:
+                    _threshold_block_update(params, cfg, spec, tokens, net,
+                                            start, sub, active)
+                else:
+                    _threshold_update(tokens, net, start, spec, cfg, sub,
+                                      active)
+                steps += active.to(torch.int32)
+                calls += 1
+            # commit pass: recompute the finalized block's KV exactly
+            _, emissions = block_out(True)
+            _commit_any(kv_cache, emissions, start, b)
+            calls += 1
+            if spec.early_stop:
+                eos = (lane_params.eos_id[:, None] if lanes
+                       else cfg.eos_token_id)
+                done |= (tokens[:, start:start + B] == eos).any(-1)
+    return SampleResult(tokens, steps, calls,
+                        _gen_lengths(tokens, spec, cfg,
+                                     eos_id=(lane_params.eos_id if lanes
+                                             else None)))
+
+
+def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
+                   spec: SamplerSpec, strategy: DecodeStrategy, key=None,
+                   record_hidden: bool = False,
+                   lane_params: Optional[LaneParams] = None,
+                   lane_sampled: bool = False,
+                   graphs: Optional[bool] = None):
+    """Decode ``prompt_tokens`` (b, P) with ``strategy`` over the block
+    grid; returns :class:`SampleResult`, with ``record_hidden`` (top-1
+    only) also the trajectory encoding ``(finalized_at, hidden)``.
+
+    ``key`` (default ``PRNGKey(0)``) is the scalar path's stream;
+    ``lane_params`` switches the threshold loop to per-lane params, with
+    ``lane_sampled`` set when some lane draws. ``graphs`` is the top-1
+    loop's (:func:`_top1_loop`). Strategies whose policy is not ported
+    raise."""
+    if lane_params is not None and strategy.finalize != "threshold":
+        raise ValueError(
+            "per-request sampling params (lane_params) require a "
+            f"threshold-finalize strategy; {strategy.name!r} uses "
+            f"{strategy.finalize!r}")
+    if spec.cache_layout != C.DENSE and strategy.cache_policy != "exact-commit":
+        raise ValueError(
+            f"cache_layout={spec.cache_layout!r} requires the 'exact-commit' "
+            f"cache policy (strategy {strategy.name!r} uses "
+            f"{strategy.cache_policy!r})")
+    if record_hidden and strategy.finalize != "top1":
+        raise ValueError("record_hidden requires the 'top1' finalize rule "
+                         f"(strategy {strategy.name!r} uses "
+                         f"{strategy.finalize!r})")
+    if (strategy.cache_policy, strategy.finalize) not in PORTED:
+        raise ValueError(
+            f"strategy {strategy.name!r} ({strategy.cache_policy!r} cache, "
+            f"{strategy.finalize!r} finalize) is not ported yet: ROADMAP "
+            "Queue 1 item 9")
+    key = (prng.key(0, prompt_tokens.device) if key is None
+           else key.to(prompt_tokens.device))
+    if strategy.finalize == "top1":
+        return _top1_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          record_hidden=record_hidden, key=key,
+                          graphs=graphs)
+    return _threshold_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                           strategy=strategy, key=key,
+                           lane_params=lane_params,
+                           lane_sampled=lane_sampled)

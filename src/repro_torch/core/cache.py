@@ -11,11 +11,13 @@
   (-1) until :func:`alloc` assigns a page, so a lane holds pages only for
   the positions it commits.
 
-Unlike the JAX package, whose functions return new buffers, ``reset`` and
-``commit_rows`` update the cache **in place** and return it: a copy of the
-whole cache per block boundary would cost more than the block's decode.
-Both touch only the selected lanes, so a scheduler can recycle one lane
-while the others keep decoding, and both dispatch on the layout.
+Unlike the JAX package, whose functions return new buffers, ``reset``,
+``commit`` and ``commit_rows`` update the cache **in place** and return
+it: a copy of the whole cache per block boundary would cost more than the
+block's decode. ``reset`` and ``commit_rows`` touch only the selected
+lanes, so a scheduler can recycle one lane while the others keep
+decoding, and both dispatch on the layout; ``commit`` writes every lane of
+a dense cache at one offset.
 
 The paged layout keeps its allocator on the host: ``page_table`` and
 ``page_owner`` are numpy arrays, and the device holds an int32 copy of the
@@ -73,6 +75,21 @@ def reset(cache, rows):
         for slot in cache:
             for buf in slot.values():
                 buf[:, lanes] = 0
+    return cache
+
+
+def commit(cache: tuple, emissions: tuple, offset: int) -> tuple:
+    """Write a block's KV emissions ``(n_periods, b, L, Kv, hd)`` into
+    every lane of a dense cache at the shared sequence ``offset``, in
+    place (the JAX package's whole-batch ``commit``)."""
+    max_len = cache[0]["k"].shape[2]
+    for cslot, eslot in zip(cache, emissions):
+        for key, buf in cslot.items():
+            val = eslot[key]
+            if offset < 0 or offset + val.shape[2] > max_len:
+                raise ValueError(f"rows [{offset}, {offset + val.shape[2]})"
+                                 f" outside a cache of {max_len}")
+            buf[:, :, offset:offset + val.shape[2]] = val.to(buf.dtype)
     return cache
 
 

@@ -1,18 +1,49 @@
 """Decoders of the port, as the JAX package's ``core/sampler.py`` names
-them. Ported so far: ``vanilla_blockwise`` (greedy), the teacher decode
-that also collects Alg. 1 trajectories. The CDLM student's decode is
-served by ``serving.ContinuousEngine``."""
+them: thin :class:`~repro_torch.core.block_loop.DecodeStrategy`
+declarations over :func:`~repro_torch.core.block_loop.run_block_loop`.
+
+Ported: ``vanilla`` (the teacher decode, also the Alg. 1 trajectory
+collector) and ``cdlm`` (the student's exact-commit decode), greedy and
+sampled. The other four names of the reference's table are not in
+:data:`SAMPLERS`, and ``run_block_loop`` refuses their strategies (ROADMAP
+Queue 1 item 9). Every sampler returns ``SampleResult(tokens, steps,
+n_model_calls, gen_lengths)``.
+"""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.block_loop import SamplerSpec, _top1_loop
+from repro_torch.core.block_loop import (  # noqa: F401  (re-exported API)
+    STRATEGIES,
+    DecodeStrategy,
+    SampleResult,
+    SamplerSpec,
+    run_block_loop,
+)
 
 
 def vanilla_blockwise(params, prompt_tokens, *, cfg: ModelConfig,
-                      spec: SamplerSpec, record_hidden: bool = False):
+                      spec: SamplerSpec, key=None,
+                      record_hidden: bool = False, graphs=None):
     """Alg. 1 teacher decoding: N = G steps, one token finalized per step,
     bidirectional full recompute. With ``record_hidden`` returns
     ``(SampleResult, finalized_at, hidden)``, the trajectory collector's
-    output. Greedy only: ``spec.temperature > 0`` raises."""
-    return _top1_loop(params, prompt_tokens, cfg=cfg, spec=spec,
-                      record_hidden=record_hidden)
+    output."""
+    return run_block_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          strategy=STRATEGIES["vanilla"], key=key,
+                          record_hidden=record_hidden, graphs=graphs)
+
+
+def cdlm(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
+         key=None):
+    """The paper's student: exact block-causal KV cache, threshold parallel
+    finalization, commit pass at block completion, early stop on EOS."""
+    return run_block_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          strategy=STRATEGIES["cdlm"], key=key)
+
+
+#: The ported decoders; the reference's other four are declared in
+#: ``block_loop.STRATEGIES`` and refused (ROADMAP Queue 1 item 9).
+SAMPLERS = {
+    "vanilla": vanilla_blockwise,
+    "cdlm": cdlm,
+}

@@ -7,8 +7,9 @@ trajectory is stored losslessly as ``(final_tokens, finalized_at)``: the
 state at step s re-masks every position finalized at step >= s. The
 hidden buffer H (G, d) holds the teacher's last hidden state at each
 position's finalization (the paper's ~30x cheaper alternative to storing
-V-dim logits). Only the greedy temperature (τ = 0, the one the JAX CLI
-collects at) is ported.
+V-dim logits). Each temperature of the augmentation set decodes with its
+own key, split from the batch's as the reference splits it; a sampled
+temperature draws from the reference's streams.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import CDLMConfig, ModelConfig
 from repro_torch.core.sampler import SamplerSpec, vanilla_blockwise
 
@@ -48,26 +50,34 @@ def position_sets(finalized_at, t_start, t_end):
 
 
 def collect(params, prompts, gt_answers, *, cfg: ModelConfig,
-            cdlm: CDLMConfig, fused_select: bool = False
-            ) -> Dict[str, torch.Tensor]:
+            cdlm: CDLMConfig, key=None, fused_select: bool = False,
+            graphs=None) -> Dict[str, torch.Tensor]:
     """Alg. 1 over one batch of prompts for every temperature of
-    ``cdlm.temperatures`` (each must be 0: sampled collection waits for
-    ROADMAP Queue 1 item 7). Returns tensors stacked over temperatures.
+    ``cdlm.temperatures``. Returns tensors stacked over temperatures.
 
-    prompts: (b, P) int; gt_answers: (b, G) int. ``fused_select`` is
-    ``SamplerSpec.fused_select`` (default False, as in the JAX package):
-    True decodes through the fused select and block attention kernels,
-    False through logits and the generic attention, as the JAX collector
-    does."""
+    prompts: (b, P) int; gt_answers: (b, G) int. ``key`` (default
+    ``PRNGKey(0)``) is split once per temperature, the second half that
+    temperature's stream. ``fused_select`` is ``SamplerSpec.fused_select``
+    (default False, as in the JAX package): True runs the forwards through
+    the block attention kernel (a CUDA graph, ``graphs`` as in
+    ``block_loop._top1_loop``) and greedy selection through the fused
+    select kernel; False runs logits and the generic attention, as the JAX
+    collector does. A sampled temperature draws from dense logits either
+    way."""
+    key = (prng.key(0, prompts.device) if key is None
+           else key.to(prompts.device))
     outs = {"prompt": [], "gt": [], "final": [], "finalized_at": [],
             "hidden": []}
     for tau in cdlm.temperatures:
+        key, sub = prng.split(key)
         spec = SamplerSpec(prompt_len=prompts.shape[1],
                            gen_len=cdlm.gen_length,
                            block_size=cdlm.block_size,
-                           temperature=float(tau), fused_select=fused_select)
+                           temperature=float(tau), early_stop=False,
+                           fused_select=fused_select)
         res, finalized_at, hidden = vanilla_blockwise(
-            params, prompts, cfg=cfg, spec=spec, record_hidden=True)
+            params, prompts, cfg=cfg, spec=spec, key=sub, record_hidden=True,
+            graphs=graphs)
         outs["prompt"].append(prompts)
         outs["gt"].append(gt_answers)
         outs["final"].append(res.tokens[:, prompts.shape[1]:])

@@ -1,18 +1,26 @@
-"""Serving CLI of the port: CDLM decoding through the continuous engine.
+"""Serving CLI of the port: CDLM decoding through the static or the
+continuous engine, on a local batch of requests or over HTTP.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --fused-select
+    PYTHONPATH=src python -m repro_torch.launch.serve
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-0.5b \\
-        --reduced --device cpu --prompt-len 16 --gen-length 32 --fused-select
+        --reduced --device cpu --prompt-len 16 --gen-length 32 --block-size 8
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
-        --prompt-len 16 --gen-length 32 --block-size 8 --cache-layout paged \\
-        --pool-pages 8
+        --prompt-len 16 --gen-length 32 --block-size 8 \\
+        --scheduler continuous --cache-layout paged --pool-pages 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --scheduler continuous \\
+        --http --port 8000
 
 Params come from ``--ckpt`` (an npz written by the JAX package's
 ``checkpoint/io.py``, converted by ``repro_torch.bridge``) or, without it,
-from a seeded random init on the device. Prompts are random tokens drawn
-from ``--seed``. Prints one ``TPS=... latency=... steps=... gen_len=...``
-line, as the JAX package's ``launch/serve.py`` does, and on the paged
-layout its ``page pool:`` occupancy line.
+from a seeded random init on the device. Without ``--http``, prompts are
+random tokens drawn from ``--seed`` and the CLI prints one ``TPS=...
+latency=... steps=... gen_len=...`` line, as the JAX package's
+``launch/serve.py`` does, and on the continuous paged layout its ``page
+pool:`` occupancy line. With ``--http`` the engine is served by
+``repro_torch.serving.server`` (``POST /v1/completions`` with SSE
+streaming, ``GET /healthz``, ``GET /metrics``) until interrupted; the
+first line printed names the bound address (``--port 0`` binds a free
+port). Everything runs on the CUDA device unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -33,10 +41,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default=None,
                     help="param dtype (default: the config's)")
-    ap.add_argument("--fused-select", action="store_true", default=True,
-                    help="always on: the port decodes through the fused "
-                         "unembed + select kernel only (the flag is taken "
-                         "so the JAX CLI's command line runs unchanged)")
+    ap.add_argument("--scheduler", default="static",
+                    choices=["static", "continuous"],
+                    help="continuous = slot-based block-level batching "
+                         "(cdlm only)")
+    ap.add_argument("--fused-select", action="store_true",
+                    help="fused unembed + online-softmax candidate "
+                         "selection (the select kernel): decode skips the "
+                         "lm_head and never builds (b, ., V) logits; "
+                         "greedy decoding only")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--threshold", type=float, default=0.9)
@@ -49,18 +62,23 @@ def main(argv=None):
                          "global page pool + per-lane page tables "
                          "(page size = block size)")
     ap.add_argument("--pool-pages", type=int, default=None,
-                    help="paged layout: page-pool size in pages "
+                    help="continuous paged layout: page-pool size in pages "
                          "(default: dense-equivalent capacity)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP (/v1/completions with SSE "
+                         "streaming, /healthz, /metrics) instead of "
+                         "replaying a local request batch")
+    ap.add_argument("--host", default=None,
+                    help="HTTP bind host (default: ServeConfig.http_host)")
+    ap.add_argument("--port", type=int, default=None,
+                    help="HTTP bind port (default: ServeConfig.http_port; "
+                         "0 binds a free port)")
     args = ap.parse_args(argv)
 
     from repro_torch import resolve_device
     from repro_torch.bridge import init_params, params_from_jax
     from repro_torch.configs import ServeConfig, get_config
-    from repro_torch.serving import (
-        ContinuousEngine,
-        Request,
-        efficiency_report,
-    )
+    from repro_torch.serving import Request, efficiency_report, make_engine
 
     cfg = get_config(args.config)
     if args.reduced:
@@ -75,12 +93,30 @@ def main(argv=None):
     serve = ServeConfig(max_batch=args.batch, block_size=args.block_size,
                         gen_length=args.gen_length,
                         conf_threshold=args.threshold,
-                        scheduler="continuous",
+                        scheduler=args.scheduler,
                         cache_layout=args.cache_layout,
                         page_pool_pages=args.pool_pages,
-                        fused_select=True)
-    eng = ContinuousEngine(params, cfg, serve, prompt_len=args.prompt_len,
-                           device=dev)
+                        fused_select=args.fused_select)
+    eng = make_engine(params, cfg, serve, prompt_len=args.prompt_len,
+                      device=dev)
+    if args.http:
+        from repro_torch.serving.server import serve_http
+        host = args.host if args.host is not None else serve.http_host
+        port = args.port if args.port is not None else serve.http_port
+        eng.warmup(per_request=True)
+        server = serve_http(eng, host, port, block=False)
+        print(f"serving /v1/completions on http://{host}:"
+              f"{server.server_address[1]} (prompt_len={args.prompt_len}, "
+              f"scheduler={args.scheduler}, {dev}) - Ctrl-C to stop",
+              flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+        return
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(2, cfg.vocab_size,
                            (args.requests, args.prompt_len))
@@ -91,12 +127,14 @@ def main(argv=None):
     resp = eng.generate(reqs)
     wall = time.perf_counter() - t0
     rep = efficiency_report(resp)
+    # wall-clock TPS is comparable across schedulers; latency_s is not
+    # (compute share for static, arrival->completion for continuous)
     tps = sum(r.gen_length for r in resp) / wall if wall else 0.0
-    print(f"cdlm/continuous: TPS={tps:.0f} "
+    print(f"cdlm/{args.scheduler}: TPS={tps:.0f} "
           f"latency={rep['latency_s'] * 1e3:.1f}ms steps={rep['steps']:.1f} "
           f"gen_len={rep['gen_length']:.1f}  ({len(resp)} requests on "
           f"{dev})")
-    if args.cache_layout == "paged":
+    if args.cache_layout == "paged" and args.scheduler == "continuous":
         ps = eng.page_pool_stats()
         print(f"page pool: {ps['peak_pages']:.0f}/{ps['n_pages']:.0f} pages "
               f"peak ({ps['peak_occupancy']:.0%}), "

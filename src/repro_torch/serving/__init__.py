@@ -8,5 +8,7 @@ from repro_torch.serving.api import (  # noqa: F401
 )
 from repro_torch.serving.engine import (  # noqa: F401
     ContinuousEngine,
+    Engine,
     efficiency_report,
+    make_engine,
 )

@@ -3,9 +3,10 @@
 configs).
 
 - :class:`SamplingParams` — per-request knobs. Every field defaults to
-  ``None`` = "inherit the engine's :class:`ServeConfig`". The port serves
-  greedy requests only: a request with ``temperature > 0`` is refused at
-  ``add_request``.
+  ``None`` = "inherit the engine's :class:`ServeConfig`". One batch can
+  mix greedy and sampled requests; each sampled request draws from its own
+  stream, ``PRNGKey(seed)`` (``repro_torch.prng``), so it decodes as it
+  does alone. A ``fused_select`` engine serves greedy requests only.
 
 - :class:`GenerationRequest` — one unit of work: a prompt plus its
   params. ``id=None`` lets the engine auto-assign a unique monotonically

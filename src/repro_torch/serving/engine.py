@@ -1,11 +1,24 @@
-"""Continuous block-level batching engine, ported from the JAX package's
-``serving/engine.py`` for the configuration the port serves: the ``cdlm``
-strategy, the dense or block-paged KV layout, greedy decoding through the
-fused unembed + select kernel (``ServeConfig.fused_select=True``; the
-dense-logits decode path is not ported yet).
+"""Batched serving engines, ported from the JAX package's
+``serving/engine.py``. Both expose the request-level incremental API of
+``serving/api.py`` (``add_request``, ``step``, ``abort``,
+``has_unfinished``, ``stream``, ``generate``), and both serve per-request
+sampling params: greedy and sampled lanes mix, each sampled lane drawing
+from its own stream ``PRNGKey(seed)`` (:mod:`repro_torch.prng`, the
+reference's threefry), advanced only on its own active iterations, so its
+tokens are the JAX engine's and do not depend on its batch.
 
-A persistent batch of ``max_batch`` lanes advances one *block* per
-``step()``, each lane at its own block offset
+- :class:`Engine`, **static batching**: up to ``max_batch`` queued
+  requests are padded into one batch and decoded to completion by the
+  sampler (``core/sampler.py``: ``cdlm`` or ``vanilla``), eagerly; a
+  batch without explicit params takes the engine's scalar path and key
+  chain (``PRNGKey(0)`` by default, split once per batch), one with them
+  the per-lane path. ``step()`` emits the batch's block events at once.
+
+- :class:`ContinuousEngine`, **continuous block-level batching** over the
+  ``cdlm`` strategy, on the dense or the block-paged KV layout.
+
+The continuous engine keeps a persistent batch of ``max_batch`` lanes and
+advances it one *block* per ``step()``, each lane at its own block offset
 (:func:`repro_torch.core.block_loop.lane_block_forward`). At every block
 boundary finished lanes are evicted, their cache rows reset, and queued
 requests admitted into the freed lanes (prompt prefill committed into
@@ -17,7 +30,14 @@ rule exactly, so ``steps`` and the call count agree with it: iterate while
 any running lane still has a mask token in its block and fewer than
 ``block_size`` iterations ran; each iteration is one call and adds 1 to
 the steps of every lane that was active; the commit pass is one more
-call, and an admission one call.
+call, and an admission one call. An iteration takes one of three
+variants, as the JAX engine's two ``jit`` specialisations and its
+``fused_select`` switch do: fused greedy (``ServeConfig.fused_select``:
+the fused unembed + select kernel, no logits), dense-logits greedy, and
+sampled (some lane in flight has ``temperature > 0``: every active lane's
+key is split, greedy lanes take the argmax of the logits, sampled lanes
+draw). A ``fused_select`` engine serves greedy requests only, as the
+reference's does.
 
 Prompt prefill at admission goes through the block attention kernel
 (``kernels.block_attn``); cached forwards through the dense or the paged
@@ -34,19 +54,21 @@ next blocks are claimed right after the decode, and finished lanes'
 pages are freed at once. The allocator lives on the host, so no
 allocation result is ever read off the device.
 
-On CUDA the block decode replays CUDA graphs (``repro_torch.graphs``), the
-port's counterpart of the JAX engine's ``jax.jit``: one refinement
-iteration (the cached forward, the fused select, the threshold rule, the
-scatter into the canvas and the next iteration's ``active`` mask) and the
-commit pass's forward, each captured once per engine at :meth:`warmup`
-(or at the first :meth:`step`). The engine's device state (canvases, the
-dense cache or the paged pools, the device page table and the per-lane
-``starts``, ``live``, ``taus`` and ``active`` vectors) is allocated once
-per engine and written in place, so the graphs read it at fixed
-addresses. The host loop and its stop rule stay as they are: one read of
-``active`` per iteration, so tokens, steps, call counts and page
-statistics are the eager path's. ``graphs=False`` keeps the eager path on
-CUDA, for A/B runs and tests; the CPU runs eagerly.
+On CUDA the continuous engine's block decode replays CUDA graphs
+(``repro_torch.graphs``), the port's counterpart of the JAX engine's
+``jax.jit``: each iteration variant (the cached forward, the selection,
+the threshold rule, the scatter into the canvas, the next iteration's
+``active`` mask, and for the sampled variant the key split) and the commit
+pass's forward, each captured once per engine at :meth:`warmup` or on
+first use (the capture's warm-up run is then that iteration). The
+engine's device state (canvases, the dense cache or the paged pools, the
+device page table and the per-lane ``starts``, ``live``, ``taus``,
+``temps``, ``keys`` and ``active`` vectors) is allocated once per engine
+and written in place, so the graphs read it at fixed addresses. The host
+loop and its stop rule stay as they are: one read of ``active`` per
+iteration, so tokens, steps, call counts and page statistics are the
+eager path's. ``graphs=False`` keeps the eager path on CUDA, for A/B runs
+and tests; the CPU runs eagerly. The static engine runs eagerly.
 """
 from __future__ import annotations
 
@@ -58,17 +80,21 @@ import numpy as np
 import torch
 
 from repro_torch import graphs as GR
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import cache as C
 from repro_torch.core import diffusion as D
 from repro_torch.core import masks
 from repro_torch.core.block_loop import (
+    STRATEGIES,
+    LaneParams,
     SamplerSpec,
     _gen_lengths,
     init_canvas,
     lane_block_forward,
+    run_block_loop,
 )
+from repro_torch.core.sampler import SAMPLERS
 from repro_torch.kernels.block_attn import flash_block_attention
 from repro_torch.models import forward, unembed_matrix
 from repro_torch.models.transformer import check_dense
@@ -91,15 +117,33 @@ def _resolve(req: GenerationRequest, serve: ServeConfig,
 
 def _validate_params(req: GenerationRequest, serve: ServeConfig) -> None:
     """Per-request params constraints, checked at ``add_request`` time so
-    a bad request fails its own submission instead of the shared decode
-    step. The port decodes greedily only: ``temperature > 0`` is refused
-    (the JAX engine refuses it under ``fused_select``)."""
+    a bad request fails its own submission (HTTP 400) instead of the
+    shared decode step: non-threshold samplers have no per-lane selection
+    loop, and ``fused_select`` engines are greedy-only (a sampled lane
+    would move its greedy batch-mates from the fused kernel to the dense
+    selection, whose last-ulp confidence differences could break
+    isolated-decode exactness)."""
     if req.params is None or req.params.is_engine_default:
         return
-    if (req.params.temperature or 0) > 0:
+    if STRATEGIES[serve.sampler].finalize != "threshold":
         raise ValueError(
-            "repro_torch serves greedy requests only (per-request "
-            "temperature > 0 needs sampled decoding, not ported yet)")
+            "per-request SamplingParams require a threshold-finalize "
+            f"sampler; {serve.sampler!r} uses "
+            f"{STRATEGIES[serve.sampler].finalize!r} (set the knobs "
+            "globally in ServeConfig instead)")
+    if serve.fused_select and (req.params.temperature or 0) > 0:
+        raise ValueError(
+            "fused_select engines serve greedy requests only "
+            "(per-request temperature > 0 would mix fused and dense "
+            "selection paths within one batch); disable fused_select to "
+            "serve sampled requests")
+
+
+def _lane_key(rp: ResolvedSamplingParams) -> np.ndarray:
+    """A request's stream root, ``PRNGKey(seed)`` as (2,) int64 uint32
+    values: scheduler- and batch-invariant, so isolated and batched
+    decodes draw alike."""
+    return prng.key(rp.seed).numpy()
 
 
 def _finish_reason(gen: np.ndarray, glen_raw: int,
@@ -125,15 +169,17 @@ class _RequestStepper:
                 f"prompt length {len(np.asarray(request.prompt))} != engine "
                 f"prompt_len {self.spec.prompt_len}")
 
-    def stream(self, requests: Sequence[GenerationRequest]):
+    def stream(self, requests: Sequence[GenerationRequest], key=None):
         """Drain ``requests`` through the stepper, yielding a
-        :class:`BlockEvent` the moment each block commits."""
+        :class:`BlockEvent` the moment each block commits. ``key`` roots
+        the static engine's scalar stream (the continuous engine's lanes
+        draw from their requests' seeds)."""
         if not requests:
             return
         if self.has_unfinished():
             raise RuntimeError("engine busy: drain or abort in-flight "
                                "requests before a fresh stream()/generate()")
-        self._reset()
+        self._reset(key)
         ids = [self.add_request(r) for r in requests]
         try:
             while self.has_unfinished():
@@ -145,10 +191,11 @@ class _RequestStepper:
                 for rid in ids:
                     self.abort(rid)
 
-    def generate(self, requests: Sequence[GenerationRequest]
+    def generate(self, requests: Sequence[GenerationRequest], key=None
                  ) -> List[GenerationOutput]:
         """The final outputs, in completion order."""
-        return [ev.output for ev in self.stream(requests) if ev.finished]
+        return [ev.output for ev in self.stream(requests, key=key)
+                if ev.finished]
 
 
 class _Flight:
@@ -163,6 +210,199 @@ class _Flight:
         self.admit_t = admit_t
         self.arrival = arrival
         self.blocks_done = 0
+
+
+def _check_params_device(params, device: torch.device) -> None:
+    if params["embed"]["tok"].device != device:
+        raise ValueError(f"params live on {params['embed']['tok'].device}"
+                         f", the engine runs on {device}")
+
+
+class Engine(_RequestStepper):
+    """Static fixed-shape batching over a ported sampler (``cdlm`` or
+    ``vanilla``). ``step()`` pops up to ``max_batch`` queued requests, pads
+    them into one batch, decodes it to completion and emits every block
+    event of the batch at once. The decode runs eagerly: its cached
+    forwards through the layout's decode attention kernel, its prompt
+    prefill through block attention, and, with ``fused_select``, greedy
+    selection through the select kernel. ``device`` defaults to the CUDA
+    device; pass ``device="cpu"`` to run on the CPU (the kernels' plain
+    versions)."""
+
+    def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
+                 prompt_len: int, *, device="cuda"):
+        if serve.sampler not in SAMPLERS:
+            raise ValueError(
+                f"sampler {serve.sampler!r} is not ported yet: ROADMAP "
+                "Queue 1 item 9 (ported: "
+                f"{', '.join(sorted(SAMPLERS))})")
+        if serve.page_pool_pages is not None:
+            raise ValueError(
+                "page_pool_pages is only honored by the continuous "
+                "scheduler with the paged layout; the static engine runs "
+                "whole sequences to completion, so its paged pool is "
+                "always sized dense-equivalent (batch x full canvas)")
+        check_dense(cfg)
+        self.device = resolve_device(device)
+        _check_params_device(params, self.device)
+        self.params = params
+        self.cfg = cfg
+        self.serve = serve
+        self.spec = SamplerSpec(
+            prompt_len=prompt_len, gen_len=serve.gen_length,
+            block_size=serve.block_size, conf_threshold=serve.conf_threshold,
+            temperature=serve.temperature, cache_layout=serve.cache_layout,
+            fused_select=serve.fused_select)
+        self._strategy = STRATEGIES[serve.sampler]
+        self._next_id = 0
+        self._reset()
+
+    # -- incremental core ---------------------------------------------------
+    def _reset(self, key=None) -> None:
+        self._key = (prng.key(0, self.device) if key is None
+                     else torch.as_tensor(key, dtype=torch.int64,
+                                          device=self.device))
+        self._queue: List[GenerationRequest] = []
+        self._calls = {"batches": 0, "total": 0}
+
+    def call_counts(self) -> Dict[str, int]:
+        """Batches decoded and forward passes (prefills, refinement
+        iterations and commit passes: the samplers' ``n_model_calls``)
+        since the last reset."""
+        return dict(self._calls)
+
+    def add_request(self, request: GenerationRequest) -> int:
+        """Enqueue one request; returns its (possibly engine-assigned) id."""
+        if request.extras:
+            raise ValueError("repro_torch's Engine does not take request "
+                             "extras")
+        self._register(request, {r.id for r in self._queue})
+        self._queue.append(request)
+        return request.id
+
+    def has_unfinished(self) -> bool:
+        return bool(self._queue)
+
+    def abort(self, request_id: int) -> bool:
+        """Drop a queued request (a batch runs synchronously, so nothing is
+        in flight between ``step()`` calls)."""
+        for i, r in enumerate(self._queue):
+            if r.id == request_id:
+                del self._queue[i]
+                return True
+        return False
+
+    def _run(self, prompts, key=None, lanes: Optional[LaneParams] = None,
+             sampled: bool = False):
+        """One batch through the sampler's strategy: the scalar path with
+        ``key``, or per-lane params ``lanes`` (``sampled``: some lane
+        draws)."""
+        return run_block_loop(self.params, prompts, cfg=self.cfg,
+                              spec=self.spec, strategy=self._strategy,
+                              key=key, lane_params=lanes,
+                              lane_sampled=sampled)
+
+    def _lanes(self, rps: Sequence[ResolvedSamplingParams]) -> LaneParams:
+        dev = self.device
+        return LaneParams(
+            temperature=torch.tensor([p.temperature for p in rps],
+                                     dtype=torch.float32, device=dev),
+            conf_threshold=torch.tensor([p.conf_threshold for p in rps],
+                                        dtype=torch.float32, device=dev),
+            eos_id=torch.tensor([p.eos_token_id for p in rps],
+                                dtype=torch.int64, device=dev),
+            key=torch.as_tensor(np.stack([_lane_key(p) for p in rps]),
+                                device=dev))
+
+    def warmup(self, *, per_request: bool = False) -> None:
+        """Build and load the kernels on one batch of the scalar path;
+        ``per_request=True`` (servers) also runs the per-lane variants (the
+        sampled one unless ``fused_select``)."""
+        b = self.serve.max_batch
+        prompts = torch.zeros((b, self.spec.prompt_len), dtype=torch.int64,
+                              device=self.device)
+        self._run(prompts)
+        if per_request and self._strategy.finalize == "threshold":
+            rp = ResolvedSamplingParams(0.0, self.serve.conf_threshold, None,
+                                        0, self.cfg.eos_token_id)
+            lanes = self._lanes([rp] * b)
+            self._run(prompts, lanes=lanes)
+            if not self.serve.fused_select:
+                self._run(prompts, lanes=lanes, sampled=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _n_emit_blocks(self, gen: np.ndarray,
+                       rp: ResolvedSamplingParams) -> int:
+        """Blocks to stream: through the first block holding the request's
+        EOS, else up to its ``max_tokens`` cap (rounded up to a block),
+        else the whole grid."""
+        B = self.spec.block_size
+        cap = self.spec.n_blocks
+        if rp.max_tokens is not None:
+            cap = max(1, min(cap, -(-rp.max_tokens // B)))
+        hits = np.flatnonzero(gen == rp.eos_token_id)
+        if hits.size:
+            return min(int(hits[0]) // B + 1, cap)
+        return cap
+
+    def step(self) -> List[BlockEvent]:
+        """Run one batch of up to ``max_batch`` queued requests to
+        completion; returns every block event of the batch (final events
+        carry the :class:`GenerationOutput`)."""
+        if not self._queue:
+            return []
+        Bmax = self.serve.max_batch
+        chunk = self._queue[:Bmax]
+        del self._queue[:Bmax]
+        rps = [_resolve(r, self.serve, self.cfg) for r in chunk]
+        pad = Bmax - len(chunk)
+        prompts = torch.as_tensor(
+            np.stack([np.asarray(r.prompt) for r in chunk]
+                     + [np.asarray(chunk[-1].prompt)] * pad),
+            dtype=torch.int64, device=self.device)
+        self._key, sub = prng.split(self._key)
+        # a batch is one decode, so any request with explicit params moves
+        # the whole batch to the per-lane path (its bare batch-mates then
+        # draw from their own streams, as in the reference)
+        use_lanes = any(r.params is not None
+                        and not r.params.is_engine_default for r in chunk)
+        t0 = time.perf_counter()
+        if use_lanes:
+            prps = rps + [rps[-1]] * pad
+            res = self._run(prompts, lanes=self._lanes(prps),
+                            sampled=any(p.temperature > 0 for p in prps))
+        else:
+            res = self._run(prompts, sub)
+        self._calls["batches"] += 1
+        self._calls["total"] += res.n_model_calls
+        toks = res.tokens.cpu().numpy()
+        steps = res.steps.cpu().numpy()
+        glens = res.gen_lengths.cpu().numpy()
+        dt = (time.perf_counter() - t0) / len(chunk)
+        P, B = self.spec.prompt_len, self.spec.block_size
+        events: List[BlockEvent] = []
+        for j, (r, rp) in enumerate(zip(chunk, rps)):
+            gen = toks[j, P:]
+            glen_raw = int(glens[j])
+            # the reason is judged on the untrimmed span (the continuous
+            # engine's rule: EOS landing exactly on the cap is "stop")
+            reason = _finish_reason(gen, glen_raw, rp)
+            glen = glen_raw
+            if rp.max_tokens is not None:
+                glen = min(glen, rp.max_tokens)
+                gen = gen[:rp.max_tokens]
+            out = GenerationOutput(
+                id=r.id, tokens=gen, gen_length=glen, steps=int(steps[j]),
+                latency_s=dt, finish_reason=reason)
+            n_blocks = self._n_emit_blocks(gen, rp)
+            for blk in range(n_blocks):
+                events.append(BlockEvent(
+                    request_id=r.id, index=blk, start=blk * B,
+                    tokens=toks[j, P + blk * B:P + (blk + 1) * B].copy(),
+                    finished=(blk == n_blocks - 1),
+                    output=out if blk == n_blocks - 1 else None))
+        return events
 
 
 class _Slots:
@@ -185,6 +425,10 @@ class _Slots:
         self.live_t = torch.zeros((N,), dtype=torch.bool, device=dev)
         self.taus_t = torch.zeros((N, 1), dtype=torch.float32, device=dev)
         self.active_t = torch.zeros((N,), dtype=torch.bool, device=dev)
+        # per-lane sampling state, written at admission; the sampled
+        # iteration advances the keys in place
+        self.temps_t = torch.zeros((N,), dtype=torch.float32, device=dev)
+        self.keys_t = torch.zeros((N, 2), dtype=torch.int64, device=dev)
         self.clear()
 
     def clear(self) -> None:
@@ -200,7 +444,8 @@ class _Slots:
             bufs = [b for slot in self.cache for b in slot.values()]
         for buf in bufs:
             buf.zero_()
-        for t in (self.starts_t, self.live_t, self.taus_t, self.active_t):
+        for t in (self.starts_t, self.live_t, self.taus_t, self.active_t,
+                  self.temps_t, self.keys_t):
             t.zero_()
         self.blk = np.zeros((N,), np.int64)        # current block per lane
         self.lane_nblocks = np.full((N,), n_blocks, np.int64)
@@ -213,11 +458,11 @@ class _Slots:
 
 class ContinuousEngine(_RequestStepper):
     """Slot-based continuous batching over the CDLM exact-cache strategy
-    (dense or paged layout, greedy). ``device`` defaults to the CUDA
-    device; pass ``device="cpu"`` to run on the CPU (the kernels' plain
-    versions). ``graphs``: None (the default) decodes through CUDA graphs
-    on CUDA and eagerly on the CPU; False decodes eagerly on CUDA too;
-    True on the CPU raises."""
+    (dense or paged layout; greedy and sampled lanes, per request).
+    ``device`` defaults to the CUDA device; pass ``device="cpu"`` to run on
+    the CPU (the kernels' plain versions). ``graphs``: None (the default)
+    decodes through CUDA graphs on CUDA and eagerly on the CPU; False
+    decodes eagerly on CUDA too; True on the CPU raises."""
 
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
                  prompt_len: int, *, device="cuda", graphs=None):
@@ -233,28 +478,33 @@ class ContinuousEngine(_RequestStepper):
             raise ValueError("page_pool_pages requires cache_layout='paged' "
                              "— the dense layout preallocates per-lane "
                              "buffers and would silently ignore the budget")
-        if serve.temperature > 0:
-            raise ValueError("repro_torch serves greedy decoding only: the "
-                             "engine default temperature must be 0")
-        if not serve.fused_select:
-            raise ValueError("repro_torch decodes through the fused select "
-                             "kernel only: set ServeConfig(fused_select=True)")
+        if serve.fused_select and serve.temperature > 0:
+            raise ValueError(
+                "fused_select is greedy-only: a sampled default "
+                "(temperature > 0) would route every step through the "
+                "dense selection path, mixing fused and dense decodes "
+                "across batch compositions")
         check_dense(cfg)
         self.device = resolve_device(device)
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, the engine "
                              f"runs on {self.device}")
         self.graphed = self.device.type == "cuda" and graphs is not False
-        self._graphs = None        # (refine, commit), captured at warmup
-        if params["embed"]["tok"].device != self.device:
-            raise ValueError(f"params live on {params['embed']['tok'].device}"
-                             f", the engine runs on {self.device}")
+        # the captured graphs by name: the iteration variants ("fused",
+        # "dense", "sampled") and "commit"; None until the first capture
+        self._graphs: Optional[Dict[str, GR.Graph]] = None
+        _check_params_device(params, self.device)
         self.params = params
         self.cfg = cfg
         self.serve = serve
         self.spec = SamplerSpec(
             prompt_len=prompt_len, gen_len=serve.gen_length,
-            block_size=serve.block_size, conf_threshold=serve.conf_threshold)
+            block_size=serve.block_size, conf_threshold=serve.conf_threshold,
+            temperature=serve.temperature, cache_layout=serve.cache_layout,
+            fused_select=serve.fused_select)
+        # the greedy iteration: the fused select kernel from the hidden
+        # states, or the argmax of dense logits
+        self._greedy = "fused" if serve.fused_select else "dense"
         self.n_lanes = serve.max_batch
         self.paged = serve.cache_layout == C.PAGED
         P, B = prompt_len, serve.block_size
@@ -297,18 +547,26 @@ class ContinuousEngine(_RequestStepper):
                       self.spec.conf_threshold, self.cfg.eos_token_id,
                       self.cfg.mask_token_id)
 
-    def _admit(self, state: _Slots, prompts, admit, nblocks, taus, eos):
-        """Write the admitted lanes' canvases, reset their cache rows (paged:
-        allocate prompt + first-block pages), prefill the prompts under the
-        block-causal mask through the block attention kernel and commit them
-        into those rows (the prefill runs every lane, as the JAX engine's
-        does, and commits only the admitted ones)."""
-        spec = self.spec
+    def _admit(self, state: _Slots, prompts, admit, nblocks, temps, taus,
+               eos, keys):
+        """Write the admitted lanes' canvases and sampling state (temperature
+        and key on the device, tau and EOS on the host), reset their cache
+        rows (paged: allocate prompt + first-block pages), prefill the
+        prompts under the block-causal mask through the block attention
+        kernel and commit them into those rows (the prefill runs every
+        lane, as the JAX engine's does, and commits only the admitted
+        ones)."""
+        spec, dev = self.spec, self.device
         canvas = init_canvas(torch.as_tensor(prompts, dtype=torch.int64,
-                                             device=self.device), spec,
-                             self.cfg)
-        rows = torch.as_tensor(admit, device=self.device)
+                                             device=dev), spec, self.cfg)
+        rows = torch.as_tensor(admit, device=dev)
         state.tokens.copy_(torch.where(rows[:, None], canvas, state.tokens))
+        state.temps_t.copy_(torch.where(
+            rows, torch.as_tensor(temps, dtype=torch.float32, device=dev),
+            state.temps_t))
+        state.keys_t.copy_(torch.where(
+            rows[:, None], torch.as_tensor(keys, dtype=torch.int64,
+                                           device=dev), state.keys_t))
         C.reset(state.cache, admit)
         if self.paged:
             _, ok = C.alloc(state.cache, admit, 0,
@@ -356,21 +614,36 @@ class ContinuousEngine(_RequestStepper):
         state.active_t.copy_((bt == self.cfg.mask_token_id).any(-1)
                              & state.live_t)
 
-    def _refine(self) -> None:
+    def _refine(self, variant: Optional[str] = None) -> None:
         """One refinement iteration of the active lanes, on the device
-        state alone (captured as a CUDA graph): the cached forward of each
-        lane's block, the fused select, the threshold rule and the scatter
-        of the selected candidates into the canvases, then the next
-        iteration's ``active``."""
+        state alone (captured as a CUDA graph per variant): the cached
+        forward of each lane's block, the selection, the threshold rule and
+        the scatter of the selected candidates into the canvases, then the
+        next iteration's ``active``. ``variant`` (default the engine's
+        greedy one): "fused" selects through the fused select kernel from
+        the hidden states, "dense" takes the argmax of the logits,
+        "sampled" first splits every active lane's key and then draws for
+        the lanes at temperature > 0 (the argmax for the others)."""
+        variant = variant or self._greedy
         state, cfg = self._state, self.cfg
         pos = self._block_positions(state)
         bt = state.tokens.gather(1, pos)
-        hidden, _ = lane_block_forward(
+        if variant == "sampled":
+            keys, subs = D.split_lane_keys(state.keys_t, state.active_t)
+            state.keys_t.copy_(keys)
+        net, _ = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache, cfg=cfg,
-            spec=self.spec, return_hidden=True)
-        cand, conf = D.confidence_and_candidates_fused(
-            hidden, unembed_matrix(self.params, cfg), bt, cfg.mask_token_id,
-            softcap=cfg.final_logit_softcap)
+            spec=self.spec, return_hidden=variant == "fused")
+        if variant == "fused":
+            cand, conf = D.confidence_and_candidates_fused(
+                net, unembed_matrix(self.params, cfg), bt, cfg.mask_token_id,
+                softcap=cfg.final_logit_softcap)
+        elif variant == "sampled":
+            cand, conf = D.confidence_and_candidates_per_lane(
+                net, bt, cfg.mask_token_id, state.temps_t, subs)
+        else:
+            cand, conf = D.confidence_and_candidates(net, bt,
+                                                     cfg.mask_token_id)
         sel = D.select_threshold_in_block(conf, self._all_block,
                                           state.taus_t)
         sel = sel & state.active_t[:, None]
@@ -398,26 +671,34 @@ class ContinuousEngine(_RequestStepper):
             state.cache.device_table()
         self._refresh_active(state)
 
-    def _capture(self, state: _Slots, starts, live) -> tuple:
-        """Capture the refinement iteration and the commit forward, sharing
-        one memory pool. The refinement's warm-up run changes the canvases:
-        the caller clears the state after."""
-        self._write_block_inputs(state, starts, live)
-        pool = torch.cuda.graph_pool_handle()
-        return (GR.Graph(self._refine, pool=pool),
-                GR.Graph(self._commit_forward, pool=pool))
+    def _replayed(self, name: str, fn):
+        """``fn()`` through its CUDA graph ``name``: replayed, or captured
+        now, the capture's warm-up run being this call (eager when the
+        engine is not graphed). Returns ``fn``'s result."""
+        if not self.graphed:
+            return fn()
+        if self._graphs is None:
+            self._graphs = {}
+        graph = self._graphs.get(name)
+        if graph is None:
+            graph = self._graphs[name] = GR.Graph(fn)
+            return graph.warm
+        return graph.replay()
 
-    def _decode_block(self, state: _Slots, run) -> None:
+    def _decode_block(self, state: _Slots, run,
+                      variant: Optional[str] = None) -> None:
         """Advance the lanes in ``run`` by one block: threshold refinement
-        to completion, then the exact commit pass into each lane's rows."""
+        to completion, then the exact commit pass into each lane's rows.
+        The iteration variant is "sampled" while a request in flight has
+        temperature > 0 (the reference's ``_sampled_step``), the engine's
+        greedy one otherwise; ``variant`` forces one (warmup)."""
         spec, dev = self.spec, self.device
         P, B = spec.prompt_len, spec.block_size
+        variant = variant or ("sampled" if self._sampled_step()
+                              else self._greedy)
         live = state.live & run
         starts = P + np.clip(state.blk, 0, spec.n_blocks - 1) * B
         self._write_block_inputs(state, starts, live)
-        refine, commit = ((self._refine, self._commit_forward)
-                          if self._graphs is None
-                          else (g.replay for g in self._graphs))
         it = 0
         while it < B:
             # the loop condition is read back to the host: one device sync
@@ -426,14 +707,16 @@ class ContinuousEngine(_RequestStepper):
             active = state.active_t.cpu().numpy().copy()
             if not active.any():
                 break
-            refine()
+            self._replayed(variant, lambda: self._refine(variant))
             state.steps += active
             state.calls["refine"] += 1
             it += 1
 
         # commit pass: recompute the finalized blocks' KV exactly, for the
         # lanes that ran, each at its own offset
-        C.commit_rows(state.cache, commit(), starts, live)
+        C.commit_rows(state.cache, self._replayed("commit",
+                                                  self._commit_forward),
+                      starts, live)
         state.calls["commit"] += 1
 
         bt = state.tokens.gather(1, self._block_positions(state))
@@ -443,8 +726,13 @@ class ContinuousEngine(_RequestStepper):
         finished = live & (eos_hit | (state.blk >= state.lane_nblocks))
         state.live &= ~finished
 
+    def _sampled_step(self) -> bool:
+        return any(f is not None and f.rp.temperature > 0
+                   for f in self._flights)
+
     # -- host-side scheduler -------------------------------------------------
-    def _reset(self) -> None:
+    def _reset(self, key=None) -> None:
+        del key  # per-request streams derive from SamplingParams.seed
         self._state.clear()
         self._queue: List[GenerationRequest] = []
         self._flights: List[Optional[_Flight]] = [None] * self.n_lanes
@@ -460,11 +748,13 @@ class ContinuousEngine(_RequestStepper):
         self._preemptions = 0
         self._stall_rounds = 0
 
-    def warmup(self) -> None:
-        """Build and load the kernels, capture the decode's CUDA graphs
-        (once per engine), and run one admission and one block decode on
-        the engine's state, which is cleared after. Refused while a request
-        is in flight."""
+    def warmup(self, *, per_request: bool = False) -> None:
+        """Build and load the kernels and capture the decode's CUDA graphs
+        (once per engine): one admission and one block decode of the greedy
+        variant on the engine's state, and of the sampled variant too when
+        the engine default samples or, ``per_request`` (servers), any
+        request may (not on a ``fused_select`` engine); the state is
+        cleared after. Refused while a request is in flight."""
         if any(f is not None for f in self._flights):
             raise RuntimeError("engine busy: warmup() needs every lane free")
         state = self._state
@@ -472,12 +762,15 @@ class ContinuousEngine(_RequestStepper):
         lanes = np.ones((N,), bool)
         if self.paged:     # as many lanes as the pool admits at once
             lanes[self.n_pages // self._admit_pages:] = False
-        self._admit(state, np.zeros((N, P), np.int64), lanes,
-                    state.lane_nblocks, state.taus, state.eos)
-        if self.graphed and self._graphs is None:
-            self._graphs = self._capture(state, np.full((N,), P, np.int64),
-                                         lanes)
-        self._decode_block(state, lanes)
+        variants = [self._greedy]
+        if self.serve.temperature > 0 or (per_request
+                                          and not self.serve.fused_select):
+            variants.append("sampled")
+        for variant in variants:
+            self._admit(state, np.zeros((N, P), np.int64), lanes,
+                        state.lane_nblocks, np.zeros((N,), np.float32),
+                        state.taus, state.eos, np.zeros((N, 2), np.int64))
+            self._decode_block(state, lanes, variant)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         state.clear()
@@ -555,8 +848,6 @@ class ContinuousEngine(_RequestStepper):
         :class:`BlockEvent` per block finalized (final blocks carry the
         request's :class:`GenerationOutput`)."""
         N, P, B = self.n_lanes, self.spec.prompt_len, self.spec.block_size
-        if self.graphed and self._graphs is None:
-            self.warmup()      # no step has run yet: every lane is free
         state = self._state
         now = time.perf_counter() - self._t0
 
@@ -593,8 +884,10 @@ class ContinuousEngine(_RequestStepper):
         admit = np.zeros((N,), bool)
         prompts = np.zeros((N, P), np.int64)
         nblocks = np.zeros((N,), np.int64)
+        temps = np.zeros((N,), np.float32)
         taus = np.zeros((N,), np.float32)
         eos = np.zeros((N,), np.int64)
+        keys = np.zeros((N, 2), np.int64)
         for lane in range(N):
             if self._flights[lane] is not None:
                 continue
@@ -610,12 +903,15 @@ class ContinuousEngine(_RequestStepper):
             admit[lane] = True
             prompts[lane] = np.asarray(req.prompt)
             nblocks[lane] = self._lane_nblocks(rp)
+            temps[lane] = rp.temperature
             taus[lane] = rp.conf_threshold
             eos[lane] = rp.eos_token_id
+            keys[lane] = _lane_key(rp)
             if self.paged:
                 budget -= self._admit_pages
         if admit.any():
-            self._admit(state, prompts, admit, nblocks, taus, eos)
+            self._admit(state, prompts, admit, nblocks, temps, taus, eos,
+                        keys)
             run = run | admit
         if all(f is None for f in self._flights):
             # nothing decoding and nothing arrived yet: idle to the next
@@ -715,6 +1011,21 @@ class ContinuousEngine(_RequestStepper):
             return {"peak_lanes": 0.0, "avg_lanes": 0.0}
         return {"peak_lanes": float(max(self._live_samples)),
                 "avg_lanes": float(np.mean(self._live_samples))}
+
+
+def make_engine(params, cfg: ModelConfig, serve: ServeConfig,
+                prompt_len: int, **kw):
+    """Engine factory switched by ``serve.scheduler`` (``device`` and, for
+    the continuous engine, ``graphs`` pass through)."""
+    if serve.scheduler == "continuous":
+        return ContinuousEngine(params, cfg, serve, prompt_len, **kw)
+    if serve.scheduler == "static":
+        if kw.pop("graphs", None):
+            raise ValueError("the static engine runs eagerly: graphs=True "
+                             "is refused")
+        return Engine(params, cfg, serve, prompt_len, **kw)
+    raise ValueError(f"unknown scheduler {serve.scheduler!r} "
+                     "(expected 'static' or 'continuous')")
 
 
 def efficiency_report(responses: Sequence[GenerationOutput]

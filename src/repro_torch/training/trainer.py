@@ -1,12 +1,15 @@
 """Training loops, ported from the JAX package's
 ``training/trainer.py``: teacher SFT -> trajectory collection (Alg. 1, at
-τ = 0) -> CDLM student distillation (Alg. 2), full fine-tune or LoRA.
+every temperature of ``CDLMConfig.temperatures``) -> CDLM student
+distillation (Alg. 2), full fine-tune or LoRA.
 
 Every loop runs on the CUDA device unless given ``device="cpu"``; the
 collected dataset lives as tensors on that device. Randomness comes from
 ``torch.Generator``s seeded like the JAX loops' keys (other numbers from
-the same seed). ``history``, where given, receives each step's metrics
-(``train_teacher``, ``train_student``).
+the same seed), apart from collection, which draws from the reference's
+own stream, ``PRNGKey(seed)`` split once per batch. ``history``, where
+given, receives each step's metrics (``train_teacher``,
+``train_student``).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch import tree as T
 from repro_torch.bridge import init_params
 from repro_torch.configs.base import CDLMConfig, ModelConfig, TrainConfig
@@ -91,19 +94,22 @@ def train_ar(cfg: ModelConfig, corpus: Corpus, tcfg: TrainConfig, *,
 def collect_dataset(teacher_params, cfg: ModelConfig, cdlm: CDLMConfig,
                     corpus: Corpus, *, n_examples: int, batch: int = 16,
                     seed: int = 0, verbose: bool = True):
-    """Alg. 1 over the corpus, batch by batch, through the fused select and
-    block attention kernels (``trajectory.collect``); the dataset's tensors
-    stay on the params' device."""
+    """Alg. 1 over the corpus, batch by batch, through the block attention
+    and fused select kernels (``trajectory.collect``), with
+    ``PRNGKey(seed)`` split once per batch as the reference does; the
+    dataset's tensors stay on the params' device."""
     dev = teacher_params["embed"]["tok"].device
+    key = prng.key(seed, dev)
     chunks = []
     done = 0
     for b in corpus.batches(batch, seed=seed, epochs=100):
         if done >= n_examples:
             break
         tb = _batch(b, dev)
+        key, sub = prng.split(key)
         chunks.append(trajectory.collect(
             teacher_params, tb["prompt"], tb["answer"], cfg=cfg, cdlm=cdlm,
-            fused_select=True))
+            key=sub, fused_select=True))
         done += batch
         if verbose and done % (batch * 4) == 0:
             print(f"  collected {done}/{n_examples} prompts "

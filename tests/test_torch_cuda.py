@@ -658,3 +658,102 @@ def test_graph_collector_equals_eager(cuda, dtype):
     assert torch.equal(res_g.tokens, res_e.tokens)
     assert torch.equal(fat_g, fat_e) and torch.equal(hid_g, hid_e)
     assert counts_g == counts_e == [0, 0, G * cfg.n_layers, G, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_prng_on_the_card_equals_the_cpu(cuda, partitionable):
+    """The threefry keys, bits and uniforms on CUDA equal the CPU's bit for
+    bit (int32 wrap-around and masked shifts on both), the Gumbel noise
+    within 2 ulp of max(|g|, 1) (the two devices' logs differ)."""
+    from repro_torch import prng
+    keys = prng.split(prng.key(42), 4)
+    for shape in [(7,), (3, 5, 1001)]:
+        for fn in (prng.bits, prng.uniform):
+            got = fn(keys.to(cuda), shape, partitionable=partitionable)
+            assert torch.equal(got.cpu(), fn(keys, shape,
+                                              partitionable=partitionable))
+        g = prng.gumbel(keys.to(cuda), shape, partitionable=partitionable)
+        want = prng.gumbel(keys, shape, partitionable=partitionable)
+        ulp = torch.maximum(want.abs(), torch.ones_like(want))
+        ulp = torch.nextafter(ulp, torch.full_like(ulp, float("inf"))) - ulp
+        assert float(((g.cpu() - want).abs() / ulp).max()) <= 2
+    assert torch.equal(prng.split(keys.to(cuda), 3,
+                                  partitionable=partitionable).cpu(),
+                       prng.split(keys, 3, partitionable=partitionable))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,pool", [("dense", None), ("paged", None),
+                                         ("paged", 8)])
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["dense-greedy", "sampled"])
+def test_graph_sampled_serving_equals_eager(cuda, layout, pool, sampled):
+    """The engine without fused select, through its CUDA graphs and
+    eagerly, on a trace of greedy and (``sampled``) seeded sampled
+    requests: tokens, steps, call counts, page statistics and launches
+    equal, and the launches equal the call accounting (no select)."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import ContinuousEngine, Request, SamplingParams
+    cfg, params = _reduced_params(cuda)
+    P, G, B = 8, 16, 4
+    serve = ServeConfig(max_batch=2, block_size=B, gen_length=G,
+                        conf_threshold=0.5, scheduler="continuous",
+                        cache_layout=layout, page_pool_pages=pool)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
+                                                (5, P))
+    sps = [None, SamplingParams(temperature=0.8, seed=3), None,
+           SamplingParams(temperature=1.2, seed=9), None]
+    if not sampled:
+        sps = [None] * 5
+    runs = {}
+    for graphs in (False, None):
+        eng = ContinuousEngine(params, cfg, serve, prompt_len=P,
+                               device=cuda, graphs=graphs)
+        eng.warmup(per_request=True)
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i, params=sp)
+             for i, (p, sp) in enumerate(zip(prompts, sps))]))
+        calls = eng.call_counts()
+        cached = cfg.n_layers * (calls["refine"] + calls["commit"])
+        assert counts == [cached if layout == "dense" else 0,
+                          cached if layout == "paged" else 0,
+                          cfg.n_layers * calls["admit"], 0, 0, 0]
+        runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
+                                o.finish_reason) for o in outs}, calls,
+                        eng.page_pool_stats(), counts)
+        if graphs is None:
+            assert set(eng._graphs) == {"dense", "sampled", "commit"}
+    assert runs[None] == runs[False]
+    if pool is not None:
+        assert runs[None][2]["preemptions"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_sampled_collection_equals_eager(cuda, dtype):
+    """Collection at temperature 0.5 with the forward as a CUDA graph and
+    eagerly, from one key: tokens, finalized_at and hidden bit for bit,
+    and the same launches (block attention per layer and step; a sampled
+    step selects from dense logits, so no select)."""
+    from repro_torch import prng
+    from repro_torch.core.block_loop import SamplerSpec, _top1_loop
+    cfg, params = _reduced_params(cuda, dtype)
+    P, G, B = 8, 16, 4
+    spec = SamplerSpec(prompt_len=P, gen_len=G, block_size=B,
+                       temperature=0.5, fused_select=True)
+    prompts = torch.randint(2, cfg.vocab_size - 1, (3, P), device=cuda,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(1))
+    got = {}
+    for graphs in (None, False):
+        got[graphs] = _counted(lambda: _top1_loop(
+            params, prompts, cfg=cfg, spec=spec, record_hidden=True,
+            key=prng.key(5, cuda), graphs=graphs))
+    (res_g, fat_g, hid_g), counts_g = got[None]
+    (res_e, fat_e, hid_e), counts_e = got[False]
+    assert torch.equal(res_g.tokens, res_e.tokens)
+    assert torch.equal(fat_g, fat_e) and torch.equal(hid_g, hid_e)
+    assert counts_g == counts_e == [0, 0, G * cfg.n_layers, 0, 0, 0]

@@ -1,10 +1,10 @@
 """The continuous engine's device state for the CUDA graphs of its block
 decode, on the CPU: every static buffer (canvases, the dense cache or the
 paged pools, the device page table, the per-lane ``starts``, ``live``,
-``taus`` and ``active``) keeps its address across warmup, admission,
+``taus``, ``temps``, ``keys`` and ``active``) keeps its address across warmup, admission,
 eviction, abort, preemption and successive ``generate()`` calls; the
-refinement iteration and the commit forward, the two captured callables,
-read nothing from the host; and a graph is refused off CUDA. The graphs
+refinement iteration (each of its variants) and the commit forward, the
+captured callables, read nothing from the host; and a graph is refused off CUDA. The graphs
 themselves run only on a card (``tests/test_torch_cuda.py``); the parity of
 the engine that the graphs replay is held against the JAX engine by
 ``tests/test_torch_serving.py`` and ``tests/test_torch_paged.py``."""
@@ -17,7 +17,11 @@ from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import ServeConfig, get_config  # noqa: E402
 from repro_torch.core import cache as C  # noqa: E402
 from repro_torch.core.block_loop import SamplerSpec, _top1_loop  # noqa: E402
-from repro_torch.serving import ContinuousEngine, Request  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ContinuousEngine,
+    Request,
+    SamplingParams,
+)
 
 torch.set_num_threads(2)
 
@@ -59,7 +63,8 @@ def _addresses(eng):
     st = eng._state
     out = {"tokens": st.tokens.data_ptr(), "starts": st.starts_t.data_ptr(),
            "live": st.live_t.data_ptr(), "taus": st.taus_t.data_ptr(),
-           "active": st.active_t.data_ptr()}
+           "active": st.active_t.data_ptr(), "temps": st.temps_t.data_ptr(),
+           "keys": st.keys_t.data_ptr()}
     if eng.paged:
         slots = st.cache.slots
         out["table"] = st.cache.device_table().data_ptr()
@@ -141,6 +146,36 @@ def test_captured_steps_read_nothing_from_the_host(params, layout,
     assert not (st.tokens[:, :P] != before[:, :P]).any()
     assert emissions[0]["k"].shape == (CFG.n_periods, 2, B, CFG.n_kv_heads,
                                        CFG.head_dim)
+
+
+@pytest.mark.parametrize("variant", ["dense", "sampled"])
+def test_every_iteration_variant_reads_nothing_from_the_host(
+        params, variant, monkeypatch):
+    """The dense-logits greedy and the sampled iterations (an engine
+    without fused select, a greedy and a sampled lane) run on device state
+    alone too; the sampled one advances the active lanes' keys in
+    place."""
+    serve = ServeConfig(max_batch=2, block_size=B, gen_length=G,
+                        conf_threshold=0.5, scheduler="continuous")
+    eng = ContinuousEngine(params, CFG, serve, prompt_len=P, device="cpu")
+    sps = [None, SamplingParams(temperature=0.8, seed=4)]
+    for r, sp in zip(_trace()[::2][:2], sps):
+        r.params = sp
+        eng.add_request(r)
+    eng.step()
+    st = eng._state
+    eng._write_block_inputs(st, P + st.blk * B, st.live.copy())
+    before, keys = st.tokens.clone(), st.keys_t.clone()
+    with monkeypatch.context() as m:
+        m.setattr(torch, "from_numpy", _refuse)
+        for name in ("cpu", "numpy", "item", "tolist", "__bool__",
+                     "__int__", "__float__"):
+            m.setattr(torch.Tensor, name, _refuse)
+        eng._refine(variant)
+    assert (st.tokens != before).any(-1).all()
+    assert torch.equal(st.keys_t != keys,
+                       torch.full_like(keys, variant == "sampled",
+                                       dtype=torch.bool))
 
 
 def test_graphs_need_cuda(params):

@@ -405,7 +405,7 @@ def test_serve_cli_paged_prints_the_pool_line(capsys):
     serve.main(["--reduced", "--device", "cpu", "--prompt-len", "8",
                 "--gen-length", "8", "--block-size", "4", "--requests", "3",
                 "--batch", "2", "--cache-layout", "paged", "--pool-pages",
-                "4"])
+                "4", "--scheduler", "continuous"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2].startswith("cdlm/continuous: TPS=")
     assert lines[-1].startswith("page pool: ") and "/4 pages" in lines[-1]

@@ -2,7 +2,9 @@
 trace and one set of params: identical tokens, steps, gen_length and
 finish_reason per request, and the same number of forward passes. Then the
 port's own serving invariants: mid-flight eviction is exact, max_tokens
-caps, abort, stream reassembly, greedy-only and device rules."""
+caps, abort, stream reassembly, the greedy-only rule of a fused_select
+engine, the dense-logits decode against the JAX engine, and device
+rules."""
 import numpy as np
 import pytest
 
@@ -163,22 +165,49 @@ def test_stream_reassembles_to_generate(params):
 
 
 def test_sampled_requests_are_refused(params):
+    """The JAX package's rule: a ``fused_select`` engine is greedy-only. It
+    refuses a per-request temperature > 0 at ``add_request`` and a sampled
+    engine default at construction; an engine without ``fused_select``
+    (the default ``ServeConfig``) takes both."""
     eng = _engine(params)
-    with pytest.raises(ValueError, match="greedy"):
+    with pytest.raises(ValueError, match="greedy requests only"):
         eng.add_request(Request(prompt=np.zeros(P, np.int32),
                                 params=SamplingParams(temperature=0.7)))
-    with pytest.raises(ValueError, match="greedy"):
-        ContinuousEngine(params, CFG, ServeConfig(temperature=0.5),
+    with pytest.raises(ValueError, match="greedy-only"):
+        ContinuousEngine(params, CFG, ServeConfig(temperature=0.5,
+                                                  fused_select=True),
                          prompt_len=P, device="cpu")
+    dense = ContinuousEngine(params, CFG, ServeConfig(), prompt_len=P,
+                             device="cpu")
+    dense.add_request(Request(prompt=np.zeros(P, np.int32),
+                              params=SamplingParams(temperature=0.7)))
+    ContinuousEngine(params, CFG, ServeConfig(temperature=0.5), prompt_len=P,
+                     device="cpu")
 
 
-def test_engine_decodes_through_the_fused_select_only(params):
-    """The dense-logits decode path is not ported: the engine refuses it
-    rather than run an unchecked second path."""
-    with pytest.raises(ValueError, match="fused_select=True"):
-        ContinuousEngine(params, CFG, ServeConfig(
-            max_batch=2, block_size=B, gen_length=G, scheduler="continuous"),
-            prompt_len=P, device="cpu")
+def test_engine_decodes_through_the_fused_select_only(params, tree):
+    """With ``fused_select=False`` the engine decodes greedily through the
+    dense logits, as the JAX engine does with the same setting: the trace
+    gives the JAX engine's tokens, steps, gen_length, finish_reason and
+    call count."""
+    def serve(cls):
+        return cls(max_batch=2, block_size=B, gen_length=G,
+                   conf_threshold=TAU, scheduler="continuous",
+                   fused_select=False)
+    jeng = JaxEngine(jax.tree_util.tree_map(jax.numpy.asarray, tree), JCFG,
+                     serve(JaxServeConfig), prompt_len=P)
+    want = _by_id(jeng.generate(_trace(JaxRequest, JaxSamplingParams)))
+    eng = ContinuousEngine(params, CFG, serve(ServeConfig), prompt_len=P,
+                           device="cpu")
+    got = _by_id(eng.generate(_trace(Request, SamplingParams)))
+    assert sorted(got) == sorted(want)
+    for rid, w in want.items():
+        np.testing.assert_array_equal(got[rid].tokens, np.asarray(w.tokens),
+                                      rid)
+        assert (got[rid].steps, got[rid].gen_length,
+                got[rid].finish_reason) == (w.steps, w.gen_length,
+                                            w.finish_reason), rid
+    assert eng.call_counts()["total"] == int(jeng._state.calls)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(params):
@@ -241,6 +270,7 @@ def test_serve_cli_runs_on_cpu(capsys):
     from repro_torch.launch import serve
     serve.main(["--reduced", "--device", "cpu", "--prompt-len", "8",
                 "--gen-length", "8", "--block-size", "4", "--requests", "3",
-                "--batch", "2", "--fused-select"])
+                "--batch", "2", "--fused-select", "--scheduler",
+                "continuous"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("cdlm/continuous: TPS=") and "gen_len=" in line

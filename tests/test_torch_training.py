@@ -4,8 +4,8 @@ pure counterparts: ``mask_tokens_from``, ``training_pair``, the DLM draws,
 the LoRA tree): masking, every loss, the trajectory state algebra, the
 forward's ``logits_slice`` and ``remat``, the three training losses with
 their gradients (``jax.value_and_grad`` of the reference), one AdamW
-update, the LoRA merge, checkpoints both ways, the greedy collector, the
-train CLI, and the refusal of the attention kernels under autograd.
+update, the LoRA merge, checkpoints both ways, the collector (greedy, and
+at the augmentation temperatures (0.0, 0.5)), the train CLI, and the refusal of the attention kernels under autograd.
 
 Limits: loss values within 1e-5 (fp32, sums in another order); gradients
 within 1e-4 of each leaf's max|grad|; collected tokens and step indices
@@ -628,15 +628,35 @@ def test_collector_step_replays_the_trajectory(fused):
                    1e-5)
 
 
-def test_sampled_collection_is_refused():
+@pytest.mark.parametrize("fused", [False, True], ids=["logits", "fused"])
+def test_sampled_collection_is_refused(fused):
+    """Collection at the paper's augmentation ``temperatures=(0.0, 0.5)``,
+    once refused, now runs, and equals the JAX collector's from one key:
+    the key split once per temperature, the sampled trajectories drawn
+    from the reference's stream. Tokens and step indices exactly, the
+    hidden buffer within 1e-4."""
     jcfg, cfg = _configs()
-    params = params_from_jax(_np_params(jcfg), cfg, "cpu")
+    tree = _np_params(jcfg)
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(2, cfg.vocab_size - 1, (3, P))
+    gt = rng.integers(2, cfg.vocab_size - 1, (3, G))
+    jcdlm = JaxCDLM(block_size=B, gen_length=G, prompt_length=P,
+                    temperatures=(0.0, 0.5))
     cdlm = CDLMConfig(block_size=B, gen_length=G, prompt_length=P,
                       temperatures=(0.0, 0.5))
-    prompts = torch.zeros((1, P), dtype=torch.int64)
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        traj.collect(params, prompts, torch.zeros((1, G), dtype=torch.int64),
-                     cfg=cfg, cdlm=cdlm)
+    key = jax.random.PRNGKey(11)
+    want = jtraj.collect(_jax(tree), jnp.asarray(prompts), jnp.asarray(gt),
+                         cfg=jcfg, cdlm=jcdlm, key=key)
+    got = traj.collect(params_from_jax(tree, cfg, "cpu"), _t(prompts),
+                       _t(gt), cfg=cfg, cdlm=cdlm,
+                       key=_t(np.asarray(key)), fused_select=fused)
+    for k in ("prompt", "gt", "final", "finalized_at"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    # the sampled half differs from the greedy half
+    assert not np.array_equal(got["final"][:3].numpy(),
+                              got["final"][3:].numpy())
+    _close(got["hidden"], want["hidden"], 1e-4)
 
 
 # ---------------------------------------------------------------------------
