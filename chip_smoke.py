@@ -28,7 +28,12 @@ Phases, each timed, any failure raises and exits non-zero:
    a float64 oracle, its backward twice bit for bit; block
    attention and select also at the trajectory collector's shapes (block
    attention timed there too), select's candidates and confidences also
-   against a float64 oracle;
+   against a float64 oracle; phase 7's shapes: decode attention at one
+   query row per lane (the AR step; qwen2-0.5b's and dream-7b's head
+   layouts, caches of 576 rows filled to 512..575, bf16 timed, fp32),
+   block attention over fast_dllm's canvas (b=8, L=576, bidirectional)
+   and over ar's causal prefill (b=8, L=512), both timed against masked
+   SDPA, and both modes at fp32;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -77,7 +82,21 @@ Phases, each timed, any failure raises and exits non-zero:
    loopback port over (b)'s graph engine, a greedy and a seeded sampled
    completion streamed and not, equal to the eager engine's ``generate``,
    ``/healthz`` and ``/metrics``; (e) phase 5's collection shape at
-   temperature 0.5 through the forward's graph and eagerly, bit for bit.
+   temperature 0.5 through the forward's graph and eagerly, bit for bit;
+7. the paper's four baseline decoders: (a) ``fast_dllm``, ``dual_cache``,
+   ``interval_cache`` and ``ar`` at full width through the static engine
+   (eager), 8 of phase 3's prompts, G=64, block 32, tau 0.9, greedy,
+   fused select, bf16: tokens/s, mean latency, steps and calls of each,
+   the calls and every kernel's launches held to each decoder's
+   accounting (fast_dllm: the iterations; dual_cache: 1 + (blocks - 1) +
+   the iterations; interval_cache: 1 + the iterations; ar: 1 + G); (b)
+   each of them at fp32 (2 lanes, P=64) with the kernels and with their
+   plain versions passed through ``run_block_loop(attention_fns=...)``:
+   tokens, steps and calls equal (a divergence accepted only at a
+   near-tie, found by a lockstep replay and printed with its gap); (c)
+   ``interval_cache`` at a refresh interval of 1 against ``fast_dllm``,
+   and ``ar`` against a plain greedy loop that re-runs a causal
+   full-prefix forward at each step, equal or at a near-tie.
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -859,6 +878,15 @@ def phase_kernels(torch, dev):
                         name=f"{name} split edge {dtype}")
             check_nan_residue(torch, dev, **edges, dtype=dtype, page=8,
                               name=f"{name} NaN residue {dtype}")
+    # the AR step (phase 7): one query row per lane (Bq G = 7 folded rows of
+    # a 64-row tile), caches of 576 rows filled to 512..575
+    lens_ar = [512, 513, 527, 544, 559, 560, 574, 575]
+    for name, kv, hd in (("qwen2-0.5b", 2, 64), ("dream-7b", 4, 128)):
+        for dtype in ("bfloat16", "float32"):
+            check_decode(torch, dev, b=8, Bq=1, Kv=kv, G=7, hd=hd, S=576,
+                         lens=lens_ar, dtype=dtype,
+                         timed=dtype == "bfloat16",
+                         name=f"{name} AR step Bq=1 {dtype}")
     small = dict(b=2, Bq=8, Kv=2, G=2, hd=64, S=64, lens=[5, 40])
     for check in (check_decode, check_paged):
         check(torch, dev, **small, dtype="float32", softcap=5.0,
@@ -893,6 +921,17 @@ def phase_kernels(torch, dev):
         torch, dev, b=4, L=384, Kv=2, G=7, hd=64, dtype="bfloat16",
         mode="bidirectional", prompt_len=128, block_size=32, timed=True,
         name="qwen2-0.5b collector")
+    # phase 7's full-sequence forwards: fast_dllm's canvas every iteration
+    # and the approx refreshes (8 lanes, P=512 + G=64, bidirectional), ar's
+    # prompt prefill (8 lanes, 512 tokens, causal)
+    check_block(torch, dev, b=8, L=576, Kv=2, G=7, hd=64, dtype="bfloat16",
+                mode="bidirectional", prompt_len=512, block_size=32,
+                timed=True, name="qwen2-0.5b canvas L=576")
+    check_block(torch, dev, b=8, L=512, Kv=2, G=7, hd=64, dtype="bfloat16",
+                mode="causal", timed=True, name="qwen2-0.5b causal prefill")
+    for mode, L in (("bidirectional", 576), ("causal", 512)):
+        check_block(torch, dev, b=2, L=L, Kv=2, G=7, hd=64, dtype="float32",
+                    mode=mode, name=f"{mode} L={L} float32")
     main["fused_select"] = check_select(
         torch, dev, T=256, d=896, V=151_936, dtype="bfloat16", scale=0.02,
         timed=True, name="qwen2-0.5b tied")
@@ -2133,6 +2172,358 @@ def phase_sampled(torch, dev, ctx):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's four baseline decoders
+# ---------------------------------------------------------------------------
+BASELINES = ("fast_dllm", "dual_cache", "interval_cache", "ar")
+BASELINE_GEN = 64           # (a)'s generation: 2 blocks of 32
+PATHS_P = 64                # (b) and (c): prompt, lanes (fp32)
+PATHS_LANES = 2
+
+
+def baseline_launches(cfg, name, iters, spec):
+    """What each kernel launched in one batch of decoder ``name``, from its
+    ``iters`` refinement iterations (fused select: one select each): the
+    block attention once per layer and full-sequence forward, the decode
+    attention once per layer and AR step, the select once per iteration;
+    and the call accounting each decoder must keep. interval_cache's
+    in-loop refreshes are known exactly when every block ran B iterations
+    (else only that there was the first). Returns (want launches or None
+    per kernel, want calls)."""
+    Lyr, B, R, nb, G = (cfg.n_layers, spec.block_size,
+                        spec.cache_refresh_interval, spec.n_blocks,
+                        spec.gen_len)
+    if name == "ar":
+        return ({"decode_attention": Lyr * G, "fused_select": 0,
+                 "block_attention": Lyr}, 1 + G)
+    full = {"fast_dllm": iters, "dual_cache": nb,
+            "interval_cache": (1 + nb * (B // R) if iters == nb * B
+                               else None)}[name]
+    want_calls = {"fast_dllm": iters, "dual_cache": nb + iters,
+                  "interval_cache": 1 + iters}[name]
+    return ({"decode_attention": 0, "fused_select": iters,
+             "block_attention": None if full is None else Lyr * full},
+            want_calls)
+
+
+def check_baseline_serving(torch, dev, ctx):
+    """(a) The four decoders at full width through the static engine: the
+    first 8 prompts of phase 3 (P=512), G=64, block 32, tau 0.9, greedy,
+    fused select, bf16. Launches counted from 0 around ``generate``: they
+    and the calls hold each decoder's accounting. Returns (records,
+    summed launches)."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, Request
+    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    recs, total = [], {}
+    for name in BASELINES:
+        serve = dataclasses.replace(ctx["serve"], gen_length=BASELINE_GEN,
+                                    scheduler="static", sampler=name,
+                                    fused_select=True)
+        eng = Engine(ctx["params"], cfg, serve, prompt_len=P, device=dev)
+        eng.warmup()
+        reqs = [Request(prompt=ctx["prompts"][i], id=i) for i in range(8)]
+        outs, wall, counts = serve_counted(torch, dev, eng, reqs)
+        calls = eng.call_counts()["total"]
+        iters = counts["fused_select"]
+        want, want_calls = baseline_launches(cfg, name, iters, eng.spec)
+        bad = {k: (counts[k], v) for k, v in want.items()
+               if v is not None and counts[k] != v}
+        if name == "interval_cache" and want["block_attention"] is None \
+                and counts["block_attention"] < cfg.n_layers:
+            bad["block_attention"] = (counts["block_attention"],
+                                      ">= layers")
+        if bad or calls != want_calls or counts["paged_decode_attention"] \
+                or counts["xent_forward"] or counts["xent_backward"]:
+            raise AssertionError(f"{name}: launches {counts} / calls "
+                                 f"{calls} against the accounting {want}, "
+                                 f"{want_calls}: {bad}")
+        for rid, o in outs.items():
+            if (np.any(o.tokens[:o.gen_length] == cfg.mask_token_id)
+                    or not 1 <= o.steps <= BASELINE_GEN
+                    or (name != "ar" and o.steps > iters)):
+                raise AssertionError(f"{name}: request {rid} steps "
+                                     f"{o.steps}, mask token left")
+        tokens = sum(o.gen_length for o in outs.values())
+        recs.append({"decoder": name, "tokens": tokens, "wall_s": wall,
+                     "tps": tokens / wall,
+                     "mean_latency_s": float(np.mean(
+                         [o.latency_s for o in outs.values()])),
+                     "mean_steps": float(np.mean(
+                         [o.steps for o in outs.values()])),
+                     "calls": calls, "iterations": iters,
+                     "launches": counts})
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    log(json.dumps({"phase": "baseline serving", "config": "qwen2-0.5b",
+                    "dtype": "bfloat16", "engine": "static, eager",
+                    "requests": 8, "prompt_len": P, "gen": BASELINE_GEN,
+                    "block": B, "tau": 0.9, "fused_select": True,
+                    "decoders": recs}))
+    return recs, total
+
+
+def _route_logits(torch, params, cfg, spec, policy, fns, tokens, blk, it,
+                  cache):
+    """The block logits of one threshold iteration under ``policy`` (none
+    or approx), as ``core/block_loop.py::_threshold_loop`` takes them: its
+    refreshes into ``cache`` first, then ``_block_forward``."""
+    from repro_torch.core.block_loop import (
+        STRATEGIES,
+        _block_forward,
+        _refresh_cache,
+    )
+    P, B, R = spec.prompt_len, spec.block_size, spec.cache_refresh_interval
+    if (policy == "approx-dual" and blk > 0 and it == 0) or (
+            policy == "approx-interval" and it % R == R - 1):
+        _refresh_cache(params, tokens, cache, cfg=cfg, spec=spec, fns=fns)
+    strategy = next(s for s in STRATEGIES.values()
+                    if s.cache_policy == policy and s.finalize == "threshold")
+    return _block_forward(params, tokens, P + blk * B, cache, cfg=cfg,
+                          spec=spec, strategy=strategy, fns=fns,
+                          return_hidden=False)[0]
+
+
+def lockstep_threshold(torch, params, cfg, spec, prompts, routes):
+    """Two greedy threshold decodes ``routes`` ((policy, attention_fns,
+    refresh interval) each) replayed iteration by iteration on one shared
+    canvas: the first iteration whose finalized tokens differ, with the
+    gap at that decision (the top-2 logit gap of a token that differs,
+    else the relative confidence gap of a position that one route took
+    and the other did not: to tau, or, where no position reached tau, to
+    the other most confident position), or None if the replay never
+    diverges."""
+    import dataclasses
+
+    from repro_torch.core import cache as C
+    from repro_torch.core import diffusion as D
+    from repro_torch.core.block_loop import _refresh_cache, init_canvas
+    tokens = init_canvas(prompts, spec, cfg)
+    b, T = tokens.shape
+    P, B, tau = spec.prompt_len, spec.block_size, spec.conf_threshold
+    specs, caches = [], []
+    for policy, fns, R in routes:
+        rs = dataclasses.replace(spec, cache_refresh_interval=R)
+        cache = None
+        if policy != "none":
+            cache = C.init_cache(cfg, b, T, device=tokens.device)
+            _refresh_cache(params, tokens, cache, cfg=cfg, spec=rs, fns=fns)
+        specs.append(rs)
+        caches.append(cache)
+    whole = torch.ones((1, B), dtype=torch.bool, device=tokens.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=tokens.device)
+    for blk in range(spec.n_blocks):
+        start = P + blk * B
+        for it in range(B):
+            bt = tokens[:, start:start + B]
+            active = (bt == cfg.mask_token_id).any(-1) & ~done
+            if not bool(active.any()):
+                break
+            picks = []
+            for (policy, fns, _), rs, cache in zip(routes, specs, caches):
+                lg = _route_logits(torch, params, cfg, rs, policy, fns,
+                                   tokens, blk, it, cache)
+                cand, conf = D.confidence_and_candidates(
+                    lg, bt, cfg.mask_token_id)
+                sel = D.select_threshold_in_block(conf, whole, tau) & \
+                    active[:, None]
+                picks.append((lg, cand, conf, sel,
+                              torch.where(sel, cand.to(bt.dtype), bt)))
+            (lg, cand, conf, sel, new), (_, cand2, _, sel2, new2) = picks
+            if not torch.equal(new, new2):
+                if not torch.equal(sel, sel2):
+                    lane = int((sel != sel2).any(-1).nonzero()[0])
+                    pos = int((sel[lane] != sel2[lane]).nonzero()[0])
+                    c = conf[lane].double()
+                    gap = abs(float(c[pos]) - tau) / tau
+                    top2 = c.topk(2).values
+                    if top2[0] < tau:    # the forced pick decided it
+                        gap = min(gap, float(top2[0] - top2[1])
+                                  / float(top2[0]))
+                    kind = "relative confidence gap"
+                else:
+                    lane, pos = [int(x) for x in
+                                 ((cand != cand2) & sel).nonzero()[0]]
+                    t2 = lg[lane, pos].double().topk(2).values
+                    gap, kind = float(t2[0] - t2[1]), "top-2 logit gap"
+                return {"block": blk, "iteration": it, "lane": lane,
+                        "position": start + pos, "kind": kind, "gap": gap}
+            tokens[:, start:start + B] = new
+        if spec.early_stop:
+            done |= (tokens[:, start:start + B] == cfg.eos_token_id).any(-1)
+    return None
+
+
+def greedy_full_recompute(torch, params, cfg, prompts, G):
+    """The plain AR reference: at each step a causal forward over the whole
+    prefix (the generic attention, no cache), the argmax of its last row
+    (EOS once a lane is done), as the greedy-next loop decides."""
+    from repro_torch.core import masks
+    from repro_torch.models import forward
+    tokens = prompts.clone()
+    b = tokens.shape[0]
+    done = torch.zeros((b,), dtype=torch.bool, device=tokens.device)
+    eos = torch.full((b,), cfg.eos_token_id, dtype=tokens.dtype,
+                     device=tokens.device)
+    with torch.no_grad():
+        for _ in range(G):
+            L = tokens.shape[1]
+            lg = forward(params, tokens, cfg=cfg, device=tokens.device,
+                         mode=masks.CAUSAL, logits_slice=(L - 1, L)).logits
+            nxt = torch.where(done, eos, lg[:, -1].argmax(-1).to(
+                tokens.dtype))
+            done |= nxt == eos
+            tokens = torch.cat([tokens, nxt[:, None]], 1)
+    return tokens
+
+
+def ar_divergence(torch, params, cfg, a, b, P):
+    """The first position where AR canvases ``a`` and ``b`` differ, with
+    the top-2 logit gap of a plain causal forward over their common
+    prefix there, or None if they are equal."""
+    from repro_torch.core import masks
+    from repro_torch.models import forward
+    diff = (a != b).nonzero()
+    if diff.numel() == 0:
+        return None
+    lanes_pos = diff[diff[:, 1].argsort(stable=True)]
+    lane, pos = [int(x) for x in lanes_pos[0]]
+    with torch.no_grad():
+        lg = forward(params, a[lane:lane + 1, :pos], cfg=cfg,
+                     device=a.device, mode=masks.CAUSAL,
+                     logits_slice=(pos - 1, pos)).logits[0, -1]
+    t2 = lg.double().topk(2).values
+    return {"lane": lane, "position": pos, "step": pos - P,
+            "kind": "top-2 logit gap", "gap": float(t2[0] - t2[1])}
+
+
+def _equal_results(torch, x, y):
+    return (torch.equal(x.tokens, y.tokens)
+            and torch.equal(x.steps, y.steps)
+            and x.n_model_calls == y.n_model_calls
+            and torch.equal(x.gen_lengths, y.gen_lengths))
+
+
+def _judge(what, divergence):
+    """A divergence is accepted only at a near-tie; logged either way."""
+    if divergence is None:
+        raise AssertionError(f"{what}: the decodes differ, but the "
+                             "lockstep replay finds no differing decision")
+    log(f"{what}: diverges at {json.dumps(divergence)}")
+    if divergence["gap"] >= NEAR_TIE:
+        raise AssertionError(f"{what}: diverges away from a near-tie")
+
+
+def check_baseline_paths(torch, dev, ctx):
+    """(b) Each decoder at fp32 (2 lanes, P=64, G=64, block 32, greedy,
+    dense logits) with the kernels and with their plain versions, named
+    through ``run_block_loop``'s ``attention_fns``: tokens, steps, calls
+    and gen_lengths equal (a divergence only at a near-tie, found by a
+    lockstep replay and printed with its gap); the plain runs launch no
+    kernel. (c) interval_cache at R=1 against fast_dllm (a refresh before
+    every forward makes the stale cache exact: equal, or a near-tie), and
+    ar against a plain greedy loop that re-runs a causal full-prefix
+    forward at each step."""
+    import dataclasses
+
+    from repro_torch.core.block_loop import (
+        KERNELS as KF,
+        PLAIN,
+        STRATEGIES,
+        SamplerSpec,
+        run_block_loop,
+    )
+    # the caches the loops allocate take the config's dtype
+    cfg = dataclasses.replace(ctx["cfg"], dtype="float32")
+    params = _random_params(torch, cfg, dev, "float32")
+    prompts = torch.as_tensor(ctx["prompts"][:PATHS_LANES, :PATHS_P],
+                              device=dev)
+    spec = SamplerSpec(prompt_len=PATHS_P, gen_len=BASELINE_GEN,
+                       block_size=ctx["B"], conf_threshold=0.9)
+    rec = {"phase": "baseline paths", "config": "qwen2-0.5b",
+           "dtype": "float32", "lanes": PATHS_LANES, "prompt_len": PATHS_P,
+           "gen": BASELINE_GEN, "kernel_vs_plain": {}, "cross_checks": {}}
+    runs = {}
+    for name in BASELINES:
+        got = {}
+        for path, fns in (("kernel", KF), ("plain", PLAIN)):
+            zero_counts()
+            got[path] = run_block_loop(params, prompts, cfg=cfg, spec=spec,
+                                       strategy=STRATEGIES[name],
+                                       attention_fns=fns)
+            torch.cuda.synchronize(dev)
+            got[path + "_launches"] = read_counts()
+        if any(got["plain_launches"].values()) or not \
+                got["kernel_launches"]["block_attention"] or (
+                    name == "ar"
+                    and not got["kernel_launches"]["decode_attention"]):
+            raise AssertionError(f"{name}: launches kernel "
+                                 f"{got['kernel_launches']}, plain "
+                                 f"{got['plain_launches']}")
+        equal = _equal_results(torch, got["kernel"], got["plain"])
+        divergence = None
+        if not equal:
+            if name == "ar":
+                divergence = ar_divergence(torch, params, cfg,
+                                           got["kernel"].tokens,
+                                           got["plain"].tokens, PATHS_P)
+            else:
+                policy = STRATEGIES[name].cache_policy
+                divergence = lockstep_threshold(
+                    torch, params, cfg, spec, prompts,
+                    [(policy, KF, spec.cache_refresh_interval),
+                     (policy, PLAIN, spec.cache_refresh_interval)])
+            _judge(f"{name} kernel vs plain", divergence)
+        runs[name] = got["kernel"]
+        rec["kernel_vs_plain"][name] = {
+            "equal": equal, "divergence": divergence,
+            "calls": got["kernel"].n_model_calls,
+            "mean_steps": float(got["kernel"].steps.float().mean()),
+            "kernel_launches": got["kernel_launches"]}
+    # (c) interval_cache at R=1 against fast_dllm
+    r1 = run_block_loop(params, prompts, cfg=cfg,
+                        spec=dataclasses.replace(spec,
+                                                 cache_refresh_interval=1),
+                        strategy=STRATEGIES["interval_cache"])
+    fast = runs["fast_dllm"]
+    equal = (torch.equal(r1.tokens, fast.tokens)
+             and torch.equal(r1.steps, fast.steps))
+    divergence = None
+    if not equal:
+        divergence = lockstep_threshold(
+            torch, params, cfg, spec, prompts,
+            [("approx-interval", KF, 1), ("none", KF, 1)])
+        _judge("interval_cache R=1 vs fast_dllm", divergence)
+    rec["cross_checks"]["interval_cache R=1 == fast_dllm"] = {
+        "equal": equal, "divergence": divergence,
+        "calls": [r1.n_model_calls, fast.n_model_calls]}
+    # (c) ar against the full-recompute greedy loop
+    want = greedy_full_recompute(torch, params, cfg, prompts, BASELINE_GEN)
+    got = runs["ar"].tokens
+    divergence = ar_divergence(torch, params, cfg, got, want, PATHS_P)
+    if divergence is not None:
+        _judge("ar vs full-recompute greedy", divergence)
+    rec["cross_checks"]["ar == full-recompute greedy"] = {
+        "equal": divergence is None, "divergence": divergence}
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_baselines(torch, dev, ctx):
+    """Phase 7: (a) the four baseline decoders served at full width, (b)
+    their kernel paths against their plain paths, (c) the cross-checks.
+    Returns the launches of (a), the main-path runs."""
+    t = time.perf_counter()
+    _, launches = check_baseline_serving(torch, dev, ctx)
+    log(f"phase 7a (baseline serving): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    check_baseline_paths(torch, dev, ctx)
+    log(f"phase 7b-c (kernel vs plain, cross-checks): "
+        f"{time.perf_counter() - t:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2181,10 +2572,14 @@ def main():
     t = time.perf_counter()
     sampled_launches = phase_sampled(torch, dev, ctx)
     log(f"phase 6 (sampled serving, HTTP): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    phase7_launches = phase_baselines(torch, dev, ctx)
+    log(f"phase 7 (baseline decoders): {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     # launches: summed over the main-path runs (phase 3, both runs of phase
-    # 3b, phase 5 and phase 6's), each counted from 0
+    # 3b, phase 5, phase 6's and phase 7a's), each counted from 0
     sources = {"decode_attention": (DECODE_SRC, DECODE_TPU),
                "fused_select": (SELECT_SRC, SELECT_TPU),
                "paged_decode_attention": (DECODE_SRC, PAGED_TPU),
@@ -2201,7 +2596,8 @@ def main():
     for name in KERNELS:
         rec = main_recs[name]
         launches = (ctx["launches"][name] + paged_launches[name]
-                    + train_launches[name] + sampled_launches[name])
+                    + train_launches[name] + sampled_launches[name]
+                    + phase7_launches[name])
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the main path")
         src, tpu = sources[name]

@@ -1,27 +1,36 @@
 """The block-decode loop (paper §4.3), ported from the JAX package's
 ``core/block_loop.py``: the sampler spec, the decode strategies, the
 canvas, the generation length, the per-lane block forward that the
-continuous engine is built on, the top-1 loop of the teacher decode (Alg.
-1's trajectory collector) and the threshold loop of the CDLM student's
-exact-commit decode, each greedy or sampled, and :func:`run_block_loop`
-over them.
+continuous engine is built on, and the loops of the paper's six decoders
+(Tables 1-2), each greedy or sampled where the reference's is:
 
-Of the JAX package's six strategies two are ported, ``vanilla`` (top-1,
-full recompute) and ``cdlm`` (threshold, exact block-causal cache with a
-commit pass, on the dense or the paged layout); the others are declared
-and refused by :func:`run_block_loop` (ROADMAP Queue 1 item 9).
+- the top-1 loop (``vanilla``: full recompute, one token a step; also
+  Alg. 1's trajectory collector);
+- the threshold loop under its four cache policies: ``none``
+  (``fast_dllm``: a full-canvas forward every iteration), ``approx-dual``
+  and ``approx-interval`` (``dual_cache``, ``interval_cache``: a stale
+  whole-canvas cache refreshed at block starts or every
+  ``cache_refresh_interval`` iterations) and ``exact-commit`` (``cdlm``:
+  the exact block-causal cache with a commit pass, dense or paged);
+- the greedy-next loop (``ar``: a causal prefill, then one cached token a
+  step).
+
+:func:`run_block_loop` dispatches over them. Its ``attention_fns`` name
+the attention of every forward (default: the CUDA kernels' wrappers).
 
 Sampled decoding draws from the reference's threefry streams
 (:mod:`repro_torch.prng`), split in the reference's order, so its tokens
 are the JAX package's. A scalar-temperature draw is shaped like the
 reference's canvas logits ``(b, T, V)``; the port hashes the active
-block's counters of that draw only (the selection reads nothing else).
-The loops run eagerly with one host read per iteration (the reference's
-``while_loop`` condition), apart from the collector's CUDA graph."""
+block's counters of that draw only (the selection reads nothing else),
+and computes the lm_head over the active block only. The loops run
+eagerly with one host read per iteration (the reference's ``while_loop``
+condition; none in the greedy-next loop), apart from the collector's CUDA
+graph."""
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -34,10 +43,12 @@ from repro_torch.core import cache as C
 from repro_torch.core import diffusion as D
 from repro_torch.core import masks
 from repro_torch.kernels.block_attn import flash_block_attention
+from repro_torch.kernels.block_attn import ref as block_ref
 from repro_torch.kernels.decode_attn import (
     decode_attention,
     paged_decode_attention,
 )
+from repro_torch.kernels.decode_attn import ref as decode_ref
 from repro_torch.models import forward, unembed_matrix
 
 
@@ -49,6 +60,8 @@ class SamplerSpec:
     conf_threshold: float = 0.9
     temperature: float = 0.0
     early_stop: bool = True
+    # approx-interval: refresh the stale cache every R iterations of a block
+    cache_refresh_interval: int = 8
     # KV memory layout of the exact-commit policy (core.cache.CACHE_LAYOUTS)
     cache_layout: str = "dense"
     # Route greedy candidate selection through the fused unembed + select
@@ -117,8 +130,27 @@ STRATEGIES = {
     "ar": DecodeStrategy("ar", masks.CAUSAL, "ar", "greedy-next"),
 }
 
-#: (cache policy, finalize rule) pairs the port runs.
-PORTED = {("none", "top1"), ("exact-commit", "threshold")}
+#: (cache policy, finalize rule) pairs the port runs: the six decoders'.
+PORTED = {(s.cache_policy, s.finalize) for s in STRATEGIES.values()}
+
+
+class AttentionFns(NamedTuple):
+    """The attention of every forward of a decode: ``prefill`` for
+    full-sequence forwards (prompt prefill, full-canvas recompute, cache
+    refresh), ``decode`` and ``paged_decode`` for cached forwards on a
+    dense and a paged cache. :data:`KERNELS` (the default) are the CUDA
+    kernels' wrappers; :data:`PLAIN` their plain PyTorch versions, which
+    a caller names to hold a decode's kernel path against its plain one.
+    A cached forward under a ``cache_valid`` mask (the approx policies)
+    takes the generic attention either way, as in the reference."""
+    prefill: Callable = flash_block_attention
+    decode: Callable = decode_attention
+    paged_decode: Callable = paged_decode_attention
+
+
+KERNELS = AttentionFns()
+PLAIN = AttentionFns(block_ref.block_attention, decode_ref.decode_attention,
+                     decode_ref.paged_decode_attention)
 
 
 def init_canvas(prompt_tokens: torch.Tensor, spec: SamplerSpec,
@@ -203,22 +235,24 @@ def _canvas_draw(logits, tokens, start: int, T: int, temperature: float,
 
 
 def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
-              spec: SamplerSpec, w=None, key=None):
+              spec: SamplerSpec, w=None, key=None,
+              prefill_fn=flash_block_attention):
     """One step of the top-1 loop before its selection: a bidirectional
     forward over the whole canvases ``tokens`` (b, P+G), then the
     candidates, their confidences and the post-norm hidden states of the
     block at canvas coordinate ``start``, each (b, B[, d]). With
-    ``spec.fused_select`` the forward runs through the block attention
-    kernel (``w``: the (V, d) unembedding); otherwise through the generic
-    attention, as the JAX collector does. Greedy selection then goes
-    through the fused select kernel (``spec.fused_select``) or the block's
-    logits; a sampled step (``spec.temperature > 0`` and ``key``) draws
-    from the block's logits as the reference draws over the canvas. Call
-    it under ``torch.no_grad()``."""
+    ``spec.fused_select`` the forward runs through ``prefill_fn`` (the
+    block attention kernel; ``w``: the (V, d) unembedding); otherwise
+    through the generic attention, as the JAX collector does. Greedy
+    selection then goes through the fused select kernel
+    (``spec.fused_select``) or the block's logits; a sampled step
+    (``spec.temperature > 0`` and ``key``) draws from the block's logits
+    as the reference draws over the canvas. Call it under
+    ``torch.no_grad()``."""
     B = spec.block_size
     if spec.fused_select:
         return _fused_pick(_canvas_hidden(params, tokens, cfg=cfg,
-                                          spec=spec),
+                                          spec=spec, prefill_fn=prefill_fn),
                            tokens, start, cfg=cfg, spec=spec, w=w, key=key)
     out = forward(params, tokens, cfg=cfg, device=tokens.device,
                   mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
@@ -233,14 +267,15 @@ def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
     return cand, conf, out.hidden[:, start:start + B]
 
 
-def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec):
+def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec,
+                   prefill_fn=flash_block_attention):
     """The fused top-1 step's forward: post-norm hidden states (b, P+G, d)
-    of the whole canvases, bidirectional, through the block attention
-    kernel (the collector captures it as a CUDA graph)."""
+    of the whole canvases, bidirectional, through ``prefill_fn`` (the block
+    attention kernel; the collector captures it as a CUDA graph)."""
     return forward(params, tokens, cfg=cfg, device=tokens.device,
                    mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
                    block_size=spec.block_size, return_logits=False,
-                   prefill_attention_fn=flash_block_attention).hidden
+                   prefill_attention_fn=prefill_fn).hidden
 
 
 def _fused_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
@@ -263,7 +298,8 @@ def _fused_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
 
 
 def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
-               record_hidden: bool, key=None, graphs: Optional[bool] = None):
+               record_hidden: bool, key=None, graphs: Optional[bool] = None,
+               fns: AttentionFns = KERNELS):
     """N = G steps, one most-confident token finalized per step, each step a
     bidirectional forward over the whole canvas (the ``vanilla`` strategy,
     :func:`top1_step`). Runs under ``torch.no_grad()``. ``key`` (default
@@ -302,8 +338,8 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
         if graphable and graphs is not False:
             # the canvas is written in place below: the graph reads it at
             # its fixed address
-            graph = GR.Graph(lambda: _canvas_hidden(params, tokens, cfg=cfg,
-                                                    spec=spec))
+            graph = GR.Graph(lambda: _canvas_hidden(
+                params, tokens, cfg=cfg, spec=spec, prefill_fn=fns.prefill))
         step = 0
         for blk in range(spec.n_blocks):
             start = P + blk * B
@@ -314,7 +350,8 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                 if graph is None:
                     cand, conf, hidden = top1_step(params, tokens, start,
                                                    cfg=cfg, spec=spec, w=w,
-                                                   key=sub)
+                                                   key=sub,
+                                                   prefill_fn=fns.prefill)
                 else:
                     full = graph.warm if step == 0 else graph.replay()
                     cand, conf, hidden = _fused_pick(full, tokens, start,
@@ -341,7 +378,7 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
 
 
 # ---------------------------------------------------------------------------
-# Finalization family: threshold (the CDLM student, exact-commit)
+# Finalization family: threshold (Fast-dLLM, the cache baselines, CDLM)
 # ---------------------------------------------------------------------------
 def _finalize(tokens, start: int, cand, conf, tau, active) -> None:
     """The threshold rule in block coordinates: the active lanes' positions
@@ -447,27 +484,98 @@ def _init_exact_cache(cfg: ModelConfig, b: int, S: int, spec: SamplerSpec,
     return paged
 
 
+def _refresh_cache(params, tokens, kv_cache, *, cfg: ModelConfig,
+                   spec: SamplerSpec, fns: AttentionFns) -> None:
+    """The approx policies' refresh: a bidirectional forward over the whole
+    canvases through ``fns.prefill``, every row's KV committed at offset 0
+    (in place). Only the emissions are read, so the lm_head is skipped."""
+    out = forward(params, tokens, cfg=cfg, device=tokens.device,
+                  mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
+                  block_size=spec.block_size, return_logits=False,
+                  prefill_attention_fn=fns.prefill)
+    C.commit(kv_cache, out.emissions, 0)
+
+
+def _block_pos_mask(T: int, start: int, size: int, device) -> torch.Tensor:
+    pos = torch.arange(T, device=device)
+    return (pos >= start) & (pos < start + size)
+
+
+def _block_forward(params, tokens, start: int, kv_cache, *,
+                   cfg: ModelConfig, spec: SamplerSpec,
+                   strategy: DecodeStrategy, fns: AttentionFns,
+                   return_hidden: bool):
+    """The forward of one threshold iteration for the block at canvas
+    coordinate ``start`` under ``strategy.cache_policy``: ``(the block's
+    post-norm hidden (b, B, d) with return_hidden, else its logits (b, B,
+    V); emissions)``. ``none``: the whole canvases through
+    ``fns.prefill``, the lm_head over the block only; the approx
+    policies: the block against the stale cache with the block's own rows
+    invalid (``cache_valid``, the generic attention); ``exact-commit``:
+    the block against the exact cache through the layout's decode
+    attention."""
+    policy, B, dev = strategy.cache_policy, spec.block_size, tokens.device
+    if policy == "exact-commit":
+        starts = torch.full((tokens.shape[0],), start, dtype=torch.int64,
+                            device=dev)
+        return lane_block_forward(params, tokens, starts, kv_cache, cfg=cfg,
+                                  spec=spec, return_hidden=return_hidden,
+                                  decode_attention_fn=fns.decode,
+                                  paged_decode_attention_fn=fns.paged_decode)
+    if policy == "none":
+        out = forward(params, tokens, cfg=cfg, device=dev,
+                      mode=strategy.attn_mode, prompt_len=spec.prompt_len,
+                      block_size=B, prefill_attention_fn=fns.prefill,
+                      logits_slice=(start, start + B),
+                      return_logits=not return_hidden)
+        return ((out.hidden[:, start:start + B] if return_hidden
+                 else out.logits), out.emissions)
+    out = forward(params, tokens[:, start:start + B], cfg=cfg, device=dev,
+                  mode=strategy.attn_mode, prompt_len=spec.prompt_len,
+                  block_size=B, positions=start + torch.arange(B, device=dev),
+                  cache=kv_cache, cache_len=start,
+                  cache_valid=~_block_pos_mask(tokens.shape[1], start, B,
+                                               dev),
+                  return_logits=not return_hidden)
+    return out.hidden if return_hidden else out.logits, out.emissions
+
+
 def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
                     spec: SamplerSpec, strategy: DecodeStrategy, key,
                     lane_params: Optional[LaneParams] = None,
-                    lane_sampled: bool = False) -> SampleResult:
-    """The exact-commit threshold loop: the prompt prefilled block-causally
-    through the block attention kernel and committed, then per block the
-    refinement iterations (each a cached forward of the block through the
-    layout's decode attention kernel and the threshold rule) while a
-    running lane holds a mask token in it and fewer than B ran, then the
-    commit pass. One host read per iteration (the reference's
-    ``while_loop`` condition).
+                    lane_sampled: bool = False,
+                    fns: AttentionFns = KERNELS) -> SampleResult:
+    """The threshold loop: per block the refinement iterations (each a
+    forward and the threshold rule) while a running lane holds a mask
+    token in the block and fewer than B ran. One host read per iteration
+    (the reference's ``while_loop`` condition). The forward of an
+    iteration, by ``strategy.cache_policy``:
+
+    - ``none`` (``fast_dllm``): the whole canvases through ``fns.prefill``,
+      no cache, no prefill; the lm_head over the active block only;
+    - ``approx-dual``, ``approx-interval``: the block against a dense
+      whole-canvas cache, stale everywhere but the block (``cache_valid``,
+      the generic attention), filled by one refresh before the first block
+      (:func:`_refresh_cache`; one call). ``approx-dual`` refreshes at
+      every later block's start (one call each), ``approx-interval``
+      before the iterations ``it`` with ``it % R == R - 1`` (R =
+      ``spec.cache_refresh_interval``; counted as no call, as in the
+      reference);
+    - ``exact-commit`` (``cdlm``): the prompt prefilled block-causally
+      through ``fns.prefill`` and committed, the block against the exact
+      cache through the layout's decode attention, and a commit pass at
+      the block's end.
 
     Selection as in the reference: per-lane params (``lane_params``) in
     block coordinates with per-lane streams (``lane_sampled``: some lane
     draws, so the forwards carry logits); scalar greedy in block
     coordinates (through the fused select kernel with
     ``spec.fused_select``); scalar sampled with the canvas-shaped draw."""
+    policy = strategy.cache_policy
     with torch.no_grad():
         tokens = init_canvas(prompt_tokens, spec, cfg)
         b, T = tokens.shape
-        P, B = spec.prompt_len, spec.block_size
+        P, B, R = spec.prompt_len, spec.block_size, spec.cache_refresh_interval
         dev = tokens.device
         lanes = lane_params is not None
         blockwise = True if lanes else spec.temperature <= 0
@@ -476,23 +584,34 @@ def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
         key_state = lane_params.key if lanes else key
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         steps = torch.zeros((b,), dtype=torch.int32, device=dev)
-        kv_cache = _init_exact_cache(cfg, b, T, spec, dev)
-        out = forward(params, tokens[:, :P], cfg=cfg, device=dev,
-                      mode=strategy.attn_mode, prompt_len=P, block_size=B,
-                      return_logits=False,
-                      prefill_attention_fn=flash_block_attention)
-        _commit_any(kv_cache, out.emissions, 0, b)
-        calls = 1
+        kv_cache, calls = None, 0
+        if policy == "exact-commit":
+            kv_cache = _init_exact_cache(cfg, b, T, spec, dev)
+            out = forward(params, tokens[:, :P], cfg=cfg, device=dev,
+                          mode=strategy.attn_mode, prompt_len=P,
+                          block_size=B, return_logits=False,
+                          prefill_attention_fn=fns.prefill)
+            _commit_any(kv_cache, out.emissions, 0, b)
+            calls = 1
+        elif policy != "none":
+            kv_cache = C.init_cache(cfg, b, T, device=dev)
+            _refresh_cache(params, tokens, kv_cache, cfg=cfg, spec=spec,
+                           fns=fns)
+            calls = 1
+
         for blk in range(spec.n_blocks):
             start = P + blk * B
-            starts = torch.full((b,), start, dtype=torch.int64, device=dev)
 
             def block_out(return_hidden):
-                return lane_block_forward(
-                    params, tokens, starts, kv_cache, cfg=cfg, spec=spec,
-                    return_hidden=return_hidden)
+                return _block_forward(params, tokens, start, kv_cache,
+                                      cfg=cfg, spec=spec, strategy=strategy,
+                                      fns=fns, return_hidden=return_hidden)
 
-            for _ in range(B):
+            if policy == "approx-dual" and blk > 0:
+                _refresh_cache(params, tokens, kv_cache, cfg=cfg, spec=spec,
+                               fns=fns)
+                calls += 1
+            for it in range(B):
                 masked = (tokens[:, start:start + B]
                           == cfg.mask_token_id).any(-1)
                 active = masked & ~done
@@ -502,6 +621,9 @@ def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
                     key_state, sub = D.split_lane_keys(key_state, active)
                 else:
                     key_state, sub = prng.split(key_state)
+                if policy == "approx-interval" and it % R == R - 1:
+                    _refresh_cache(params, tokens, kv_cache, cfg=cfg,
+                                   spec=spec, fns=fns)
                 net, _ = block_out(fused)
                 if lanes:
                     _threshold_lane_update(params, cfg, spec, tokens, net,
@@ -515,10 +637,11 @@ def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
                                       active)
                 steps += active.to(torch.int32)
                 calls += 1
-            # commit pass: recompute the finalized block's KV exactly
-            _, emissions = block_out(True)
-            _commit_any(kv_cache, emissions, start, b)
-            calls += 1
+            if policy == "exact-commit":
+                # commit pass: recompute the finalized block's KV exactly
+                _, emissions = block_out(True)
+                _commit_any(kv_cache, emissions, start, b)
+                calls += 1
             if spec.early_stop:
                 eos = (lane_params.eos_id[:, None] if lanes
                        else cfg.eos_token_id)
@@ -529,12 +652,60 @@ def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
                                              else None)))
 
 
+# ---------------------------------------------------------------------------
+# Finalization family: greedy-next (the AR baseline)
+# ---------------------------------------------------------------------------
+def _greedy_next_loop(params, prompt_tokens, *, cfg: ModelConfig,
+                      spec: SamplerSpec, strategy: DecodeStrategy,
+                      fns: AttentionFns = KERNELS) -> SampleResult:
+    """Autoregressive greedy decode with a KV cache: the prompt prefilled
+    under ``strategy.attn_mode`` (causal) through ``fns.prefill`` and
+    committed, the logits of its last row only; then ``gen_len`` steps,
+    each the argmax of the last logits (first occurrence; EOS once a lane
+    is done), one cached forward of that token through ``fns.decode`` and
+    its KV committed. ``steps`` counts a lane's steps before its EOS,
+    ``calls`` is ``1 + gen_len`` (the reference's ``fori_loop``, which also
+    runs the last step's forward); ``spec.early_stop`` changes nothing,
+    as in the reference. No host read."""
+    with torch.no_grad():
+        tokens = init_canvas(prompt_tokens, spec, cfg)
+        b, T = tokens.shape
+        P = spec.prompt_len
+        dev = tokens.device
+        kv_cache = C.init_cache(cfg, b, T, device=dev)
+        out = forward(params, tokens[:, :P], cfg=cfg, device=dev,
+                      mode=strategy.attn_mode,
+                      prefill_attention_fn=fns.prefill,
+                      logits_slice=(P - 1, P))
+        C.commit(kv_cache, out.emissions, 0)
+        last = out.logits[:, -1]
+        eos = torch.full((b,), cfg.eos_token_id, dtype=tokens.dtype,
+                         device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        steps = torch.zeros((b,), dtype=torch.int32, device=dev)
+        for i in range(spec.gen_len):
+            pos = P + i
+            nxt = torch.where(done, eos, torch.argmax(last, -1).to(
+                tokens.dtype))
+            tokens[:, pos] = nxt
+            steps += (~done).to(torch.int32)
+            done |= nxt == eos
+            out = forward(params, nxt[:, None], cfg=cfg, device=dev,
+                          mode=strategy.attn_mode, cache=kv_cache,
+                          cache_len=pos, decode_attention_fn=fns.decode)
+            C.commit(kv_cache, out.emissions, pos)
+            last = out.logits[:, -1]
+    return SampleResult(tokens, steps, 1 + spec.gen_len,
+                        _gen_lengths(tokens, spec, cfg))
+
+
 def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
                    spec: SamplerSpec, strategy: DecodeStrategy, key=None,
                    record_hidden: bool = False,
                    lane_params: Optional[LaneParams] = None,
                    lane_sampled: bool = False,
-                   graphs: Optional[bool] = None):
+                   graphs: Optional[bool] = None,
+                   attention_fns: AttentionFns = KERNELS):
     """Decode ``prompt_tokens`` (b, P) with ``strategy`` over the block
     grid; returns :class:`SampleResult`, with ``record_hidden`` (top-1
     only) also the trajectory encoding ``(finalized_at, hidden)``.
@@ -542,8 +713,10 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
     ``key`` (default ``PRNGKey(0)``) is the scalar path's stream;
     ``lane_params`` switches the threshold loop to per-lane params, with
     ``lane_sampled`` set when some lane draws. ``graphs`` is the top-1
-    loop's (:func:`_top1_loop`). Strategies whose policy is not ported
-    raise."""
+    loop's (:func:`_top1_loop`). ``attention_fns`` is the attention of
+    every forward (:class:`AttentionFns`; default the CUDA kernels',
+    :data:`PLAIN` the plain versions). A strategy whose (cache policy,
+    finalize rule) pair is none of :data:`STRATEGIES`' raises."""
     if lane_params is not None and strategy.finalize != "threshold":
         raise ValueError(
             "per-request sampling params (lane_params) require a "
@@ -553,7 +726,8 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
         raise ValueError(
             f"cache_layout={spec.cache_layout!r} requires the 'exact-commit' "
             f"cache policy (strategy {strategy.name!r} uses "
-            f"{strategy.cache_policy!r})")
+            f"{strategy.cache_policy!r}); approx/ar policies rewrite "
+            "whole-canvas KV, so paging buys nothing")
     if record_hidden and strategy.finalize != "top1":
         raise ValueError("record_hidden requires the 'top1' finalize rule "
                          f"(strategy {strategy.name!r} uses "
@@ -561,15 +735,18 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
     if (strategy.cache_policy, strategy.finalize) not in PORTED:
         raise ValueError(
             f"strategy {strategy.name!r} ({strategy.cache_policy!r} cache, "
-            f"{strategy.finalize!r} finalize) is not ported yet: ROADMAP "
-            "Queue 1 item 9")
+            f"{strategy.finalize!r} finalize) is none of the six decoders "
+            f"(block_loop.STRATEGIES: {', '.join(STRATEGIES)})")
     key = (prng.key(0, prompt_tokens.device) if key is None
            else key.to(prompt_tokens.device))
     if strategy.finalize == "top1":
         return _top1_loop(params, prompt_tokens, cfg=cfg, spec=spec,
                           record_hidden=record_hidden, key=key,
-                          graphs=graphs)
-    return _threshold_loop(params, prompt_tokens, cfg=cfg, spec=spec,
-                           strategy=strategy, key=key,
-                           lane_params=lane_params,
-                           lane_sampled=lane_sampled)
+                          graphs=graphs, fns=attention_fns)
+    if strategy.finalize == "threshold":
+        return _threshold_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                               strategy=strategy, key=key,
+                               lane_params=lane_params,
+                               lane_sampled=lane_sampled, fns=attention_fns)
+    return _greedy_next_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                             strategy=strategy, fns=attention_fns)

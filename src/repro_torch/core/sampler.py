@@ -1,13 +1,24 @@
-"""Decoders of the port, as the JAX package's ``core/sampler.py`` names
-them: thin :class:`~repro_torch.core.block_loop.DecodeStrategy`
-declarations over :func:`~repro_torch.core.block_loop.run_block_loop`.
+"""The paper's six decoders (Tables 1-2), as the JAX package's
+``core/sampler.py`` names them: thin
+:class:`~repro_torch.core.block_loop.DecodeStrategy` declarations over
+:func:`~repro_torch.core.block_loop.run_block_loop`.
 
-Ported: ``vanilla`` (the teacher decode, also the Alg. 1 trajectory
-collector) and ``cdlm`` (the student's exact-commit decode), greedy and
-sampled. The other four names of the reference's table are not in
-:data:`SAMPLERS`, and ``run_block_loop`` refuses their strategies (ROADMAP
-Queue 1 item 9). Every sampler returns ``SampleResult(tokens, steps,
-n_model_calls, gen_lengths)``.
+====================  ===============  ================  ============
+sampler               attn_mode        cache_policy      finalize
+====================  ===============  ================  ============
+``vanilla``           bidirectional    none              top1
+``fast_dllm``         bidirectional    none              threshold
+``dual_cache``        bidirectional    approx-dual       threshold
+``interval_cache``    bidirectional    approx-interval   threshold
+``cdlm``              block_causal     exact-commit      threshold
+``ar``                causal           ar                greedy-next
+====================  ===============  ================  ============
+
+The threshold decoders decode greedy or sampled, ``vanilla`` too; ``ar``
+is greedy. Every sampler returns ``SampleResult(tokens, steps,
+n_model_calls, gen_lengths)``: ``steps`` counts refinement iterations per
+sequence (the paper's "Total Steps"), ``n_model_calls`` forward passes,
+commit passes and counted cache refreshes included.
 """
 from __future__ import annotations
 
@@ -33,6 +44,29 @@ def vanilla_blockwise(params, prompt_tokens, *, cfg: ModelConfig,
                           record_hidden=record_hidden, graphs=graphs)
 
 
+def fast_dllm_parallel(params, prompt_tokens, *, cfg: ModelConfig,
+                       spec: SamplerSpec, key=None):
+    """Fast-dLLM (Parallel): threshold finalization, full recompute."""
+    return run_block_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          strategy=STRATEGIES["fast_dllm"], key=key)
+
+
+def dual_cache(params, prompt_tokens, *, cfg: ModelConfig,
+               spec: SamplerSpec, key=None):
+    """Fast-dLLM (Par.+D.C.): stale prefix/suffix KV refreshed at block
+    boundaries."""
+    return run_block_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          strategy=STRATEGIES["dual_cache"], key=key)
+
+
+def interval_cache(params, prompt_tokens, *, cfg: ModelConfig,
+                   spec: SamplerSpec, key=None):
+    """dLLM-Cache analog: stale KV refreshed every
+    ``spec.cache_refresh_interval`` steps."""
+    return run_block_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          strategy=STRATEGIES["interval_cache"], key=key)
+
+
 def cdlm(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
          key=None):
     """The paper's student: exact block-causal KV cache, threshold parallel
@@ -41,9 +75,19 @@ def cdlm(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                           strategy=STRATEGIES["cdlm"], key=key)
 
 
-#: The ported decoders; the reference's other four are declared in
-#: ``block_loop.STRATEGIES`` and refused (ROADMAP Queue 1 item 9).
+def ar(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
+       key=None):
+    """Autoregressive greedy decode with a KV cache (the AR baseline of
+    Fig. 3); ``key`` is taken for the common signature and not read."""
+    return run_block_loop(params, prompt_tokens, cfg=cfg, spec=spec,
+                          strategy=STRATEGIES["ar"], key=key)
+
+
 SAMPLERS = {
     "vanilla": vanilla_blockwise,
+    "fast_dllm": fast_dllm_parallel,
+    "dual_cache": dual_cache,
+    "interval_cache": interval_cache,
     "cdlm": cdlm,
+    "ar": ar,
 }

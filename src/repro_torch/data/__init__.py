@@ -5,4 +5,6 @@ from repro_torch.data.synthetic import (  # noqa: F401
     TaskSpec,
     answer_mask,
     sample_batch,
+    score,
+    verify,
 )

@@ -1,5 +1,6 @@
 """Synthetic reasoning corpora, a copy of the JAX package's
-``data/synthetic.py`` (what training needs of it).
+``data/synthetic.py`` (what training and the Tables 1-2 bench need of
+it).
 
 - ``sort``: prompt = <SORT> x_1..x_k <ASK>, answer = sorted(x) <EOS>.
 - ``add``:  prompt = <ADD> digits(a) <PLUS> digits(b) <ASK>,
@@ -72,6 +73,37 @@ def sample_batch(rng: np.random.Generator, spec: TaskSpec,
         raise ValueError(spec.name)
     return {"prompt": _pad(prompts, spec.prompt_len),
             "answer": _pad(answers, spec.gen_len)}
+
+
+def verify(prompt_row: np.ndarray, gen_row: np.ndarray,
+           spec: TaskSpec) -> bool:
+    """Exact-match scorer (the Tables 1-2 'Score' column at toy scale): the
+    generation up to its first EOS equals the sorted values or the sum's
+    digits."""
+    gen = list(gen_row)
+    ans = gen[:gen.index(EOS)] if EOS in gen else gen
+    p = list(prompt_row)
+    try:
+        if spec.name == "sort":
+            want = sorted(p[p.index(SORT_TAG) + 1:p.index(ASK)])
+        else:
+            plus, ask = p.index(PLUS), p.index(ASK)
+            a = int("".join(str(t - DIGIT0)
+                            for t in p[p.index(ADD_TAG) + 1:plus]))
+            b = int("".join(str(t - DIGIT0) for t in p[plus + 1:ask]))
+            want = [DIGIT0 + int(c) for c in str(a + b)]
+    except (ValueError, IndexError):
+        return False
+    return ans == want
+
+
+def score(prompts: np.ndarray, tokens: np.ndarray, prompt_len: int,
+          spec: TaskSpec) -> float:
+    """The share of rows whose generation (``tokens[:, prompt_len:]``)
+    :func:`verify` accepts."""
+    gens = np.asarray(tokens)[:, prompt_len:]
+    return float(np.mean([verify(p, g, spec)
+                          for p, g in zip(np.asarray(prompts), gens)]))
 
 
 def answer_mask(answers: np.ndarray) -> np.ndarray:

@@ -1,7 +1,10 @@
-"""Serving CLI of the port: CDLM decoding through the static or the
-continuous engine, on a local batch of requests or over HTTP.
+"""Serving CLI of the port: any of the paper's six decoders through the
+static engine, or CDLM decoding through the continuous one, on a local
+batch of requests or over HTTP.
 
     PYTHONPATH=src python -m repro_torch.launch.serve
+    PYTHONPATH=src python -m repro_torch.launch.serve --sampler ar \\
+        --reduced --device cpu --prompt-len 16 --gen-length 32 --block-size 8
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-0.5b \\
         --reduced --device cpu --prompt-len 16 --gen-length 32 --block-size 8
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -13,10 +16,10 @@ continuous engine, on a local batch of requests or over HTTP.
 Params come from ``--ckpt`` (an npz written by the JAX package's
 ``checkpoint/io.py``, converted by ``repro_torch.bridge``) or, without it,
 from a seeded random init on the device. Without ``--http``, prompts are
-random tokens drawn from ``--seed`` and the CLI prints one ``TPS=...
-latency=... steps=... gen_len=...`` line, as the JAX package's
-``launch/serve.py`` does, and on the continuous paged layout its ``page
-pool:`` occupancy line. With ``--http`` the engine is served by
+random tokens drawn from ``--seed`` and the CLI prints one
+``<sampler>/<scheduler>: TPS=... latency=... steps=... gen_len=...`` line,
+as the JAX package's ``launch/serve.py`` does, and on the continuous paged
+layout its ``page pool:`` occupancy line. With ``--http`` the engine is served by
 ``repro_torch.serving.server`` (``POST /v1/completions`` with SSE
 streaming, ``GET /healthz``, ``GET /metrics``) until interrupted; the
 first line printed names the bound address (``--port 0`` binds a free
@@ -41,6 +44,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default=None,
                     help="param dtype (default: the config's)")
+    ap.add_argument("--sampler", default="cdlm",
+                    choices=["vanilla", "fast_dllm", "dual_cache",
+                             "interval_cache", "cdlm", "ar"])
     ap.add_argument("--scheduler", default="static",
                     choices=["static", "continuous"],
                     help="continuous = slot-based block-level batching "
@@ -92,6 +98,7 @@ def main(argv=None):
         params = init_params(cfg, gen, dev, args.dtype)
     serve = ServeConfig(max_batch=args.batch, block_size=args.block_size,
                         gen_length=args.gen_length,
+                        sampler=args.sampler,
                         conf_threshold=args.threshold,
                         scheduler=args.scheduler,
                         cache_layout=args.cache_layout,
@@ -130,7 +137,7 @@ def main(argv=None):
     # wall-clock TPS is comparable across schedulers; latency_s is not
     # (compute share for static, arrival->completion for continuous)
     tps = sum(r.gen_length for r in resp) / wall if wall else 0.0
-    print(f"cdlm/{args.scheduler}: TPS={tps:.0f} "
+    print(f"{args.sampler}/{args.scheduler}: TPS={tps:.0f} "
           f"latency={rep['latency_s'] * 1e3:.1f}ms steps={rep['steps']:.1f} "
           f"gen_len={rep['gen_length']:.1f}  ({len(resp)} requests on "
           f"{dev})")

@@ -74,14 +74,17 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
     cache = ctx["cache_slot"]
     pages = ctx["pages"]
 
-    if (cache is not None and pages is not None
+    # a cache_valid mask (the approx cache policies: stale rows anywhere
+    # but the active block) takes the generic path, as in the reference
+    kernel_ok = ctx["cache_valid"] is None
+    if (cache is not None and pages is not None and kernel_ok
             and ctx["paged_decode_attention_fn"] is not None):
         # the paged decode attention kernel walks the page tables: no dense
         # view of the pool is built
         out = ctx["paged_decode_attention_fn"](
             q, cache["k"], cache["v"], k, v, pages, ctx["cache_lens"],
             scale=scale, softcap=cap, window=window).to(v.dtype)
-    elif (cache is not None and pages is None
+    elif (cache is not None and pages is None and kernel_ok
             and ctx["decode_attention_fn"] is not None):
         # the decode attention kernel: cache rows below each lane's
         # cache_len plus the fresh in-block keys, one online softmax
@@ -107,8 +110,10 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
             k_all = torch.cat([ck, k.to(ck.dtype)], dim=1)
             v_all = torch.cat([cv, v.to(cv.dtype)], dim=1)
             kv_pos = torch.cat([slots.expand(b, S), q_pos.expand(b, Lq)], 1)
+            cache_ok = (slots[None, :] < ctx["cache_lens"][:, None]
+                        if kernel_ok else ctx["cache_valid"].expand(b, S))
             kv_valid = torch.cat(
-                [slots[None, :] < ctx["cache_lens"][:, None],
+                [cache_ok,
                  torch.ones((b, Lq), dtype=torch.bool, device=x.device)], 1)
         else:
             k_all, v_all, kv_pos, kv_valid = k, v, q_pos, None
@@ -133,7 +138,7 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
 def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             mode: str = masks.BIDIRECTIONAL, prompt_len: int = 0,
             block_size: int = 1, positions=None, cache=None, cache_len=None,
-            use_long_window: bool = False,
+            cache_valid=None, use_long_window: bool = False,
             decode_attention_fn=None, paged_decode_attention_fn=None,
             prefill_attention_fn=None, remat: bool = False,
             logits_slice: Optional[Tuple[int, int]] = None,
@@ -145,6 +150,11 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     runs the cached block decode: query i of lane j sits at
     ``cache_len[j] + i`` unless ``positions`` ((L,) or (b, L)) says
     otherwise. A ``PagedCache`` is read as page pools through its tables.
+    ``cache_valid`` ((S,) bool), where given, says which cache rows the
+    queries see in place of ``slots < cache_len`` (the approx cache
+    policies: a stale cache whose only invalid rows are the active
+    block's); such a forward takes the generic attention, since one
+    ``cache_len`` per lane cannot express the mask.
 
     The attention of a forward is the generic masked attention unless a
     kernel is given: ``decode_attention_fn``
@@ -187,8 +197,12 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
         positions = base + torch.arange(Lq, device=dev)
     positions = torch.as_tensor(positions, device=dev)
 
+    if cache_valid is not None:
+        cache_valid = torch.as_tensor(cache_valid, dtype=torch.bool,
+                                      device=dev)
     ctx = dict(mode=mode, prompt_len=prompt_len, block_size=block_size,
                q_pos=positions, cache_lens=cache_lens, cache_slot=None,
+               cache_valid=cache_valid,
                pages=pages, use_long_window=use_long_window,
                decode_attention_fn=decode_attention_fn,
                paged_decode_attention_fn=paged_decode_attention_fn,

@@ -9,7 +9,7 @@ tokens are the JAX engine's and do not depend on its batch.
 
 - :class:`Engine`, **static batching**: up to ``max_batch`` queued
   requests are padded into one batch and decoded to completion by the
-  sampler (``core/sampler.py``: ``cdlm`` or ``vanilla``), eagerly; a
+  sampler (``core/sampler.py``: any of the six decoders), eagerly; a
   batch without explicit params takes the engine's scalar path and key
   chain (``PRNGKey(0)`` by default, split once per batch), one with them
   the per-lane path. ``step()`` emits the batch's block events at once.
@@ -219,12 +219,14 @@ def _check_params_device(params, device: torch.device) -> None:
 
 
 class Engine(_RequestStepper):
-    """Static fixed-shape batching over a ported sampler (``cdlm`` or
-    ``vanilla``). ``step()`` pops up to ``max_batch`` queued requests, pads
-    them into one batch, decodes it to completion and emits every block
-    event of the batch at once. The decode runs eagerly: its cached
-    forwards through the layout's decode attention kernel, its prompt
-    prefill through block attention, and, with ``fused_select``, greedy
+    """Static fixed-shape batching over any of the six samplers
+    (``core/sampler.py``). ``step()`` pops up to ``max_batch`` queued
+    requests, pads them into one batch, decodes it to completion and emits
+    every block event of the batch at once. The decode runs eagerly
+    through ``run_block_loop``: full-sequence forwards (prompt prefill,
+    full-canvas recompute, cache refresh) through the block attention
+    kernel, exact-cache and AR forwards through the decode attention
+    kernel, and, with ``fused_select``, greedy threshold and top-1
     selection through the select kernel. ``device`` defaults to the CUDA
     device; pass ``device="cpu"`` to run on the CPU (the kernels' plain
     versions)."""
@@ -232,10 +234,8 @@ class Engine(_RequestStepper):
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
                  prompt_len: int, *, device="cuda"):
         if serve.sampler not in SAMPLERS:
-            raise ValueError(
-                f"sampler {serve.sampler!r} is not ported yet: ROADMAP "
-                "Queue 1 item 9 (ported: "
-                f"{', '.join(sorted(SAMPLERS))})")
+            raise ValueError(f"unknown sampler {serve.sampler!r} (expected "
+                             f"one of {', '.join(SAMPLERS)})")
         if serve.page_pool_pages is not None:
             raise ValueError(
                 "page_pool_pages is only honored by the continuous "
@@ -251,8 +251,9 @@ class Engine(_RequestStepper):
         self.spec = SamplerSpec(
             prompt_len=prompt_len, gen_len=serve.gen_length,
             block_size=serve.block_size, conf_threshold=serve.conf_threshold,
-            temperature=serve.temperature, cache_layout=serve.cache_layout,
-            fused_select=serve.fused_select)
+            temperature=serve.temperature,
+            cache_refresh_interval=serve.cache_refresh_interval,
+            cache_layout=serve.cache_layout, fused_select=serve.fused_select)
         self._strategy = STRATEGIES[serve.sampler]
         self._next_id = 0
         self._reset()

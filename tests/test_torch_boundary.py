@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py`` or ``benchmarks/serve_smoke_torch.py``) imports JAX or anything of the JAX package ``repro``.
+``chip_smoke.py`` or the port's benches, ``benchmarks/*_torch.py``) imports
+JAX or anything of the JAX package ``repro``.
 Checked twice: every module imported in a fresh interpreter leaves no
 ``jax*`` / ``repro`` / ``repro.*`` entry in ``sys.modules``, and an AST scan
 finds no such import statement (``repro_torch`` shares the prefix, so the
@@ -53,8 +54,10 @@ def test_import_pulls_in_no_jax(imported, module):
     assert not leaked, leaked
 
 
-@pytest.mark.parametrize("path", FILES + [ROOT / "chip_smoke.py",
-                                  ROOT / "benchmarks" / "serve_smoke_torch.py"],
+@pytest.mark.parametrize("path", FILES + [ROOT / "chip_smoke.py"] + [
+    ROOT / "benchmarks" / f for f in ("serve_smoke_torch.py",
+                                      "common_torch.py",
+                                      "bench_main_results_torch.py")],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -61,6 +61,27 @@ def test_decode_attention_kernel_matches_plain(cuda, G, hd, window, softcap,
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,G,hd", [(2, 7, 64), (4, 7, 128)],
+                         ids=["qwen2-0.5b", "dream-7b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_one_query_row_matches_plain(cuda, Kv, G, hd,
+                                                         dtype):
+    """The AR step: one query row per lane (G folded rows of a 64-row
+    tile), caches of 576 rows filled to 512..575."""
+    gen = torch.Generator(device=cuda).manual_seed(Kv + hd)
+    b, Bq, S = 8, 1, 576
+    q = _randn(gen, b, Bq, Kv, G, hd).to(dtype)
+    kc, vc = (_randn(gen, 2, b, S, Kv, hd)[1].to(dtype) for _ in range(2))
+    kb, vb = (_randn(gen, b, Bq, Kv, hd).to(dtype) for _ in range(2))
+    lens = torch.tensor([512, 513, 527, 544, 559, 560, 574, 575],
+                        dtype=torch.int32, device=cuda)
+    got = decode_attention(q, kc, vc, kb, vb, lens, scale=hd ** -0.5)
+    want = dref.decode_attention(q, kc, vc, kb, vb, lens, scale=hd ** -0.5)
+    # both sides read the same inputs and accumulate in fp32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 def _paged_case(gen, dev, *, b, Bq, Kv, G, hd, page, n_t, lens, dtype):
     """Pools of 3 * b * n_t pages, each lane's pages scattered over them,
     -1 past each lane's length."""
@@ -264,6 +285,10 @@ def test_decode_kernel_reads_rows_that_are_not_16_byte_aligned(cuda):
     ("causal", 77, 4, 128, 0, 1, 9, 3.0, torch.bfloat16),
     ("block_causal", 512, 7, 64, 512, 32, None, None, torch.bfloat16),
     ("bidirectional", 384, 7, 64, 128, 32, None, None, torch.bfloat16),
+    # the baseline decoders' forwards: ar's causal prompt prefill, and
+    # fast_dllm's canvas (P=512 + G=64) every iteration
+    ("causal", 512, 7, 64, 0, 1, None, None, torch.bfloat16),
+    ("bidirectional", 576, 7, 64, 512, 32, None, None, torch.bfloat16),
 ])
 def test_block_attention_kernel_matches_plain(cuda, mode, L, G, hd, P, bs,
                                               window, softcap, dtype):
@@ -757,3 +782,39 @@ def test_graph_sampled_collection_equals_eager(cuda, dtype):
     assert torch.equal(res_g.tokens, res_e.tokens)
     assert torch.equal(fat_g, fat_e) and torch.equal(hid_g, hid_e)
     assert counts_g == counts_e == [0, 0, G * cfg.n_layers, 0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fast_dllm", "dual_cache",
+                                  "interval_cache", "ar"])
+def test_baseline_decoder_kernel_path_equals_plain(cuda, name):
+    """A baseline decoder at fp32 with the kernels and with their plain
+    versions (``run_block_loop(attention_fns=...)``): tokens, steps, calls
+    and gen_lengths equal; the plain run launches no attention kernel, the
+    kernel run the block attention (and, for ar, the decode attention)."""
+    from repro_torch.core.block_loop import (
+        KERNELS,
+        PLAIN,
+        STRATEGIES,
+        SamplerSpec,
+        run_block_loop,
+    )
+    cfg, params = _reduced_params(cuda)
+    spec = SamplerSpec(prompt_len=8, gen_len=16, block_size=8,
+                       conf_threshold=0.5, cache_refresh_interval=2,
+                       fused_select=True)
+    prompts = torch.randint(2, cfg.vocab_size - 1, (3, 8), device=cuda,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(2))
+    (kern, k_counts), (plain, p_counts) = (
+        _counted(lambda: run_block_loop(params, prompts, cfg=cfg, spec=spec,
+                                        strategy=STRATEGIES[name],
+                                        attention_fns=fns))
+        for fns in (KERNELS, PLAIN))
+    assert torch.equal(kern.tokens, plain.tokens)
+    assert torch.equal(kern.steps, plain.steps)
+    assert torch.equal(kern.gen_lengths, plain.gen_lengths)
+    assert kern.n_model_calls == plain.n_model_calls
+    # COUNTERS order: decode, paged decode, block attention, select, xent
+    assert p_counts[:3] == [0, 0, 0] and k_counts[2] > 0
+    assert (k_counts[0] > 0) == (name == "ar")

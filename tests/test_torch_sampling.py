@@ -193,14 +193,25 @@ def test_cdlm_per_lane_mixed_matches_jax(jparams, params, layout):
 @pytest.mark.parametrize("name", ["fast_dllm", "dual_cache",
                                   "interval_cache", "ar"])
 def test_unported_strategies_are_refused(params, name):
-    assert sorted(SAMPLERS) == ["cdlm", "vanilla"]
+    """The six decoders are ported, so what stays refused is a (cache
+    policy, finalize rule) pair that none of them declares: here the
+    decoder's policy under another decoder's rule. The decoder itself is
+    served."""
+    assert sorted(SAMPLERS) == sorted(TB.STRATEGIES)
     spec = TB.SamplerSpec(prompt_len=P, gen_len=G, block_size=B)
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    declared = TB.STRATEGIES[name]
+    rule = "top1" if declared.finalize != "top1" else "threshold"
+    if (declared.cache_policy, rule) in TB.PORTED:
+        rule = "greedy-next"
+    odd = TB.DecodeStrategy(f"{name}-{rule}", declared.attn_mode,
+                            declared.cache_policy, rule)
+    with pytest.raises(ValueError, match="none of the six decoders"):
         TB.run_block_loop(params, torch.as_tensor(_prompts(1)), cfg=CFG,
-                          spec=spec, strategy=TB.STRATEGIES[name])
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        Engine(params, CFG, _serve(ServeConfig, sampler=name), prompt_len=P,
-               device="cpu")
+                          spec=spec, strategy=odd)
+    eng = Engine(params, CFG, _serve(ServeConfig, sampler=name), prompt_len=P,
+                 device="cpu")
+    assert (eng.spec.cache_refresh_interval
+            == ServeConfig().cache_refresh_interval)
 
 
 # ---------------------------------------------------------------------------
