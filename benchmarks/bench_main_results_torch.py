@@ -23,6 +23,8 @@ beside its ratio to ``vanilla``, in two parts:
     python3 benchmarks/bench_main_results_torch.py            # the card
     python3 benchmarks/bench_main_results_torch.py --device cpu --toy
 
+Off the card part (a) is left out.
+
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -163,19 +165,41 @@ def toy(dev, records, smoke=False):
     return rows
 
 
+def run(csv_rows=None, *, device="cuda", smoke=False, toy_only=False,
+        records=None):
+    """(a) on the card (not with ``toy_only``; off the card it is left
+    out, with a note), then (b); the CSV rows of ``benchmarks/run_torch.py
+    all``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"device: {torch.cuda.get_device_name(dev)}")
+    records = [] if records is None else records
+    rows = []
+    if not toy_only:
+        if dev.type == "cuda":
+            rows += [(f"full/{k}", r) for k, r in full_width(dev, records)]
+        else:
+            print("part (a) serves qwen2-0.5b at full width on the card; "
+                  f"left out on {dev}")
+    rows += [(f"toy/{k}", r) for k, r in toy(dev, records, smoke=smoke)]
+    if csv_rows is not None:
+        for name, r in rows:
+            score = f";score={r['score']:.2f}" if "score" in r else ""
+            csv_rows.append((f"main_results/{name}", r["latency_s"] * 1e6,
+                             f"tps={r['tps']:.1f};steps={r['steps']:.1f};"
+                             f"calls={r['calls']}{score}"))
+    return csv_rows
+
+
 def main(argv=None):
     ap = common.make_parser(__doc__.split("\n")[0])
     ap.add_argument("--toy", action="store_true",
                     help="only (b), the toy half")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        print(f"device: {torch.cuda.get_device_name(dev)}")
     records = []
-    if not args.toy:
-        full_width(dev, records)
-    toy(dev, records, smoke=args.smoke)
+    run(device=args.device, smoke=args.smoke, toy_only=args.toy,
+        records=records)
     common.write_results(args.json, records)
     return 0
 

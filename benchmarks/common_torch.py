@@ -148,7 +148,11 @@ def get_dataset(teacher, smoke=False, verbose=False):
 
 
 def get_student(teacher=None, dataset=None, *, device="cuda", smoke=False,
-                weights=None, verbose=False):
+                weights=None, steps=None, cache_name="student.npz",
+                verbose=False):
+    """The CDLM student, trained for ``steps`` (STUDENT_STEPS by default)
+    under loss ``weights`` (w_distill, w_cons, w_dlm) and cached under
+    ``cache_name``."""
     def train(dev):
         t = teacher if teacher is not None else get_teacher(dev, smoke)
         ds = dataset if dataset is not None else get_dataset(t, smoke)
@@ -158,9 +162,54 @@ def get_student(teacher=None, dataset=None, *, device="cuda", smoke=False,
             cdlm = dataclasses.replace(CDLM_CFG, w_distill=wd, w_cons=wc,
                                        w_dlm=wm)
         return trainer.train_student(t, ds, CFG, cdlm,
-                                     _tcfg(STUDENT_STEPS, 5e-4, smoke),
+                                     _tcfg(steps or STUDENT_STEPS, 5e-4,
+                                           smoke),
                                      verbose=verbose)
-    return _cached("student.npz", device, smoke, train)
+    return _cached(cache_name, device, smoke, train)
+
+
+def poisson_trace(n=48, rate_hz=60.0, seed=0, short_frac=0.5,
+                  sampled_frac=0.0, *, prompts=None, block=None,
+                  gen_len=None):
+    """Serving-bench request trace, ``benchmarks/common.py::poisson_trace``
+    with its two numpy streams: Poisson arrivals, a ``short_frac`` share
+    capped at one block and the rest at the full ``gen_len``, and a
+    ``sampled_frac`` share carrying ``SamplingParams`` (temperature 0.7,
+    seed = the request's index) drawn from a stream of its own, so that the
+    arrivals and caps at a seed do not depend on ``sampled_frac``. The same
+    arguments give the JAX function's requests. By default the prompts are
+    the toy eval split's and the caps the toy's (block 5, gen 10); a
+    full-width bench passes its own ``prompts`` (n, P), ``block`` and
+    ``gen_len``."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    srng = np.random.default_rng(seed + 0x5EED)
+    if prompts is None:
+        prompts = corpus().eval_batch(n)["prompt"]
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_hz, n))
+    B = block or CDLM_CFG.block_size
+    G = gen_len or TASK.gen_len
+    reqs = []
+    for i in range(n):
+        mt = B if rng.random() < short_frac else G
+        sp = (SamplingParams(temperature=0.7, seed=i)
+              if srng.random() < sampled_frac else None)
+        reqs.append(Request(prompt=prompts[i], id=i, max_tokens=int(mt),
+                            arrival_s=float(arrivals[i]), params=sp))
+    return reqs
+
+
+def kv_page_bytes(cfg, page_size, dtype=None):
+    """KV bytes of one pool page (every attention slot and period, K and
+    V), read from the pools ``core/cache.py::init_paged_cache`` makes (on
+    the meta device: nothing is allocated)."""
+    from repro_torch.core import cache as C
+    paged = C.init_paged_cache(cfg, 1, page_size, n_pages=1,
+                               page_size=page_size, dtype=dtype,
+                               device="meta")
+    return sum(t.numel() * t.element_size()
+               for slot in paged.slots for k, t in slot.items()
+               if k in ("k", "v"))
 
 
 def eval_sampler(params, sampler_fn, *, n=64, conf_threshold=0.9,

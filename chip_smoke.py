@@ -96,7 +96,20 @@ Phases, each timed, any failure raises and exits non-zero:
    near-tie, found by a lockstep replay and printed with its gap); (c)
    ``interval_cache`` at a refresh interval of 1 against ``fast_dllm``,
    and ``ar`` against a plain greedy loop that re-runs a causal
-   full-prefix forward at each step, equal or at a near-tie.
+   full-prefix forward at each step, equal or at a near-tie;
+8. tuning and benches: (a) every entry of the cuda tuning table
+   (``kernels/tuned_configs_cuda.json``) for this card and every config
+   ``tuning.run_sweep`` would try at the main path's shapes, against the
+   plain versions: decode attention (dense and paged, bf16 and fp32)
+   within 1e-4 and dense == paged bit for bit under each split, select
+   within ``select_limits``, xent within 1e-4 and ``grad_limit``; graph ==
+   eager for the refinement iterations of one block under the table's
+   split and under each other candidate split; (b)
+   ``benchmarks/bench_serving_torch.py`` part (a) at full width with its
+   scheduler trace cut to SERVING_BENCH_REQUESTS requests (printed), its
+   records on a line of their own and its launches added to the summary;
+   (c) the H100 config of ``repro_torch.configs``, whose peaks every bound
+   reads, and its roofline ridge.
 
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -117,9 +130,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
-PEAK_OPS = {"bfloat16": 989e12,           # dense tensor-core bf16, FLOP/s
-            "float32": 67e12}             # fp32 outside the tensor cores
 DECODE_SRC = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 DECODE_TPU = "src/repro/kernels/decode_attn/decode_attn.py:93"
 SELECT_SRC = "src/repro_torch/kernels/select/csrc/select.cu"
@@ -216,10 +226,10 @@ def alternate(torch, plain, kernel, library, iters):
 
 
 def bound_ms(n_bytes, n_ops, dtype):
-    t_bytes = n_bytes / PEAK_BYTES
-    t_ops = n_ops / PEAK_OPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
-        "operations"
+    """(ms, "bytes" or "operations") on the H100 of ``repro_torch.configs``,
+    the one copy of the card's peaks."""
+    from repro_torch.roofline import bound_ms as bound
+    return bound(n_bytes, n_ops, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -395,10 +405,12 @@ def _paged_pool(torch, dev, kc, vc, lens, page, perm_gen):
 
 
 def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
-                softcap=None, window=None, timed=False, name=""):
+                softcap=None, window=None, timed=False, name="",
+                config=None):
     """The paged kernel against its plain version over a shuffled table with
     -1 tail entries, and bit for bit against the dense kernel on the same
-    contents (identity table, then the shuffled one)."""
+    contents (identity table, then the shuffled one). ``config``: the
+    ``tuning.KernelConfig`` both kernels launch with (None: the table's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import (
@@ -415,14 +427,15 @@ def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
     kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
     kp, vp, table = _paged_pool(torch, dev, kc, vc, cl, page, g)
-    got = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
+    got = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw,
+                                 config=config)
     want = dref.paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw)
-    dense = decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    dense = decode_attention(q, kc, vc, kb, vb, cl, **kw, config=config)
     ident = torch.arange(b * (S // page), dtype=torch.int32,
                          device=dev).reshape(b, S // page)
     same_ident = torch.equal(paged_decode_attention(
         q, kc.reshape(-1, page, Kv, hd), vc.reshape(-1, page, Kv, hd), kb,
-        vb, ident, cl, **kw), dense)
+        vb, ident, cl, **kw, config=config), dense)
     same_perm = torch.equal(got, dense)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
@@ -583,11 +596,13 @@ def select_f64(torch, h, w, chunk=8192):
 
 
 def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
-                 name=""):
+                 name="", config=None):
     """``scale`` sets W's spread: at 0.02 the logits spread about 0.6 and
     confidences sit near 1/V (as at random init); at 1 they spread about
     sqrt(d) and most rows are near-certain, as in a trained model, where
-    threshold finalization and the confidence comparison bite."""
+    threshold finalization and the confidence comparison bite. ``config``:
+    the ``tuning.KernelConfig`` the kernel launches with (None: the
+    table's)."""
     from repro_torch.kernels.select import fused_select
     from repro_torch.kernels.select import ref as sref
     dt = getattr(torch, dtype)
@@ -599,7 +614,7 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
     # row 0's maximum (a logit near 0.4 d scale, far above the spread); the
     # lower index must win
     w[1] = w[V - 7] = (h[0].float().sign() * scale / 2).to(dt)
-    got_c, got_f = fused_select(h, w, masked)
+    got_c, got_f = fused_select(h, w, masked, config=config)
     want_c, want_f = sref.select_streaming(h, w, masked)
     exact_c, exact_f = select_f64(torch, h, w)
     logits = h.float() @ w.float().t()
@@ -710,13 +725,15 @@ def xent_f64(torch, h, w, y, chunk=8192):
 
 
 def check_xent(torch, dev, *, T, d, V, dtype, scale=0.02, timed=False,
-               name=""):
+               name="", config=None):
     """The fused cross-entropy forward and backward against their plain
     versions (both read the same inputs and accumulate in fp32), the
     backward twice bit for bit. ``scale`` 1 leaves W unscaled: logits of
     std ~30, a nearly one-hot softmax, and every other row's target on its
     argmax, so dh_acc cancels against g W_y (a bf16 pair of probabilities
-    holds the gradient limit there, one bf16 rounding does not)."""
+    holds the gradient limit there, one bf16 rounding does not). ``config``:
+    the ``tuning.KernelConfig`` the kernels launch with (None: the
+    table's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import fused_xent
@@ -732,9 +749,9 @@ def check_xent(torch, dev, *, T, d, V, dtype, scale=0.02, timed=False,
         y[3::2] = (h.float() @ w.float().t()).argmax(-1)[3::2]
     g = torch.rand((T,), generator=gen, device=dev)
     g[::5] = 0.0                               # rows with g = 0 still count
-    loss, logz = xops._forward(h, w, y)
-    dh, dw = xops._backward(h, w, y, logz, g, True)
-    dh2, dw2 = xops._backward(h, w, y, logz, g, True)
+    loss, logz = xops._forward(h, w, y, config)
+    dh, dw = xops._backward(h, w, y, logz, g, True, config)
+    dh2, dw2 = xops._backward(h, w, y, logz, g, True, config)
     want, want_logz = xref.xent_streaming(h, w, y)
     want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
     oracle = xent_f64(torch, h, w, y)
@@ -760,7 +777,7 @@ def check_xent(torch, dev, *, T, d, V, dtype, scale=0.02, timed=False,
         raise AssertionError(f"xent {name}: two backward runs differ")
     rec = {"kernel": "xent", "case": name, "dtype": dtype,
            "shape": dict(T=T, d=d, V=V,
-                         backward_chunk=xops.backward_chunk(T, V)),
+                         backward_chunk=xops._knobs(h, V, config).bwd_chunk),
            "max_abs_err": err, "tol": tol, "max_abs_err_vs_f64": err_f64,
            "plain_max_abs_err_vs_f64": plain_f64, "dh_max_abs_err": err_h,
            "dw_max_abs_err": err_w, "backward_bitwise_repeatable": True}
@@ -1849,7 +1866,8 @@ def check_prng(torch, dev, cfg):
     n = logits.numel()
     rec = {"phase": "prng", "draw_shape": [8, *shape], "bits_equal": True,
            "split_equal": True, "gumbel_max_ulp": ulps,
-           "draw_ms": draw_ms, "draw_bytes_bound_ms": n * 4 / PEAK_BYTES * 1e3,
+           "draw_ms": draw_ms,
+           "draw_bytes_bound_ms": bound_ms(n * 4, 0, "float32")[0],
            "per_lane_select_sampled_ms": sel_ms,
            "per_lane_select_greedy_ms": greedy_ms}
     log(json.dumps(rec))
@@ -2524,6 +2542,208 @@ def phase_baselines(torch, dev, ctx):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: tuning and benches
+# ---------------------------------------------------------------------------
+SERVING_BENCH_REQUESTS = 16      # bench_serving_torch part (a) runs 48
+
+
+def main_path_candidates(torch, dev):
+    """(op, case, shape, dtype, config) of every config ``run_sweep`` would
+    try at the main path's shapes, fp32 too (its own rule's candidates),
+    and of every entry of the cuda table for this card at its own shape."""
+    from repro_torch.kernels import tuning
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for name, kv, g, hd in tuning.DECODE_SHAPES:
+        for bq in tuning.DECODE_BQ:
+            shape = dict(Kv=kv, rows=bq * g)
+            for cfg in tuning.candidates("decode_attn", **shape):
+                out.append(("decode_attn", f"{name} Bq={bq}",
+                            dict(name=name, Kv=kv, G=g, hd=hd, Bq=bq),
+                            "bfloat16", cfg))
+            out.append(("decode_attn", f"{name} Bq={bq}",
+                        dict(name=name, Kv=kv, G=g, hd=hd, Bq=bq),
+                        "float32", None))
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        sel = dict(T=tuning.SELECT_SHAPE["T"], V=151_936, n_sms=n_sms,
+                   dtype=dt)
+        for cfg in tuning.candidates("select", **sel):
+            out.append(("select", "qwen2-0.5b", dict(
+                T=sel["T"], d=tuning.SELECT_SHAPE["d"], V=sel["V"]), dtype,
+                cfg))
+        xs = dict(T=tuning.XENT_SHAPE["T"], V=tuning.XENT_SHAPE["V"],
+                  n_sms=n_sms, dtype=dt)
+        for cfg in tuning.candidates("xent", **xs):
+            out.append(("xent", "qwen2-0.5b", dict(
+                T=xs["T"], d=tuning.XENT_SHAPE["d"], V=xs["V"]), dtype, cfg))
+    here = tuning.backend(dev)
+    for (op, bucket, backend), e in sorted(tuning._load().items()):
+        if backend != here:
+            continue
+        cfg = tuning.KernelConfig.from_dict(e["config"])
+        sh = e["shape"]
+        if op == "decode_attn":
+            out.append((op, f"table {bucket}", dict(
+                name=bucket, Kv=sh["Kv"], G=sh["G"], hd=sh["hd"],
+                Bq=sh["Bq"]), "bfloat16", cfg))
+        else:
+            out.append((op, f"table {bucket}", dict(T=sh["T"], d=sh.get(
+                "d", 896), V=sh["V"]), "bfloat16", cfg))
+    return out
+
+
+def check_candidates(torch, dev):
+    """(a) Every candidate and table config against the plain version:
+    decode attention (dense and paged) within 1e-4 and dense == paged bit
+    for bit under each split, select within ``select_limits``, xent's loss
+    within 1e-4 and its gradients within ``grad_limit``."""
+    cases = main_path_candidates(torch, dev)
+    n = {}
+    for op, case, sh, dtype, cfg in cases:
+        knobs = cfg.to_dict() if cfg is not None else "fp32 route"
+        name = f"tuning {op} {case} {dtype} {knobs}"
+        if op == "decode_attn":
+            S = 768 if sh["Bq"] > 1 else 576
+            lens = ([0, 512, 536, 577, 608, 640, 700, 736] if sh["Bq"] > 1
+                    else [512, 513, 527, 544, 559, 560, 574, 575])
+            check_paged(torch, dev, b=8, Bq=sh["Bq"], Kv=sh["Kv"], G=sh["G"],
+                        hd=sh["hd"], S=S, lens=lens, dtype=dtype, name=name,
+                        config=cfg)
+        elif op == "select":
+            check_select(torch, dev, T=sh["T"], d=sh["d"], V=sh["V"],
+                         dtype=dtype, scale=0.02, name=name, config=cfg)
+        else:
+            check_xent(torch, dev, T=sh["T"], d=sh["d"], V=sh["V"],
+                       dtype=dtype, name=name, config=cfg)
+        n[op] = n.get(op, 0) + 1
+    return n
+
+
+def check_graph_under_splits(torch, dev, ctx):
+    """(a) Graph == eager for the refinement iterations of one block (8
+    one-block requests of phase 3's trace) under the table's split and
+    under every other candidate split of qwen2-0.5b's bucket, each put in a
+    table of its own for the run: tokens, steps, calls and launches
+    equal."""
+    import tempfile
+
+    from repro_torch.kernels import tuning
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    Kv, rows = cfg.n_kv_heads, B * cfg.q_per_kv
+    table_split = tuning.resolve("decode_attn", backend_name=tuning.backend(
+        dev), Kv=Kv, rows=rows).tiles_per_split
+    reqs = [Request(prompt=ctx["prompts"][i], id=i, max_tokens=B)
+            for i in range(8)]
+    splits = [None] + [c.tiles_per_split for c in tuning.candidates(
+        "decode_attn", Kv=Kv, rows=rows) if c.tiles_per_split != table_split]
+    results = {}
+    saved = tuning.TABLE_PATH
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for split in splits:
+                if split is not None:
+                    tuning.TABLE_PATH = Path(tmp) / f"split{split}.json"
+                    tuning.save_table([{
+                        "op": "decode_attn", "backend": tuning.backend(dev),
+                        "bucket": tuning.bucket_for("decode_attn", Kv=Kv,
+                                                    rows=rows),
+                        "config": {"tiles_per_split": split}}])
+                tuning.clear_cache()
+                got = tuning.resolve("decode_attn",
+                                     backend_name=tuning.backend(dev), Kv=Kv,
+                                     rows=rows).tiles_per_split
+                want = table_split if split is None else split
+                if got != want:
+                    raise AssertionError(f"split {want} resolved as {got}")
+                runs = {}
+                for name, graphs in (("eager", False), ("graph", None)):
+                    eng = ContinuousEngine(ctx["params"], cfg, ctx["serve"],
+                                           prompt_len=P, device=dev,
+                                           graphs=graphs)
+                    eng.warmup()
+                    outs, _, counts = serve_counted(torch, dev, eng, reqs)
+                    check_launches(cfg, eng.call_counts(), counts, "dense")
+                    runs[name] = ({rid: (o.tokens.tolist(), o.steps)
+                                   for rid, o in outs.items()},
+                                  eng.call_counts(), counts)
+                if runs["eager"] != runs["graph"]:
+                    raise AssertionError(f"graph != eager under split {want}")
+                results[f"{'table' if split is None else 'candidate'} "
+                        f"split {want}"] = {
+                    "equal": True, "calls": runs["graph"][1],
+                    "mean_steps": float(np.mean(
+                        [v[1] for v in runs["graph"][0].values()]))}
+        finally:
+            tuning.TABLE_PATH = saved
+            tuning.clear_cache()
+    return results
+
+
+def phase_tuning_and_benches(torch, dev, ctx):
+    """Phase 8: (a) the cuda table and every candidate held against the
+    plain versions, graph == eager under each split; (b) the serving bench's
+    part (a) at a cut depth, its launches counted; (c) the H100 roofline
+    constants against the peaks every bound uses. Returns (b)'s
+    launches."""
+    from repro_torch.configs import H100
+    from repro_torch.kernels import tuning
+    from repro_torch.roofline import LLADA_8B, attainable_tflops, \
+        blockwise_dlm_ai
+    t = time.perf_counter()
+    tuning.clear_cache()
+    table = {f"{k[0]} {k[1]}": e["config"]
+             for k, e in tuning._load().items()
+             if k[2] == tuning.backend(dev)}
+    counts = check_candidates(torch, dev)
+    graph = check_graph_under_splits(torch, dev, ctx)
+    log(json.dumps({"phase": "tuning", "backend": tuning.backend(dev),
+                    "table": table or "empty: every op on its built-in rule",
+                    "configs_checked": counts,
+                    "graph_equals_eager": graph}))
+    log(f"phase 8a (tuning table and candidates): "
+        f"{time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import bench_serving_torch as bench
+    records = []
+    log(f"phase 8b: bench_serving_torch part (a) with "
+        f"{SERVING_BENCH_REQUESTS} requests in the scheduler trace (cut "
+        f"from {bench.FULL['requests']}) and "
+        f"{max(8, SERVING_BENCH_REQUESTS * 2 // 3)} in the layouts' (cut "
+        f"from {max(8, bench.FULL['requests'] * 2 // 3)}); widths, lanes, "
+        "pools and the preemption case as in the bench")
+    zero_counts()
+    res = bench.run_full(dev, records, n_requests=SERVING_BENCH_REQUESTS)
+    torch.cuda.synchronize(dev)
+    launches = read_counts()
+    for name in ("decode_attention", "paged_decode_attention",
+                 "fused_select", "block_attention"):
+        if not launches[name]:
+            raise AssertionError(f"serving bench: {name} never launched")
+    log(json.dumps({"phase": "serving bench", "launches": launches,
+                    "results": bench._summary(res)}))
+    log(json.dumps({"serving_bench_records": records}))
+    log(f"phase 8b (serving bench): {time.perf_counter() - t:.1f} s")
+
+    # every bound reads the H100 config: one copy of the card's peaks
+    one_ms = (bound_ms(H100.hbm_bw * 1e-3, 0, "bfloat16")[0],
+              bound_ms(0, H100.peak_flops * 1e-3, "bfloat16")[0])
+    if not all(abs(x - 1.0) < 1e-9 for x in one_ms):
+        raise AssertionError(f"the bounds' peaks differ from the H100 "
+                             f"config: {one_ms}")
+    log(json.dumps({"phase": "roofline", "card": H100.name,
+                    "peak_flops": H100.peak_flops, "hbm_bw": H100.hbm_bw,
+                    "ridge_ai": H100.ridge_ai,
+                    "block32_llada_attainable_tflops": {
+                        bs: attainable_tflops(blockwise_dlm_ai(
+                            LLADA_8B, bs, 32), H100) for bs in (1, 128)}}))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2576,10 +2796,15 @@ def main():
     t = time.perf_counter()
     phase7_launches = phase_baselines(torch, dev, ctx)
     log(f"phase 7 (baseline decoders): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    phase8_launches = phase_tuning_and_benches(torch, dev, ctx)
+    log(f"phase 8 (tuning and benches): {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     # launches: summed over the main-path runs (phase 3, both runs of phase
-    # 3b, phase 5, phase 6's and phase 7a's), each counted from 0
+    # 3b, phase 5, phase 6's, phase 7a's and phase 8b's), each counted
+    # from 0
     sources = {"decode_attention": (DECODE_SRC, DECODE_TPU),
                "fused_select": (SELECT_SRC, SELECT_TPU),
                "paged_decode_attention": (DECODE_SRC, PAGED_TPU),
@@ -2597,7 +2822,7 @@ def main():
         rec = main_recs[name]
         launches = (ctx["launches"][name] + paged_launches[name]
                     + train_launches[name] + sampled_launches[name]
-                    + phase7_launches[name])
+                    + phase7_launches[name] + phase8_launches[name])
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the main path")
         src, tpu = sources[name]

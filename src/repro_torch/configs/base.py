@@ -2,10 +2,11 @@
 
 A copy of the JAX package's ``configs/base.py``, limited to what the port
 uses: the layer kinds, ``ModelConfig`` (with ``reduced()``),
-``CDLMConfig``, ``TrainConfig`` and ``ServeConfig``. The port keeps its
-own copy so that it imports nothing of the JAX package; the field names,
-defaults and derived properties are the same, so a config built on either
-side describes the same model.
+``CDLMConfig``, ``TrainConfig``, ``ServeConfig`` and ``HardwareConfig``
+(the roofline constants of the paper's A100 and of the port's H100). The
+port keeps its own copy so that it imports nothing of the JAX package; the
+field names, defaults and derived properties are the same, so a config
+built on either side describes the same model.
 """
 from __future__ import annotations
 
@@ -223,3 +224,31 @@ class ServeConfig:
     fused_select: bool = False
     http_host: str = "127.0.0.1"
     http_port: int = 8000
+
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """Roofline constants of one accelerator: dense bf16 peak FLOP/s, HBM
+    bytes/s, interconnect bytes/s and HBM bytes. Every field is given: there
+    is no default card."""
+    name: str
+    peak_flops: float                # dense bf16 FLOP/s (tensor cores)
+    hbm_bw: float                    # bytes/s
+    ici_bw: float                    # interconnect bytes/s
+    hbm_bytes: float
+
+    @property
+    def ridge_ai(self) -> float:
+        return self.peak_flops / self.hbm_bw
+
+
+# the paper's card (App. B.4), as in the JAX package's configs/base.py
+A100 = HardwareConfig(name="a100-sxm4-80g", peak_flops=311.9e12,
+                      hbm_bw=2039e9, ici_bw=300e9, hbm_bytes=80e9)
+# the port's card: NVIDIA's data sheet for the H100 SXM5 at its 700 W limit
+# (dense bf16 without sparsity; NVLink 4, 18 links)
+H100 = HardwareConfig(name="h100-sxm5-80g", peak_flops=989e12,
+                      hbm_bw=3.35e12, ici_bw=900e9, hbm_bytes=80e9)
+# fp32 FLOP/s outside the tensor cores (the fp32 kernels' route), from the
+# same data sheet
+H100_FP32_FLOPS = 67e12

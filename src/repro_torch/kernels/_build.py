@@ -141,6 +141,13 @@ def chunking(T: int, V: int, n_sms: int, row_tile: int, vocab_tile: int,
     return per_chunk, -(-vocab_tiles // per_chunk)
 
 
+def n_chunks(V: int, vocab_tile: int, per_chunk: int) -> int:
+    """Chunks of ``per_chunk`` vocab tiles that cover a vocabulary of V
+    rows (the grid's second dimension)."""
+    vocab_tiles = -(-V // vocab_tile)
+    return -(-vocab_tiles // per_chunk)
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "

@@ -15,6 +15,11 @@ of tiles per split, ``ref.split_plan``; the splits' partials, in scratch
 allocated with the output, merged in order by a second kernel of the same
 call), fp32 on CUDA cores in fp32, since fp32 on the tensor cores would be
 TF32. Neither reads ``cache_lens`` on the host.
+
+The tiles per split are resolved on the host, before the launch, by
+``kernels/tuning.py`` (``config=`` > the tuned table > the built-in rule)
+from the KV heads and the folded rows only, one key for both wrappers, so
+the dense and paged kernels split alike.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.decode_attn import ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
@@ -38,12 +43,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
                      scale: float = 1.0, softcap: Optional[float] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     config: Optional[tuning.KernelConfig] = None
+                     ) -> torch.Tensor:
     """q: (b, Bq, Kv, G, hd); k/v_cache: (b, S, Kv, hd), any strides with a
     unit last one (a period slice of the stacked cache); k/v_blk: (b, Bq,
     Kv, hd); cache_lens: (b,) int32. Returns (b, Bq, Kv, G, hd) fp32.
-    Refuses inputs that require grad while grad mode is on: there is no
-    backward."""
+    ``config``: a ``tuning.KernelConfig`` whose ``tiles_per_split`` wins
+    over the table's. Refuses inputs that require grad while grad mode is
+    on: there is no backward."""
     _build.refuse_grad("decode_attention", q, k_cache, v_cache, k_blk, v_blk)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, k_blk, v_blk,
@@ -57,7 +65,7 @@ def decode_attention(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
         raise ValueError("decode_attention: shapes q "
                          f"{tuple(q.shape)}, cache {tuple(k_cache.shape)} "
                          "do not match")
-    out, T, n_splits, scratch = _out_and_scratch(q, S)
+    out, T, n_splits, scratch = _out_and_scratch(q, S, config)
     if out.numel() == 0:
         return out
     fn = _build.function("decode_attn_forward", _ARGTYPES)
@@ -79,12 +87,15 @@ decode_attention.launches = 0
 def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
                            cache_lens, *, scale: float = 1.0,
                            softcap: Optional[float] = None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           config: Optional[tuning.KernelConfig] = None
+                           ) -> torch.Tensor:
     """q: (b, Bq, Kv, G, hd); k/v_pages: (n_pages, page, Kv, hd) pools, any
     strides with a unit last one (a period slice of the stacked pool);
     k/v_blk: (b, Bq, Kv, hd); page_table: (b, n_t) int32, -1 = unallocated;
     cache_lens: (b,) int32, each at most n_t * page. Returns (b, Bq, Kv, G,
-    hd) fp32. Refuses inputs that require grad while grad mode is on."""
+    hd) fp32. ``config`` as for :func:`decode_attention`. Refuses inputs
+    that require grad while grad mode is on."""
     _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_blk,
                        v_blk)
     if q.device.type == "cpu":
@@ -106,7 +117,7 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
         raise ValueError("paged_decode_attention: page_table must be a "
                          f"contiguous ({b}, n_t) int32 tensor on {q.device}")
     n_t = page_table.shape[1]
-    out, T, n_splits, scratch = _out_and_scratch(q, n_t * page)
+    out, T, n_splits, scratch = _out_and_scratch(q, n_t * page, config)
     if out.numel() == 0:
         return out
     fn = _build.function("paged_decode_attn_forward", _PAGED_ARGTYPES)
@@ -126,10 +137,11 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
 paged_decode_attention.launches = 0
 
 
-def _out_and_scratch(q, S: int):
+def _out_and_scratch(q, S: int, config):
     """(out, tiles per split, splits, scratch pointer) for caches of S
-    rows. out is (b, Bq, Kv, G, hd) fp32; on the bf16 route it is the head
-    of one allocation whose tail is the scratch of the splits' partials,
+    rows, the tiles per split resolved by ``tuning`` from (Kv, Bq G) and
+    ``config``. out is (b, Bq, Kv, G, hd) fp32; on the bf16 route it is the
+    head of one allocation whose tail is the scratch of the splits' partials,
     acc (n_splits, b, Kv, Bq G, hd) then (m, l): one allocation a call on
     q's stream, no host sync, nothing kept between calls. The fp32 route
     takes no scratch: (out, 0, 0, None)."""
@@ -138,7 +150,10 @@ def _out_and_scratch(q, S: int):
     if q.dtype != torch.bfloat16 or n_out == 0:
         return (torch.empty((b, Bq, Kv, G, hd), dtype=torch.float32,
                             device=q.device), 0, 0, None)
-    T, n_splits = ref.split_plan(Kv, Bq, G, S)
+    T = tuning.resolve("decode_attn", config=config,
+                       backend_name=tuning.backend(q.device), Kv=Kv,
+                       rows=Bq * G).tiles_per_split
+    T, n_splits = ref.split_plan(Kv, Bq, G, S, T)
     buf = torch.empty(n_out + n_splits * b * Kv * Bq * G * (hd + 2),
                       dtype=torch.float32, device=q.device)
     return (buf[:n_out].view(b, Bq, Kv, G, hd), T, n_splits,

@@ -135,6 +135,7 @@ def paged_decode_attention(q, k_pages, v_pages, k_blk, v_blk, page_table,
 
 
 KEY_TILE = 64   # keys per tile of the bf16 kernel
+MAX_TILES_PER_SPLIT = 8   # decode_attn.cu's kMaxT
 
 
 def tiles_per_split(Kv: int, rows: int) -> int:
@@ -147,12 +148,15 @@ def tiles_per_split(Kv: int, rows: int) -> int:
     return 2 if Kv * -(-rows // 64) <= 8 else 8
 
 
-def split_plan(Kv: int, Bq: int, G: int, S: int):
+def split_plan(Kv: int, Bq: int, G: int, S: int,
+               tiles: Optional[int] = None):
     """(tiles per split, splits in the grid) for caches of S rows: a lane
-    has at most ceil(S / 64) cache tiles and ceil(Bq / 64) fresh ones."""
-    T = tiles_per_split(Kv, Bq * G)
-    tiles = -(-S // KEY_TILE) + -(-Bq // KEY_TILE)
-    return T, -(-tiles // T)
+    has at most ceil(S / 64) cache tiles and ceil(Bq / 64) fresh ones.
+    ``tiles`` per split: the resolved knob of ``kernels/tuning.py``, else
+    :func:`tiles_per_split`."""
+    T = tiles or tiles_per_split(Kv, Bq * G)
+    n_tiles = -(-S // KEY_TILE) + -(-Bq // KEY_TILE)
+    return T, -(-n_tiles // T)
 
 
 def _bf16_pair(p):
@@ -164,14 +168,16 @@ def decode_attention_split(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
                            scale: float = 1.0,
                            softcap: Optional[float] = None,
                            window: Optional[int] = None, page_table=None,
-                           p_round: Optional[str] = None):
+                           p_round: Optional[str] = None,
+                           tiles: Optional[int] = None):
     """The bf16 kernel's split of :func:`decode_attention`, in fp32.
 
     Lane j's logical key tiles are its ceil(c / 64) cache tiles (c =
     ``cache_lens[j]``; keys at or past c invisible) and then ceil(Bq / 64)
     tiles of the block's fresh keys; split s walks tiles [s T, s T + T)
-    (``tiles_per_split``), and its partials (acc, m, l) over those keys are
-    merged in split order by :func:`softmax_combine`. With ``page_table``
+    (T = ``tiles``, else ``tiles_per_split``), and its partials (acc, m,
+    l) over those keys are merged in split order by
+    :func:`softmax_combine`. With ``page_table``
     the caches are pools (n_pages, page, Kv, hd) and cache key kp sits at
     row kp % page of page ``page_table[j, kp // page]`` (a -1 page's keys
     are invisible and never read). ``p_round`` models the rounding of the
@@ -182,7 +188,7 @@ def decode_attention_split(q, k_cache, v_cache, k_blk, v_blk, cache_lens, *,
     R = Bq * G
     S = (k_cache.shape[1] if page_table is None
          else page_table.shape[1] * k_cache.shape[1])
-    T = tiles_per_split(Kv, R)
+    T = tiles or tiles_per_split(Kv, R)
     nb = -(-Bq // KEY_TILE)
     qpos = torch.arange(R, device=q.device) // G
     rnd = {None: lambda p: p, "pair": _bf16_pair,

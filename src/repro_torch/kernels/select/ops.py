@@ -12,7 +12,10 @@ the tensor cores (wgmma fed by TMA, 128 x 128 logit tiles, one block per
 SM, the fused cross-entropy's mainloop), fp32 on CUDA cores in fp32 (64 x
 64 tiles, four blocks per SM), since fp32 on the tensor cores would be
 TF32. The bf16 route reads W through a TMA tensor map encoded once per
-weight (``_w_map``): W is the same tied embedding on every call.
+weight (``_w_map``): W is the same tied embedding on every call. The
+vocab tiles per chunk are resolved on the host before the launch by
+``kernels/tuning.py`` (``config=`` > the tuned table > the built-in rule,
+``_build.chunking``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.select import ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -37,10 +40,13 @@ _W_MAPS: dict = {}       # (device, data_ptr, V, d) -> W's encoded TMA map
 _W_MAPS_MAX = 8
 
 
-def fused_select(hidden, w, masked, *, softcap: Optional[float] = None):
+def fused_select(hidden, w, masked, *, softcap: Optional[float] = None,
+                 config: Optional[tuning.KernelConfig] = None):
     """hidden: (..., d); w: (V, d); masked: (...) bool (False = finalized
-    row) -> (cand (...) int32, conf (...) fp32). Refuses inputs that
-    require grad while grad mode is on: there is no backward."""
+    row) -> (cand (...) int32, conf (...) fp32). ``config``: a
+    ``tuning.KernelConfig`` whose ``vocab_tiles_per_chunk`` wins over the
+    table's. Refuses inputs that require grad while grad mode is on: there
+    is no backward."""
     _build.refuse_grad("fused_select", hidden, w)
     lead = hidden.shape[:-1]
     h2 = hidden.reshape(-1, hidden.shape[-1])
@@ -48,11 +54,11 @@ def fused_select(hidden, w, masked, *, softcap: Optional[float] = None):
     if h2.device.type == "cpu":
         cand, conf = ref.select_streaming(h2, w, m2, softcap=softcap)
     else:
-        cand, conf = _launch(h2, w, m2, softcap)
+        cand, conf = _launch(h2, w, m2, softcap, config)
     return cand.reshape(lead), conf.reshape(lead)
 
 
-def _launch(h, w, masked, softcap):
+def _launch(h, w, masked, softcap, config):
     T, d = h.shape
     V = w.shape[0]
     if w.device != h.device or masked.device != h.device:
@@ -78,7 +84,10 @@ def _launch(h, w, masked, softcap):
     if T == 0:
         return cand, conf
     n_sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    per_chunk, n_chunks = _build.chunking(T, V, n_sms, *TILES[h.dtype])
+    per_chunk = tuning.resolve(
+        "select", config=config, backend_name=tuning.backend(h.device), T=T,
+        V=V, n_sms=n_sms, dtype=h.dtype).vocab_tiles_per_chunk
+    n_chunks = _build.n_chunks(V, TILES[h.dtype][1], per_chunk)
     bf16 = h.dtype == torch.bfloat16
     part_m = torch.empty((n_chunks, T), dtype=torch.float32, device=h.device)
     part_l = torch.empty_like(part_m)

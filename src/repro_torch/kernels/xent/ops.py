@@ -15,7 +15,10 @@ The kernel's route is chosen by dtype, and both are kernels: bf16 runs on
 the tensor cores (wgmma fed by TMA, 128 x 128 tiles, one block per SM), fp32
 on CUDA cores in fp32 (64 x 64 tiles, four blocks per SM), since fp32 on the
 tensor cores would be TF32. A bf16 launch that fails raises; nothing falls
-back to the fp32 route.
+back to the fp32 route. The forward's vocab tiles per chunk and the
+backward's chunk are resolved on the host before each launch by
+``kernels/tuning.py`` (``config=`` > the tuned table > the built-in rules,
+``_build.chunking`` and :func:`backward_chunk`).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 from repro_torch.kernels.xent import ref
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -53,10 +56,13 @@ def backward_chunk(T: int, V: int) -> int:
     return min(chunk, -(-V // CHUNK_ALIGN) * CHUNK_ALIGN)
 
 
-def fused_xent(hidden, w, targets, *, softcap: Optional[float] = None):
+def fused_xent(hidden, w, targets, *, softcap: Optional[float] = None,
+               config: Optional[tuning.KernelConfig] = None):
     """hidden: (T, d); w: (V, d); targets: (T,) int -> loss (T,) fp32.
     ``hidden`` is made contiguous first. There is no final-logit softcap,
-    as in the JAX kernel: a ``softcap`` raises."""
+    as in the JAX kernel: a ``softcap`` raises. ``config``: a
+    ``tuning.KernelConfig`` whose ``vocab_tiles_per_chunk`` and
+    ``bwd_chunk`` win over the table's."""
     if softcap is not None:
         raise ValueError("fused_xent: no final-logit softcap (the JAX kernel "
                          "has none); a softcapped model cannot use it")
@@ -65,7 +71,7 @@ def fused_xent(hidden, w, targets, *, softcap: Optional[float] = None):
         raise ValueError(f"fused_xent: hidden {tuple(hidden.shape)} (T, d), "
                          f"w {tuple(w.shape)} (V, d) and targets "
                          f"{tuple(targets.shape)} (T,) do not match")
-    return _FusedXent.apply(hidden.contiguous(), w, targets)
+    return _FusedXent.apply(hidden.contiguous(), w, targets, config)
 
 
 fused_xent.launches = 0
@@ -74,12 +80,13 @@ fused_xent.backward_launches = 0
 
 class _FusedXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, w, targets):
+    def forward(ctx, hidden, w, targets, config):
         if hidden.device.type == "cpu":
             loss, logz = ref.xent_streaming(hidden, w, targets)
         else:
-            loss, logz = _forward(hidden, w, targets)
+            loss, logz = _forward(hidden, w, targets, config)
         ctx.save_for_backward(hidden, w, targets, logz)
+        ctx.config = config
         return loss
 
     @staticmethod
@@ -90,8 +97,9 @@ class _FusedXent(torch.autograd.Function):
             # the JAX _bwd: statistics pass, then gradients
             dh, dw = ref.xent_backward(hidden, w, targets, g, need_dw=need_dw)
         else:
-            dh, dw = _backward(hidden, w, targets, logz, g, need_dw)
-        return (dh if need_dh else None), dw, None
+            dh, dw = _backward(hidden, w, targets, logz, g, need_dw,
+                               ctx.config)
+        return (dh if need_dh else None), dw, None, None
 
 
 def _check(name, hidden, w, targets):
@@ -117,7 +125,16 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _forward(hidden, w, targets):
+def _knobs(hidden, V, config):
+    """The resolved ``tuning.KernelConfig`` of one call."""
+    return tuning.resolve(
+        "xent", config=config, backend_name=tuning.backend(hidden.device),
+        T=hidden.shape[0], V=V, dtype=hidden.dtype,
+        n_sms=torch.cuda.get_device_properties(
+            hidden.device).multi_processor_count)
+
+
+def _forward(hidden, w, targets, config=None):
     y = _check("fused_xent", hidden, w, targets)
     T, d = hidden.shape
     V = w.shape[0]
@@ -125,9 +142,8 @@ def _forward(hidden, w, targets):
     logz = torch.empty_like(loss)
     if T == 0:
         return loss, logz
-    n_sms = torch.cuda.get_device_properties(
-        hidden.device).multi_processor_count
-    per_chunk, n_chunks = _build.chunking(T, V, n_sms, *TILES[hidden.dtype])
+    per_chunk = _knobs(hidden, V, config).vocab_tiles_per_chunk
+    n_chunks = _build.n_chunks(V, TILES[hidden.dtype][1], per_chunk)
     part = torch.empty((3, n_chunks, T), dtype=torch.float32,
                        device=hidden.device)
     fn = _build.function("xent_forward", _FWD_ARGTYPES)
@@ -140,7 +156,7 @@ def _forward(hidden, w, targets):
     return loss, logz
 
 
-def _backward(hidden, w, targets, logz, g, need_dw):
+def _backward(hidden, w, targets, logz, g, need_dw, config=None):
     y = _check("fused_xent backward", hidden, w, targets)
     T, d = hidden.shape
     V = w.shape[0]
@@ -149,7 +165,8 @@ def _backward(hidden, w, targets, logz, g, need_dw):
     dw = torch.empty_like(w) if need_dw else None
     if T == 0:
         return dh, None if dw is None else dw.zero_()
-    chunk = backward_chunk(T, V)
+    chunk = min(_knobs(hidden, V, config).bwd_chunk,
+                -(-V // CHUNK_ALIGN) * CHUNK_ALIGN)
     dh_acc = torch.empty((T, d), dtype=torch.float32, device=hidden.device)
     if hidden.dtype == torch.bfloat16:   # two chunks' pairs e_hi, e_lo
         probs = torch.empty((2, 2, T, chunk), dtype=torch.bfloat16,

@@ -54,10 +54,8 @@ def test_import_pulls_in_no_jax(imported, module):
     assert not leaked, leaked
 
 
-@pytest.mark.parametrize("path", FILES + [ROOT / "chip_smoke.py"] + [
-    ROOT / "benchmarks" / f for f in ("serve_smoke_torch.py",
-                                      "common_torch.py",
-                                      "bench_main_results_torch.py")],
+@pytest.mark.parametrize("path", FILES + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "benchmarks").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))

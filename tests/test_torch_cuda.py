@@ -818,3 +818,132 @@ def test_baseline_decoder_kernel_path_equals_plain(cuda, name):
     # COUNTERS order: decode, paged decode, block attention, select, xent
     assert p_counts[:3] == [0, 0, 0] and k_counts[2] > 0
     assert (k_counts[0] > 0) == (name == "ar")
+
+
+# the tuning registry's candidates (kernels/tuning.py): every knob the
+# sweep tries launches and holds the plain version
+def _limits():
+    """chip_smoke.py's per-row select limits and gradient limit."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 2, 4, 8])
+@pytest.mark.parametrize("Kv,G,hd,Bq", [(2, 7, 64, 32), (4, 7, 128, 32),
+                                        (32, 1, 128, 32), (2, 7, 64, 1)])
+def test_every_decode_split_candidate_matches_plain(cuda, tiles, Kv, G, hd,
+                                                    Bq):
+    """Each split the sweep tries: the bf16 kernel against the plain
+    version at 1e-4, and the paged kernel equal to the dense one bit for
+    bit under the same split."""
+    from repro_torch.kernels import tuning
+    cfg = tuning.KernelConfig(tiles_per_split=tiles)
+    assert cfg in tuning.candidates("decode_attn", Kv=Kv, rows=Bq * G)
+    gen = torch.Generator(device=cuda).manual_seed(tiles * Kv + hd)
+    lens = [0, 64 * tiles, 64 * tiles + 1, 300, 512]
+    dense, paged = _decode_pair(cuda, gen, b=5, Bq=Bq, Kv=Kv, G=G, hd=hd,
+                                S=512, lens=lens, dtype=torch.bfloat16,
+                                page=32)
+    kw = dict(scale=hd ** -0.5)
+    got = decode_attention(*dense, **kw, config=cfg)
+    torch.testing.assert_close(got, dref.decode_attention(*dense, **kw),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(paged_decode_attention(*paged, **kw, config=cfg), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_select_chunk_candidate_matches_plain(cuda, dtype):
+    from repro_torch.kernels import tuning
+    cs = _limits()
+    T, d, V = 256, 128, 20_011
+    gen = torch.Generator(device=cuda).manual_seed(V)
+    h = _randn(gen, T, d).to(dtype)
+    w = (_randn(gen, V, d) * 0.1).to(dtype)
+    masked = torch.rand((T,), generator=gen, device=cuda) < 0.7
+    want_c, want_f = sref.select_streaming(h, w, masked)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = tuning.candidates("select", T=T, V=V, n_sms=n_sms, dtype=dtype)
+    assert len(cands) >= 4
+    for cfg in cands:
+        cand, conf = fused_select(h, w, masked, config=cfg)
+        conf_tol, gap_tol = cs.select_limits(torch, h, w, cand, V)
+        logits = h.float() @ w.float().t()
+        top2 = logits.topk(2, -1).values
+        off = cand != want_c
+        assert bool((top2[:, 0] - top2[:, 1])[off].lt(gap_tol[off]).all())
+        same = masked & ~off
+        rel = (conf - want_f).abs() / want_f.abs()
+        assert bool((rel[same] <= conf_tol[same]).all()), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_xent_chunk_candidate_matches_plain(cuda, dtype):
+    from repro_torch.kernels import tuning
+    cs = _limits()
+    T, d, V = 256, 128, 9000
+    h, w, y, g = _xent_case(cuda, T, d, V, dtype, 11)
+    want_loss, want_logz = xref.xent_streaming(h, w, y)
+    want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = tuning.candidates("xent", T=T, V=V, n_sms=n_sms, dtype=dtype)
+    assert len({c.bwd_chunk for c in cands}) >= 2
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    for cfg in cands:
+        loss, logz = xops._forward(h, w, y, cfg)
+        torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-4)
+        dh, dw = xops._backward(h, w, y, logz, g, True, cfg)
+        for got, want in ((dh, want_dh), (dw, want_dw)):
+            ok, err = cs.grad_limit(torch, got, want, name)
+            assert ok, (cfg, err)
+
+
+@pytest.mark.cuda
+def test_checked_in_table_entries_resolve_and_launch(cuda):
+    """Each entry of the cuda table for this card: the wrappers, called
+    without a config, resolve the entry's knobs at its shape and launch,
+    and the kernel holds the plain version."""
+    from repro_torch.kernels import tuning
+    tuning.clear_cache()
+    here = tuning.backend(cuda)
+    entries = [e for k, e in tuning._load().items() if k[2] == here]
+    for e in entries:
+        cfg = tuning.KernelConfig.from_dict(e["config"])
+        sh = e["shape"]
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        if e["op"] == "decode_attn":
+            Kv, G, hd, Bq = sh["Kv"], sh["G"], sh["hd"], sh["Bq"]
+            assert tuning.resolve("decode_attn", backend_name=here, Kv=Kv,
+                                  rows=Bq * G).tiles_per_split == \
+                cfg.tiles_per_split
+            dense, paged = _decode_pair(cuda, gen, b=4, Bq=Bq, Kv=Kv, G=G,
+                                        hd=hd, S=512, lens=[0, 100, 300, 512],
+                                        dtype=torch.bfloat16, page=32)
+            before = decode_attention.launches
+            got = decode_attention(*dense, scale=hd ** -0.5)
+            assert decode_attention.launches == before + 1
+            torch.testing.assert_close(got, dref.decode_attention(
+                *dense, scale=hd ** -0.5), rtol=1e-4, atol=1e-4)
+            assert torch.equal(paged_decode_attention(
+                *paged, scale=hd ** -0.5), got)
+        elif e["op"] == "select":
+            T, V = sh["T"], sh["V"]
+            h = _randn(gen, T, sh["d"]).to(torch.bfloat16)
+            w = (_randn(gen, V, sh["d"]) * 0.02).to(torch.bfloat16)
+            m = torch.ones((T,), dtype=torch.bool, device=cuda)
+            before = fused_select.launches
+            cand, _ = fused_select(h, w, m)
+            assert fused_select.launches == before + 1
+            assert bool((cand >= 0).all() and (cand < V).all())
+        else:
+            T, V = sh["T"], sh["V"]
+            h, w, y, g = _xent_case(cuda, T, sh["d"], V, torch.bfloat16, 5,
+                                    w_scale=0.02)
+            loss, _ = xops._forward(h, w, y)
+            torch.testing.assert_close(loss, xref.xent_streaming(h, w, y)[0],
+                                       rtol=0, atol=1e-4)
