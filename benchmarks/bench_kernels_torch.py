@@ -20,21 +20,30 @@ the operations over the dtype's peak), with the knobs the wrapper resolved
 ("built-in" where the table has no entry). The bench makes no launch of
 its own: every kernel runs through its wrapper.
 
-``--tune [--tune-ops OP,...]`` first runs ``tuning.run_sweep`` on the card
-(every candidate timed; an entry written only where one beat the built-in
-rule), writes ``src/repro_torch/kernels/tuned_configs_cuda.json``, then
-benches with the new table. On the CPU (``--device cpu``) only the
+``--tune [--tune-ops OP,...] [--confirm PRIOR.json]`` first runs
+``tuning.run_sweep`` on the card (every candidate timed; the log goes to
+the ``--json`` file's ``sweep``), writes
+``src/repro_torch/kernels/tuned_configs_cuda.json``, then benches with the
+new table. Alone it writes the candidates that beat the built-in rule by
+more than ``tuning.SWEEP_MARGIN`` in this sweep; with ``--confirm`` (the
+``--json`` file of an earlier ``--tune`` run, best from another process on
+another machine) only those that beat it in both sweeps by more than the
+rule's own spread between them. ``--tune`` refuses ``--smoke``: a table is
+written from full sweeps only. On the CPU (``--device cpu``) only the
 shapes, bounds and resolved knobs are printed: a kernel time is measured on
 the card or not at all.
 
     python3 benchmarks/bench_kernels_torch.py                  # the card
-    python3 benchmarks/bench_kernels_torch.py --tune --json chiprun_out/k.json
+    python3 benchmarks/bench_kernels_torch.py --tune --json a.json
+    python3 benchmarks/bench_kernels_torch.py --tune --confirm a.json \
+        --json b.json                         # in another process
     python3 benchmarks/bench_kernels_torch.py --device cpu --smoke
 
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -282,16 +291,26 @@ def main(argv=None):
                          "the cuda table, then bench with it")
     ap.add_argument("--tune-ops", default=None, metavar="OP[,OP...]",
                     help=f"restrict --tune to these ops (of {tuning.OPS})")
+    ap.add_argument("--confirm", default=None, metavar="PRIOR.json",
+                    help="with --tune: an earlier --tune run's --json; a "
+                         "candidate is written only if it won in both")
     args = ap.parse_args(argv)
+    if args.tune and args.smoke:
+        ap.error("--tune writes the checked-in table and takes full sweeps "
+                 "only; drop --smoke")
+    if args.confirm and not args.tune:
+        ap.error("--confirm goes with --tune")
     results = {"smoke": args.smoke, "records": []}
     if args.tune:
         ops = tuple(args.tune_ops.split(",")) if args.tune_ops else None
+        prior = None
+        if args.confirm:
+            with open(args.confirm) as f:
+                prior = json.load(f)["sweep"]
         sweep = []
         results["tuned_entries"] = tuning.run_sweep(
-            ops, device=args.device, iters=5 if args.smoke else 20,
-            log=sweep)
+            ops, device=args.device, log=sweep, prior=prior)
         results["sweep"] = sweep
-        tuning.clear_cache()
     run(device=args.device, smoke=args.smoke, results=results)
     common.write_results(args.json, results)
     return 0

@@ -102,7 +102,9 @@ Phases, each timed, any failure raises and exits non-zero:
    ``tuning.run_sweep`` would try at the main path's shapes, against the
    plain versions: decode attention (dense and paged, bf16 and fp32)
    within 1e-4 and dense == paged bit for bit under each split, select
-   within ``select_limits``, xent within 1e-4 and ``grad_limit``; graph ==
+   within ``select_limits``, xent within 1e-4 and ``grad_limit`` at 1,024
+   and 4,096 rows (a table entry launched without a config, through the
+   wrappers' own resolution, which must give its knobs); graph ==
    eager for the refinement iterations of one block under the table's
    split and under each other candidate split; (b)
    ``benchmarks/bench_serving_torch.py`` part (a) at full width with its
@@ -2573,11 +2575,11 @@ def main_path_candidates(torch, dev):
             out.append(("select", "qwen2-0.5b", dict(
                 T=sel["T"], d=tuning.SELECT_SHAPE["d"], V=sel["V"]), dtype,
                 cfg))
-        xs = dict(T=tuning.XENT_SHAPE["T"], V=tuning.XENT_SHAPE["V"],
-                  n_sms=n_sms, dtype=dt)
-        for cfg in tuning.candidates("xent", **xs):
-            out.append(("xent", "qwen2-0.5b", dict(
-                T=xs["T"], d=tuning.XENT_SHAPE["d"], V=xs["V"]), dtype, cfg))
+        for T in tuning.XENT_TS:
+            xs = dict(T=T, V=tuning.XENT_SHAPE["V"], n_sms=n_sms, dtype=dt)
+            for cfg in tuning.candidates("xent", **xs):
+                out.append(("xent", f"qwen2-0.5b T={T}", dict(
+                    T=T, d=tuning.XENT_SHAPE["d"], V=xs["V"]), dtype, cfg))
     here = tuning.backend(dev)
     for (op, bucket, backend), e in sorted(tuning._load().items()):
         if backend != here:
@@ -2589,8 +2591,9 @@ def main_path_candidates(torch, dev):
                 name=bucket, Kv=sh["Kv"], G=sh["G"], hd=sh["hd"],
                 Bq=sh["Bq"]), "bfloat16", cfg))
         else:
-            out.append((op, f"table {bucket}", dict(T=sh["T"], d=sh.get(
-                "d", 896), V=sh["V"]), "bfloat16", cfg))
+            out.append((op, f"table {bucket}", dict(T=sh["T"], d=sh["d"],
+                                                   V=sh["V"]), "bfloat16",
+                        cfg))
     return out
 
 
@@ -2599,11 +2602,24 @@ def check_candidates(torch, dev):
     decode attention (dense and paged) within 1e-4 and dense == paged bit
     for bit under each split, select within ``select_limits``, xent's loss
     within 1e-4 and its gradients within ``grad_limit``."""
+    from repro_torch.kernels import tuning
     cases = main_path_candidates(torch, dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = {}
     for op, case, sh, dtype, cfg in cases:
         knobs = cfg.to_dict() if cfg is not None else "fp32 route"
         name = f"tuning {op} {case} {dtype} {knobs}"
+        if case.startswith("table"):
+            # the entry through the wrappers' own resolution, no config=
+            shape = (dict(Kv=sh["Kv"], rows=sh["Bq"] * sh["G"])
+                     if op == "decode_attn" else
+                     dict(T=sh["T"], V=sh["V"], n_sms=n_sms,
+                          dtype=torch.bfloat16))
+            got = tuning.resolve(op, backend_name=tuning.backend(dev),
+                                 **shape).to_dict()
+            if {k: got[k] for k in knobs} != knobs:
+                raise AssertionError(f"{name}: resolved {got}")
+            cfg = None
         if op == "decode_attn":
             S = 768 if sh["Bq"] > 1 else 576
             lens = ([0, 512, 536, 577, 608, 640, 700, 736] if sh["Bq"] > 1

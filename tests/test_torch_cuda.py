@@ -910,7 +910,9 @@ def test_checked_in_table_entries_resolve_and_launch(cuda):
     and the kernel holds the plain version."""
     from repro_torch.kernels import tuning
     tuning.clear_cache()
+    cs = _limits()
     here = tuning.backend(cuda)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     entries = [e for k, e in tuning._load().items() if k[2] == here]
     for e in entries:
         cfg = tuning.KernelConfig.from_dict(e["config"])
@@ -933,6 +935,10 @@ def test_checked_in_table_entries_resolve_and_launch(cuda):
                 *paged, scale=hd ** -0.5), got)
         elif e["op"] == "select":
             T, V = sh["T"], sh["V"]
+            assert tuning.resolve("select", backend_name=here, T=T, V=V,
+                                  n_sms=n_sms, dtype=torch.bfloat16
+                                  ).vocab_tiles_per_chunk == \
+                cfg.vocab_tiles_per_chunk
             h = _randn(gen, T, sh["d"]).to(torch.bfloat16)
             w = (_randn(gen, V, sh["d"]) * 0.02).to(torch.bfloat16)
             m = torch.ones((T,), dtype=torch.bool, device=cuda)
@@ -941,9 +947,24 @@ def test_checked_in_table_entries_resolve_and_launch(cuda):
             assert fused_select.launches == before + 1
             assert bool((cand >= 0).all() and (cand < V).all())
         else:
+            # forward and backward without a config: the entry's knobs
+            # through the wrappers' own resolution, against the plain
+            # versions
             T, V = sh["T"], sh["V"]
+            got = tuning.resolve("xent", backend_name=here, T=T, V=V,
+                                 n_sms=n_sms, dtype=torch.bfloat16).to_dict()
+            assert {k: got[k] for k in cfg.to_dict()} == cfg.to_dict()
             h, w, y, g = _xent_case(cuda, T, sh["d"], V, torch.bfloat16, 5,
                                     w_scale=0.02)
-            loss, _ = xops._forward(h, w, y)
-            torch.testing.assert_close(loss, xref.xent_streaming(h, w, y)[0],
-                                       rtol=0, atol=1e-4)
+            before = (fused_xent.launches, fused_xent.backward_launches)
+            loss, logz = xops._forward(h, w, y)
+            dh, dw = xops._backward(h, w, y, logz, g, True)
+            assert (fused_xent.launches, fused_xent.backward_launches) == \
+                (before[0] + 1, before[1] + 1)
+            want_loss, want_logz = xref.xent_streaming(h, w, y)
+            torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-4)
+            want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
+            for name, got_g, want in (("dh", dh, want_dh),
+                                      ("dw", dw, want_dw)):
+                ok, err = cs.grad_limit(torch, got_g, want, "bfloat16")
+                assert ok, (e["bucket"], name, err)
