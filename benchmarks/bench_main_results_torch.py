@@ -10,10 +10,10 @@ beside its ratio to ``vanilla``, in two parts:
     batch. A random-init model finalizes one token an
     iteration, so every threshold decoder runs G iterations: this part
     measures what each decoder's cache policy costs an iteration (the
-    paper's KV-caching argument), not its step reduction. The static
-    engine decodes eagerly; ``vanilla``'s full-canvas forward is the
-    collector's CUDA graph (``_top1_loop``), the others' forwards are
-    eager.
+    paper's KV-caching argument), not its step reduction. Each decoder
+    runs twice in the call: through the static engine's CUDA graphs (its
+    default) and eagerly (``graphs=False``), each row beside its ratio to
+    ``vanilla`` on the same path.
 (b) toy, as ``benchmarks/bench_main_results.py`` runs it: the port's toy
     teacher, CDLM student and AR model (``common_torch``: trained on the
     device and cached under ``experiments/bench_assets_torch/``), 64
@@ -79,7 +79,8 @@ def _header(score=True):
 
 def full_width(dev, records):
     """(a): every decoder through the static engine on one batch of 8
-    prompts; returns its rows."""
+    prompts, through its graphs and eagerly; returns its rows, named
+    ``<decoder>/graphs`` and ``<decoder>/eager``."""
     cfg = get_config("qwen2-0.5b")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev, "bfloat16")
@@ -88,17 +89,18 @@ def full_width(dev, records):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.mask_token_id,
                            (FULL["lanes"], FULL["prompt_len"]))
-    rows, base = [], None
+    rows, base = [], {}
     print(f"\n== Tables 1-2, full width (qwen2-0.5b, bf16, random init, "
           f"{FULL['lanes']} prompts, P={FULL['prompt_len']}, "
           f"G={FULL['gen']}, block {FULL['block']}, {dev}) ==")
     print(_header(score=False))
-    for name in SAMPLERS:
+    for name, path in ((n, p) for n in SAMPLERS for p in ("graphs",
+                                                          "eager")):
         serve = ServeConfig(max_batch=FULL["lanes"], block_size=FULL["block"],
                             gen_length=FULL["gen"], conf_threshold=FULL["tau"],
                             sampler=name, fused_select=True)
         eng = Engine(params, cfg, serve, prompt_len=FULL["prompt_len"],
-                     device=dev)
+                     device=dev, graphs=None if path == "graphs" else False)
         eng.warmup()
         reqs = [Request(prompt=p, id=i) for i, p in enumerate(prompts)]
         walls = []
@@ -115,14 +117,17 @@ def full_width(dev, records):
              "steps": float(np.mean([o.steps for o in outs])),
              "calls": eng.call_counts()["total"], "gen_len": glen,
              "wall_s": wall}
-        base = base or r
-        rows.append((name, r))
-        print(_row(name, r, base, score=False)
-              + f"  walls {walls[0]:.3f}, {walls[1]:.3f} s")
-        x_tps, x_lat = _ratios(r, base)
-        shape = dict(FULL, config="qwen2-0.5b", dtype="bfloat16")
+        r["ms_per_call"] = wall * 1e3 / r["calls"]
+        base.setdefault(path, r)
+        rows.append((f"{name}/{path}", r))
+        print(_row(f"{name} ({path})", r, base[path], score=False)
+              + f"  {r['ms_per_call']:.2f} ms a call; walls "
+              f"{walls[0]:.3f}, {walls[1]:.3f} s")
+        x_tps, x_lat = _ratios(r, base[path])
+        shape = dict(FULL, config="qwen2-0.5b", dtype="bfloat16",
+                     graphs=path == "graphs")
         for metric in ("tps", "latency_s", "steps", "calls", "gen_len",
-                       "wall_s"):
+                       "wall_s", "ms_per_call"):
             records.append(common.record(f"main_results_full/{name}", shape,
                                          metric, r[metric], device=dev))
         records.append(common.record(f"main_results_full/{name}", shape,

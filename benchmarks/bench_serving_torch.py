@@ -11,8 +11,9 @@ preemption in a tight page pool. Two parts:
     - schedulers: 48 requests of ``poisson_trace``'s shape (half capped at
       one block, the rest at G) at 1000/s, which saturates the engines;
       then again at half the request rate the continuous engine sustained
-      in the first run. Each run through the static ``Engine`` (eager) and
-      the ``ContinuousEngine`` (CUDA graphs), 8 lanes each.
+      in the first run. Each run through the static ``Engine`` through its
+      CUDA graphs and again eagerly (``graphs=False``, the row labelled
+      "eager"), and the ``ContinuousEngine`` (CUDA graphs), 8 lanes each.
     - layouts: 96 pages of 32 rows: the dense engine gets 4 lanes (a canvas
       is 24 pages), the paged engine 8 lanes sharing the pool.
     - preemption: ``chip_smoke.py`` phase 3b's tight 40-page pool against a
@@ -182,16 +183,24 @@ def _zero_arrivals(reqs):
 
 def run_schedulers(params, cfg, *, dev, prompt_len, block, gen, tau,
                    max_batch, n_requests, rate_hz, records, prompts=None,
-                   fused_select=False, runs=1, label="schedulers"):
+                   fused_select=False, runs=1, label="schedulers",
+                   eager_static=True):
     """Static against continuous on ``poisson_trace`` at ``rate_hz`` (None:
     every arrival at 0); ``runs`` 2 repeats the pair at half the request
-    rate the continuous engine sustained in the first run. Returns the
-    runs' rows (with each engine's outputs under ``outputs``)."""
+    rate the continuous engine sustained in the first run. On CUDA the
+    static engine runs through its graphs and, with ``eager_static``,
+    again eagerly (``static_eager``). Returns the runs' rows (with each
+    engine's outputs under ``outputs``)."""
     kw = dict(block_size=block, gen_length=gen, sampler="cdlm",
               conf_threshold=tau, max_batch=max_batch,
               fused_select=fused_select)
-    static = Engine(params, cfg, ServeConfig(scheduler="static", **kw),
-                    prompt_len=prompt_len, device=dev)
+    statics = {"static": Engine(params, cfg,
+                                ServeConfig(scheduler="static", **kw),
+                                prompt_len=prompt_len, device=dev)}
+    if eager_static and statics["static"].graphed:
+        statics["static_eager"] = Engine(
+            params, cfg, ServeConfig(scheduler="static", **kw),
+            prompt_len=prompt_len, device=dev, graphs=False)
     cont = ContinuousEngine(params, cfg,
                             ServeConfig(scheduler="continuous", **kw),
                             prompt_len=prompt_len, device=dev)
@@ -203,8 +212,8 @@ def run_schedulers(params, cfg, *, dev, prompt_len, block, gen, tau,
         if rate is None:
             _zero_arrivals(reqs)
         if i == 0:
-            _warm(static, reqs, dev)
-            _warm(cont, reqs, dev)
+            for eng in list(statics.values()) + [cont]:
+                _warm(eng, reqs, dev)
         shape = dict(n_requests=n_requests, max_batch=max_batch,
                      rate_hz=rate, prompt_len=prompt_len, gen=gen,
                      block=block)
@@ -212,25 +221,39 @@ def run_schedulers(params, cfg, *, dev, prompt_len, block, gen, tau,
               f"Poisson {rate if rate is None else round(rate, 3)}/s, "
               f"batch {max_batch}, mixed max_tokens, {dev}) ==")
         print(HEADER)
-        so, sf, _, sw = _run_static_trace(static, reqs, dev)
-        s = _stats("static", reqs, so, sf, sw, static, static=True)
-        _print("static (eager)", s)
+        row = {"rate_hz": rate, "outputs": {}}
+        for name, eng in statics.items():
+            so, sf, _, sw = _run_static_trace(eng, reqs, dev)
+            row[name] = _stats(name, reqs, so, sf, sw, eng, static=True)
+            row["outputs"][name] = so
+            _print(f"static ({'graphs' if eng.graphed else 'eager'})",
+                   row[name])
+            _record(records, f"serving_sched/{label}", shape, row[name],
+                    dev, {"scheduler": "static", "graphs": eng.graphed})
         co, cf, _, cw = _drain(cont, reqs, dev)
         graphs = "graphs" if cont.graphed else "eager"
         c = _stats("continuous", reqs, co, cf, cw, cont)
         _print(f"continuous ({graphs})", c)
+        s = row["static"]
         ratio = c["tps"] / s["tps"] if s["tps"] else float("inf")
         print(f"continuous/static throughput: x{ratio:.2f}")
-        _record(records, f"serving_sched/{label}", shape, s, dev,
-                {"scheduler": "static"})
         _record(records, f"serving_sched/{label}", shape, c, dev,
                 {"scheduler": "continuous", "graphs": cont.graphed})
         records.append(common.record(f"serving_sched/{label}", shape,
                                      "continuous_static_speedup", ratio,
                                      device=dev))
-        out.append({"rate_hz": rate, "static": s, "continuous": c,
-                    "speedup": ratio,
-                    "outputs": {"static": so, "continuous": co}})
+        if "static_eager" in row:
+            e = row["static_eager"]
+            row["static_graph_speedup"] = (s["tps"] / e["tps"] if e["tps"]
+                                           else float("inf"))
+            print(f"static graphs/eager throughput: "
+                  f"x{row['static_graph_speedup']:.2f}")
+            records.append(common.record(
+                f"serving_sched/{label}", shape, "static_graph_speedup",
+                row["static_graph_speedup"], device=dev))
+        row.update(continuous=c, speedup=ratio)
+        row["outputs"]["continuous"] = co
+        out.append(row)
         # the second run: half the request rate the continuous engine
         # sustained in this one
         rate = 0.5 * n_requests / cw
@@ -389,9 +412,10 @@ def full_params(dev):
 
 
 def run_full(dev, records, *, n_requests=FULL["requests"], layouts=True,
-             preemption=True):
+             preemption=True, eager_static=True):
     """Part (a). ``n_requests`` cuts the trace (the layouts take two
-    thirds of it, at least 8); widths are never cut."""
+    thirds of it, at least 8); widths are never cut. ``eager_static``
+    False leaves out the static engine's eager rows."""
     if dev.type != "cuda":
         raise RuntimeError("part (a) serves qwen2-0.5b at full width: it "
                            "runs on the card (part (b) runs anywhere)")
@@ -405,7 +429,7 @@ def run_full(dev, records, *, n_requests=FULL["requests"], layouts=True,
     res = {"schedulers": run_schedulers(
         params, cfg, prompt_len=P, max_batch=FULL["max_batch"],
         n_requests=n_requests, rate_hz=1000.0, prompts=prompts, runs=2,
-        label="full", **common_kw)}
+        label="full", eager_static=eager_static, **common_kw)}
     if layouts:
         res["layouts"] = run_layouts(
             params, cfg, prompt_len=P, n_requests=max(8, n_requests * 2 // 3),
@@ -465,7 +489,9 @@ def run(csv_rows=None, *, device="cuda", smoke=False, results=None,
     if csv_rows is not None:
         for key, res in out.items():
             for r in res["schedulers"]:
-                for sched in ("static", "continuous"):
+                for sched in ("static", "static_eager", "continuous"):
+                    if sched not in r:
+                        continue
                     row = r[sched]
                     csv_rows.append((
                         f"serving_{key}/{sched}_rate{r['rate_hz']:.1f}",

@@ -29,8 +29,9 @@ Phases, each timed, any failure raises and exits non-zero:
    attention and select also at the trajectory collector's shapes (block
    attention timed there too), select's candidates and confidences also
    against a float64 oracle; phase 7's shapes: decode attention at one
-   query row per lane (the AR step; qwen2-0.5b's and dream-7b's head
-   layouts, caches of 576 rows filled to 512..575, bf16 timed, fp32),
+   query row per lane (the AR step; qwen2-0.5b's, dream-7b's and
+   llada-8b's head layouts, caches of 576 rows filled to 512..575, bf16
+   timed, fp32 but for llada-8b),
    block attention over fast_dllm's canvas (b=8, L=576, bidirectional)
    and over ar's causal prefill (b=8, L=512), both timed against masked
    SDPA, and both modes at fp32;
@@ -77,19 +78,27 @@ Phases, each timed, any failure raises and exits non-zero:
    every run equal, launches equal to the call accounting, the greedy
    trace through the dense-logits iteration, four of the requests on the
    paged layout equal to the dense one, and a profiled sampled block; (c) the
-   static engine, 8 requests greedy through fused select and at an engine
-   default of 0.7, each twice, deterministic; (d) ``serve_http`` on a
+   static engine's sampled decode: 8 requests at an engine default of 0.7,
+   G=32, for ``vanilla``, ``fast_dllm``, ``dual_cache``,
+   ``interval_cache`` and ``cdlm`` (``ar`` is greedy), each through an
+   eager engine (``graphs=False``) and a graph engine in turns (eager,
+   graph, graph, eager): tokens, steps, gen_length, finish_reason, calls
+   and launches equal, launches equal to each decoder's accounting,
+   tokens/s and ms per call of each path; (d) ``serve_http`` on a
    loopback port over (b)'s graph engine, a greedy and a seeded sampled
    completion streamed and not, equal to the eager engine's ``generate``,
    ``/healthz`` and ``/metrics``; (e) phase 5's collection shape at
    temperature 0.5 through the forward's graph and eagerly, bit for bit;
-7. the paper's four baseline decoders: (a) ``fast_dllm``, ``dual_cache``,
-   ``interval_cache`` and ``ar`` at full width through the static engine
-   (eager), 8 of phase 3's prompts, G=64, block 32, tau 0.9, greedy,
-   fused select, bf16: tokens/s, mean latency, steps and calls of each,
-   the calls and every kernel's launches held to each decoder's
-   accounting (fast_dllm: the iterations; dual_cache: 1 + (blocks - 1) +
-   the iterations; interval_cache: 1 + the iterations; ar: 1 + G); (b)
+7. the paper's six decoders: (a) all six at full width through the
+   static engine, 8 of phase 3's prompts, G=64, block 32, tau 0.9, greedy,
+   fused select, bf16, each eagerly and through the engine's CUDA graphs
+   in turns (eager, graph, graph, eager), every run equal: tokens/s, ms
+   per call, steps and calls of each path (``cdlm``: a profiled batch of
+   each path, its device busy and idle share), the calls and every
+   kernel's launches held to each decoder's accounting (vanilla: G;
+   fast_dllm: the iterations; dual_cache: 1 + (blocks - 1) + the
+   iterations; interval_cache: 1 + the iterations; cdlm: 1 + the
+   iterations + the blocks; ar: 1 + G); (b)
    each of them at fp32 (2 lanes, P=64) with the kernels and with their
    plain versions passed through ``run_block_loop(attention_fns=...)``:
    tokens, steps and calls equal (a divergence accepted only at a
@@ -900,9 +909,12 @@ def phase_kernels(torch, dev):
     # the AR step (phase 7): one query row per lane (Bq G = 7 folded rows of
     # a 64-row tile), caches of 576 rows filled to 512..575
     lens_ar = [512, 513, 527, 544, 559, 560, 574, 575]
-    for name, kv, hd in (("qwen2-0.5b", 2, 64), ("dream-7b", 4, 128)):
-        for dtype in ("bfloat16", "float32"):
-            check_decode(torch, dev, b=8, Bq=1, Kv=kv, G=7, hd=hd, S=576,
+    for name, kv, g, hd, dtypes in (
+            ("qwen2-0.5b", 2, 7, 64, ("bfloat16", "float32")),
+            ("dream-7b", 4, 7, 128, ("bfloat16", "float32")),
+            ("llada-8b", 32, 1, 128, ("bfloat16",))):
+        for dtype in dtypes:
+            check_decode(torch, dev, b=8, Bq=1, Kv=kv, G=g, hd=hd, S=576,
                          lens=lens_ar, dtype=dtype,
                          timed=dtype == "bfloat16",
                          name=f"{name} AR step Bq=1 {dtype}")
@@ -1084,7 +1096,7 @@ def phase_serving(torch, dev):
     check_outputs(cfg, outs, dict(enumerate(caps)), B)
     check_launches(cfg, calls, launches, "dense")
     tokens = sum(o.gen_length for o in outs.values())
-    if eng._graphs is None:
+    if not eng._graphs:
         raise AssertionError("serving: the engine did not capture its graphs")
     rec = {"phase": "serving", "config": "qwen2-0.5b", "dtype": "bfloat16",
            "layout": "dense", "graphs": True, "requests": len(outs),
@@ -1131,7 +1143,7 @@ def phase_paged(torch, dev, ctx):
                 for i in range(n_req)]
         outs, wall, counts = serve_counted(torch, dev, eng, reqs)
         calls = eng.call_counts()
-        if eng._graphs is None:
+        if not eng._graphs:
             raise AssertionError(f"paged {case}: no graphs captured")
         check_outputs(cfg, outs, {i: caps[i] for i in range(n_req)}, B)
         check_launches(cfg, calls, counts, "paged")
@@ -1189,7 +1201,7 @@ def phase_graph_vs_eager(torch, dev, ctx):
                    for name, graphs in (("eager", False), ("graph", None))}
         for eng in engines.values():
             eng.warmup()
-        if engines["graph"]._graphs is None or engines["eager"]._graphs:
+        if not engines["graph"]._graphs or engines["eager"]._graphs:
             raise AssertionError(f"{case}: graphs on the wrong engine")
         reqs = [Request(prompt=prompts[i], id=i, max_tokens=caps[i])
                 for i in range(n_req)]
@@ -1823,7 +1835,7 @@ def phase_training(torch, dev):
 # phase 6: sampled serving and the HTTP frontend
 # ---------------------------------------------------------------------------
 GUMBEL_ULP = 2          # Gumbel noise, CUDA against the CPU: ulps of max(|g|, 1)
-STATIC_GEN = 64         # the static engine's generation (2 blocks)
+STATIC_GEN = 32         # the static engine's sampled generation (a block)
 HTTP_MAX_TOKENS = 64    # each HTTP completion's cap (2 blocks)
 COLLECT_SHAPE = (4, 128, 256, 32)   # phase 5's collection: b, P, G, block
 PAGED_IDS = (1, 3, 6, 11)   # (b)'s paged run: caps 64, 32, 32, 32
@@ -1996,59 +2008,112 @@ def check_sampled_serving(torch, dev, ctx):
     return rec, engines, first
 
 
+def static_ab(torch, dev, ctx, name, serve, reqs, profile=False):
+    """Decoder ``name`` through the static engine eagerly
+    (``graphs=False``) and through its CUDA graphs (captured at warmup,
+    once per engine), in turns: eager, graph, graph, eager. Every run
+    equals the first in tokens, steps, gen_length, finish_reason, calls
+    and every kernel's launches, which must equal the decoder's accounting
+    (``decoder_launches``); the eager engine captures nothing. Prints
+    each path's tokens/s and ms per call; ``profile``: a profiled batch of
+    each engine too (``profile_block``). Returns (record, the first graph
+    run's launches)."""
+    from repro_torch.serving import Engine
+    cfg, P = ctx["cfg"], ctx["P"]
+    engines = {path: Engine(ctx["params"], cfg, serve, prompt_len=P,
+                            device=dev, graphs=graphs)
+               for path, graphs in (("eager", False), ("graph", None))}
+    engines["graph"].warmup()
+    captured = sorted(engines["graph"]._graphs)
+    runs, ref, first = {"eager": [], "graph": []}, None, None
+    for path in ("eager", "graph", "graph", "eager"):
+        eng = engines[path]
+        outs, wall, counts = serve_counted(torch, dev, eng, reqs)
+        calls = eng.call_counts()["total"]
+        want, want_calls, iters = decoder_launches(cfg, name, counts, calls,
+                                                   eng.spec)
+        bad = {k: (counts[k], v) for k, v in want.items()
+               if v is not None and counts[k] != v}
+        if name == "interval_cache" and want["block_attention"] is None \
+                and counts["block_attention"] < cfg.n_layers:
+            bad["block_attention"] = (counts["block_attention"],
+                                      ">= layers")
+        if bad or calls != want_calls:
+            raise AssertionError(f"{name}, {path}: launches {counts} / calls "
+                                 f"{calls} against the accounting {want}, "
+                                 f"{want_calls}: {bad}")
+        for rid, o in outs.items():
+            if (np.any(o.tokens[:o.gen_length] == cfg.mask_token_id)
+                    or not 1 <= o.steps <= serve.gen_length
+                    or (name not in ("ar", "vanilla") and o.steps > iters)):
+                raise AssertionError(f"{name}, {path}: request {rid} steps "
+                                     f"{o.steps}, mask token left")
+        got = ({rid: (o.tokens.tolist(), o.steps, o.gen_length,
+                      o.finish_reason) for rid, o in outs.items()},
+               calls, counts)
+        ref = ref or got
+        first = first or (counts if path == "graph" else None)
+        if got != ref:
+            raise AssertionError(f"{name}: the {path} run differs from the "
+                                 "first eager run")
+        tokens = sum(o.gen_length for o in outs.values())
+        runs[path].append({"wall_s": wall, "tps": tokens / wall,
+                           "ms_per_call": wall * 1e3 / calls,
+                           "mean_latency_s": float(np.mean(
+                               [o.latency_s for o in outs.values()]))})
+    if engines["eager"]._graphs is not None or not captured \
+            or sorted(engines["graph"]._graphs) != captured:
+        raise AssertionError(f"{name}: graphs {captured} captured, "
+                             f"{sorted(engines['graph']._graphs)} after")
+    profiles = {}
+    if profile:
+        for path, eng in engines.items():
+            prof = profile_block(torch, dev, eng, ctx["prompts"][:8],
+                                 ctx["B"])
+            profiles[path] = {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "idle_share",
+                "unprofiled_wall_ms", "idle_share_of_unprofiled_wall",
+                "device_ms_by_group", "calls")}
+    del engines
+    torch.cuda.empty_cache()
+    log(f"{name}: " + "; ".join(
+        f"{path} {r['tps']:.1f} tokens/s, {r['ms_per_call']:.2f} ms a call"
+        for path in ("eager", "graph") for r in runs[path]))
+    rec = {"decoder": name, "calls": ref[1], "iterations": iters,
+           "launches": ref[2], "graphs": captured, "equal": True,
+           "mean_steps": float(np.mean([v[1] for v in ref[0].values()])),
+           "tokens": sum(v[2] for v in ref[0].values()), "runs": runs}
+    if profiles:
+        rec["profiled_batch"] = profiles
+    return rec, first
+
+
 def check_static(torch, dev, ctx):
-    """(c) The static engine: 8 requests through ``Engine.generate`` with
-    fused select (greedy) and without it at an engine default of 0.7,
-    each twice: equal outputs and launches, which equal the call
-    accounting. Returns (records, launches of each case's first run)."""
+    """(c) The static engine's sampled decode: 8 of phase 3's prompts
+    through ``Engine.generate`` at an engine default of 0.7 (no fused
+    select: the scalar path's canvas-shaped draw), one block (G=32: 7a
+    runs two, greedy), for every decoder
+    that samples (``ar`` is greedy; phase 7a serves it), each eagerly and
+    through its graphs in turns (``static_ab``). Returns (records,
+    launches of each decoder's first graph run)."""
     import dataclasses
 
-    from repro_torch.serving import Engine, Request
-    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    from repro_torch.serving import Request
     base = dataclasses.replace(ctx["serve"], gen_length=STATIC_GEN,
-                               scheduler="static", fused_select=True)
+                               scheduler="static", fused_select=False,
+                               temperature=0.7)
+    reqs = [Request(prompt=ctx["prompts"][i], id=i) for i in range(8)]
     recs, launches = [], []
-    for case, serve in (("greedy, fused select", base),
-                        ("sampled default 0.7", dataclasses.replace(
-                            base, fused_select=False, temperature=0.7))):
-        # no warmup: the kernels are loaded, and the first call is held
-        # against the second
-        eng = Engine(ctx["params"], cfg, serve, prompt_len=P, device=dev)
-        got = []
-        for _ in range(2):
-            outs, wall, counts = serve_counted(torch, dev, eng, [
-                Request(prompt=ctx["prompts"][i], id=i) for i in range(8)])
-            calls = eng.call_counts()
-            n_blocks = STATIC_GEN // B
-            cached = calls["total"] - calls["batches"]
-            want = {"decode_attention": cfg.n_layers * cached,
-                    "fused_select": (cached - n_blocks * calls["batches"]
-                                     if serve.fused_select else 0),
-                    "paged_decode_attention": 0,
-                    "block_attention": cfg.n_layers * calls["batches"],
-                    "xent_forward": 0, "xent_backward": 0}
-            if counts != want:
-                raise AssertionError(f"static {case}: launches {counts} != "
-                                     f"{want} ({calls})")
-            for rid, o in outs.items():
-                # early stop leaves the blocks after an EOS masked: only
-                # the span before it must hold real tokens
-                if (np.any(o.tokens[:o.gen_length] == cfg.mask_token_id)
-                        or not 1 <= o.steps <= STATIC_GEN):
-                    raise AssertionError(f"static {case}: request {rid} "
-                                         f"steps {o.steps}, mask token left")
-            got.append(({rid: (o.tokens.tolist(), o.steps)
-                         for rid, o in outs.items()}, calls, counts, wall,
-                        sum(o.gen_length for o in outs.values())))
-        if got[0][:3] != got[1][:3]:
-            raise AssertionError(f"static {case}: two calls differ")
-        launches.append(got[0][2])
-        recs.append({"case": case, "calls": got[0][1],
-                     "tps": [g[4] / g[3] for g in got],
-                     "wall_s": [g[3] for g in got], "deterministic": True})
+    for name in DECODERS[:-1]:
+        rec, counts = static_ab(torch, dev, ctx, name, dataclasses.replace(
+            base, sampler=name), reqs)
+        recs.append(rec)
+        launches.append(counts)
     log(json.dumps({"phase": "static engine", "config": "qwen2-0.5b",
-                    "dtype": "bfloat16", "requests": 8, "prompt_len": P,
-                    "gen": STATIC_GEN, "cases": recs}))
+                    "dtype": "bfloat16", "requests": 8,
+                    "prompt_len": ctx["P"], "gen": STATIC_GEN,
+                    "temperature": 0.7, "fused_select": False,
+                    "decoders": recs}))
     return recs, launches
 
 
@@ -2196,91 +2261,77 @@ def phase_sampled(torch, dev, ctx):
 # phase 7: the paper's four baseline decoders
 # ---------------------------------------------------------------------------
 BASELINES = ("fast_dllm", "dual_cache", "interval_cache", "ar")
+DECODERS = ("vanilla", "fast_dllm", "dual_cache", "interval_cache", "cdlm",
+            "ar")
 BASELINE_GEN = 64           # (a)'s generation: 2 blocks of 32
 PATHS_P = 64                # (b) and (c): prompt, lanes (fp32)
 PATHS_LANES = 2
 
 
-def baseline_launches(cfg, name, iters, spec):
-    """What each kernel launched in one batch of decoder ``name``, from its
-    ``iters`` refinement iterations (fused select: one select each): the
-    block attention once per layer and full-sequence forward, the decode
-    attention once per layer and AR step, the select once per iteration;
-    and the call accounting each decoder must keep. interval_cache's
-    in-loop refreshes are known exactly when every block ran B iterations
-    (else only that there was the first). Returns (want launches or None
-    per kernel, want calls)."""
+def decoder_launches(cfg, name, counts, calls, spec):
+    """What each kernel launched in one batch of decoder ``name`` and the
+    calls it must make, from its refinement iterations: with fused select
+    one select each (so the iterations are the select's launches),
+    otherwise the calls less the decoder's other forwards. The block
+    attention once per layer and full-sequence forward through it (none
+    for ``vanilla`` without fused select: its canvas takes the generic
+    attention, as the JAX collector's), the dense decode attention once
+    per layer and cached forward (``cdlm``'s iterations and commit passes,
+    ``ar``'s steps). interval_cache's in-loop refreshes are known exactly
+    when every block ran B iterations (else only that there was the
+    first). Returns (want launches or None per kernel, want calls,
+    iterations)."""
     Lyr, B, R, nb, G = (cfg.n_layers, spec.block_size,
                         spec.cache_refresh_interval, spec.n_blocks,
                         spec.gen_len)
+    fused = spec.fused_select and spec.temperature <= 0
     if name == "ar":
         return ({"decode_attention": Lyr * G, "fused_select": 0,
-                 "block_attention": Lyr}, 1 + G)
-    full = {"fast_dllm": iters, "dual_cache": nb,
+                 "block_attention": Lyr, "paged_decode_attention": 0,
+                 "xent_forward": 0, "xent_backward": 0}, 1 + G, G)
+    other = {"vanilla": 0, "fast_dllm": 0, "dual_cache": nb,
+             "interval_cache": 1, "cdlm": 1 + nb}[name]
+    iters = counts["fused_select"] if fused else calls - other
+    if name == "vanilla":
+        iters = G
+    full = {"vanilla": G if spec.fused_select else 0,
+            "fast_dllm": iters, "dual_cache": nb,
             "interval_cache": (1 + nb * (B // R) if iters == nb * B
-                               else None)}[name]
-    want_calls = {"fast_dllm": iters, "dual_cache": nb + iters,
-                  "interval_cache": 1 + iters}[name]
-    return ({"decode_attention": 0, "fused_select": iters,
-             "block_attention": None if full is None else Lyr * full},
-            want_calls)
+                               else None),
+            "cdlm": 1}[name]
+    return ({"decode_attention": Lyr * (iters + nb) if name == "cdlm" else 0,
+             "fused_select": iters if fused else 0,
+             "block_attention": None if full is None else Lyr * full,
+             "paged_decode_attention": 0, "xent_forward": 0,
+             "xent_backward": 0}, iters + other, iters)
 
 
 def check_baseline_serving(torch, dev, ctx):
-    """(a) The four decoders at full width through the static engine: the
+    """(a) The six decoders at full width through the static engine: the
     first 8 prompts of phase 3 (P=512), G=64, block 32, tau 0.9, greedy,
-    fused select, bf16. Launches counted from 0 around ``generate``: they
-    and the calls hold each decoder's accounting. Returns (records,
-    summed launches)."""
+    fused select, bf16, each eagerly and through its graphs in turns
+    (``static_ab``): launches counted from 0 around ``generate``; they and
+    the calls hold each decoder's accounting. Returns (records, summed
+    launches of each decoder's first graph run)."""
     import dataclasses
 
-    from repro_torch.serving import Engine, Request
-    cfg, P, B = ctx["cfg"], ctx["P"], ctx["B"]
+    from repro_torch.serving import Request
+    reqs = [Request(prompt=ctx["prompts"][i], id=i) for i in range(8)]
     recs, total = [], {}
-    for name in BASELINES:
+    for name in DECODERS:
         serve = dataclasses.replace(ctx["serve"], gen_length=BASELINE_GEN,
                                     scheduler="static", sampler=name,
                                     fused_select=True)
-        eng = Engine(ctx["params"], cfg, serve, prompt_len=P, device=dev)
-        eng.warmup()
-        reqs = [Request(prompt=ctx["prompts"][i], id=i) for i in range(8)]
-        outs, wall, counts = serve_counted(torch, dev, eng, reqs)
-        calls = eng.call_counts()["total"]
-        iters = counts["fused_select"]
-        want, want_calls = baseline_launches(cfg, name, iters, eng.spec)
-        bad = {k: (counts[k], v) for k, v in want.items()
-               if v is not None and counts[k] != v}
-        if name == "interval_cache" and want["block_attention"] is None \
-                and counts["block_attention"] < cfg.n_layers:
-            bad["block_attention"] = (counts["block_attention"],
-                                      ">= layers")
-        if bad or calls != want_calls or counts["paged_decode_attention"] \
-                or counts["xent_forward"] or counts["xent_backward"]:
-            raise AssertionError(f"{name}: launches {counts} / calls "
-                                 f"{calls} against the accounting {want}, "
-                                 f"{want_calls}: {bad}")
-        for rid, o in outs.items():
-            if (np.any(o.tokens[:o.gen_length] == cfg.mask_token_id)
-                    or not 1 <= o.steps <= BASELINE_GEN
-                    or (name != "ar" and o.steps > iters)):
-                raise AssertionError(f"{name}: request {rid} steps "
-                                     f"{o.steps}, mask token left")
-        tokens = sum(o.gen_length for o in outs.values())
-        recs.append({"decoder": name, "tokens": tokens, "wall_s": wall,
-                     "tps": tokens / wall,
-                     "mean_latency_s": float(np.mean(
-                         [o.latency_s for o in outs.values()])),
-                     "mean_steps": float(np.mean(
-                         [o.steps for o in outs.values()])),
-                     "calls": calls, "iterations": iters,
-                     "launches": counts})
+        rec, counts = static_ab(torch, dev, ctx, name, serve, reqs,
+                                profile=name == "cdlm")
+        recs.append(rec)
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
-    log(json.dumps({"phase": "baseline serving", "config": "qwen2-0.5b",
-                    "dtype": "bfloat16", "engine": "static, eager",
-                    "requests": 8, "prompt_len": P, "gen": BASELINE_GEN,
-                    "block": B, "tau": 0.9, "fused_select": True,
-                    "decoders": recs}))
+    log(json.dumps({"phase": "decoder serving", "config": "qwen2-0.5b",
+                    "dtype": "bfloat16", "engine": "static, eager and graphs",
+                    "requests": 8, "prompt_len": ctx["P"],
+                    "gen": BASELINE_GEN, "block": ctx["B"], "tau": 0.9,
+                    "fused_select": True, "decoders": recs}))
     return recs, total
 
 
@@ -2531,12 +2582,13 @@ def check_baseline_paths(torch, dev, ctx):
 
 
 def phase_baselines(torch, dev, ctx):
-    """Phase 7: (a) the four baseline decoders served at full width, (b)
-    their kernel paths against their plain paths, (c) the cross-checks.
+    """Phase 7: (a) the six decoders served at full width, (b) the four
+    baselines' kernel paths against their plain paths, (c) the
+    cross-checks.
     Returns the launches of (a), the main-path runs."""
     t = time.perf_counter()
     _, launches = check_baseline_serving(torch, dev, ctx)
-    log(f"phase 7a (baseline serving): {time.perf_counter() - t:.1f} s")
+    log(f"phase 7a (decoder serving): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     check_baseline_paths(torch, dev, ctx)
     log(f"phase 7b-c (kernel vs plain, cross-checks): "
@@ -2731,9 +2783,12 @@ def phase_tuning_and_benches(torch, dev, ctx):
         f"from {bench.FULL['requests']}) and "
         f"{max(8, SERVING_BENCH_REQUESTS * 2 // 3)} in the layouts' (cut "
         f"from {max(8, bench.FULL['requests'] * 2 // 3)}); widths, lanes, "
-        "pools and the preemption case as in the bench")
+        "pools and the preemption case as in the bench; the static "
+        "engine through its graphs only (phases 6c and 7a hold it to "
+        "its eager path)")
     zero_counts()
-    res = bench.run_full(dev, records, n_requests=SERVING_BENCH_REQUESTS)
+    res = bench.run_full(dev, records, n_requests=SERVING_BENCH_REQUESTS,
+                         eager_static=False)
     torch.cuda.synchronize(dev)
     launches = read_counts()
     for name in ("decode_attention", "paged_decode_attention",
@@ -2811,7 +2866,7 @@ def main():
 
     t = time.perf_counter()
     phase7_launches = phase_baselines(torch, dev, ctx)
-    log(f"phase 7 (baseline decoders): {time.perf_counter() - t:.1f} s")
+    log(f"phase 7 (the six decoders): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     phase8_launches = phase_tuning_and_benches(torch, dev, ctx)

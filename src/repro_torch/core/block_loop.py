@@ -23,10 +23,21 @@ Sampled decoding draws from the reference's threefry streams
 are the JAX package's. A scalar-temperature draw is shaped like the
 reference's canvas logits ``(b, T, V)``; the port hashes the active
 block's counters of that draw only (the selection reads nothing else),
-and computes the lm_head over the active block only. The loops run
-eagerly with one host read per iteration (the reference's ``while_loop``
-condition; none in the greedy-next loop), apart from the collector's CUDA
-graph."""
+and computes the lm_head over the active block only.
+
+A decode reads and writes a :class:`DecodeState`: the canvases, the cache
+and every vector and offset of the loops as device tensors (the active
+block's start and the AR step's position too), so a step reads nothing
+of the host. The host loop keeps the reference's control: one read of
+``active`` per threshold iteration (its ``while_loop`` condition; none in
+the greedy-next loop), and it schedules the prefill, the refreshes and
+the commit passes. Each step it runs goes through a replay hook,
+``replay(name, fn)`` (``repro_torch.graphs``): :func:`run_block_loop`
+runs eagerly by default (the top-1 loop's forward a CUDA graph captured
+per call, the collector's), and the static engine passes its own state
+and a hook that captures each step as a CUDA graph once per engine and
+replays it, the port's counterpart of the reference's ``jax.jit`` of the
+sampler. Graph and eager run the same code."""
 from __future__ import annotations
 
 import dataclasses
@@ -173,6 +184,103 @@ def _gen_lengths(tokens: torch.Tensor, spec: SamplerSpec, cfg: ModelConfig,
                        torch.full_like(first, spec.gen_len))
 
 
+class DecodeState:
+    """The device buffers one decode of ``b`` lanes reads and writes: the
+    canvases ``tokens`` (b, P+G), the ``cache`` its policy needs (none for
+    ``none``; the dense whole-canvas cache for the approx policies and
+    ``ar``; the exact cache in ``spec.cache_layout`` for
+    ``exact-commit``), the scalar stream's ``key``, the per-lane
+    ``done``, ``steps`` and ``active`` vectors, the per-lane sampling
+    params ``lanes`` (:class:`LaneParams`), the active block's ``start``
+    and the AR step's position ``pos`` (0-dim int64), and the AR step's
+    ``last`` logits.
+
+    :func:`run_block_loop` makes one per call unless it is given one. The
+    static engine allocates one for its life and loads each batch into it
+    in place (:meth:`load`), so the CUDA graphs of its decode read every
+    buffer at one address; a step reads no offset as a Python int."""
+
+    def __init__(self, cfg: ModelConfig, spec: SamplerSpec,
+                 strategy: DecodeStrategy, b: int, device,
+                 dtype=torch.int64):
+        dev = torch.device(device)
+        T = spec.prompt_len + spec.gen_len
+        policy = strategy.cache_policy
+        self.mask_id = cfg.mask_token_id
+        self.block_size = spec.block_size
+        self.tokens = torch.full((b, T), cfg.mask_token_id, dtype=dtype,
+                                 device=dev)
+        self.cache = None
+        if policy == "exact-commit":
+            self.cache = _init_exact_cache(cfg, b, T, spec, dev)
+            if isinstance(self.cache, C.PagedCache):
+                self.cache.device_table()   # its one upload, before any step
+        elif policy != "none":
+            self.cache = C.init_cache(cfg, b, T, device=dev)
+        self.key = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.steps = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.start = torch.zeros((), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.last = (torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                                 device=dev) if policy == "ar" else None)
+        self.lanes = LaneParams(
+            temperature=torch.zeros((b,), dtype=torch.float32, device=dev),
+            conf_threshold=torch.zeros((b,), dtype=torch.float32,
+                                       device=dev),
+            eos_id=torch.zeros((b,), dtype=torch.int64, device=dev),
+            key=torch.zeros((b, 2), dtype=torch.int64, device=dev))
+
+    def cache_buffers(self):
+        """The cache's K/V buffers (a paged cache's pools)."""
+        if self.cache is None:
+            return []
+        slots = (self.cache.slots if isinstance(self.cache, C.PagedCache)
+                 else self.cache)
+        return [buf for slot in slots for buf in slot.values()]
+
+    def load(self, prompt_tokens, key, lanes: Optional[LaneParams] = None):
+        """A fresh decode of ``prompt_tokens`` (b, P) on the device, in
+        place: the canvases, a zeroed cache (a paged one keeps its pages),
+        ``done``, ``steps``, ``active``, the offsets, the scalar ``key``
+        and, where given, the per-lane params."""
+        b, P = prompt_tokens.shape
+        if b != self.tokens.shape[0]:
+            raise ValueError(f"{b} prompts for a decode state of "
+                             f"{self.tokens.shape[0]} lanes")
+        self.tokens[:, :P].copy_(prompt_tokens)
+        self.tokens[:, P:].fill_(self.mask_id)
+        for buf in self.cache_buffers() + [self.done, self.steps,
+                                           self.active, self.start,
+                                           self.pos]:
+            buf.zero_()
+        self.key.copy_(key)
+        if lanes is not None:
+            for buf, value in zip(self.lanes, lanes):
+                buf.copy_(value)
+
+    def positions(self) -> torch.Tensor:
+        """(b, B) canvas positions of the active block."""
+        return _block_positions(self.start, self.block_size,
+                                self.tokens.shape[0], self.tokens.device)
+
+    def block(self) -> torch.Tensor:
+        """The active block's tokens (b, B)."""
+        return self.tokens.gather(1, self.positions())
+
+    def refresh_active(self) -> None:
+        """``active``: the running lanes whose block holds a mask token."""
+        self.active.copy_((self.block() == self.mask_id).any(-1)
+                          & ~self.done)
+
+
+def _block_positions(start, B: int, b: int, device) -> torch.Tensor:
+    """(b, B) positions of the block at ``start`` (an int or a 0-dim
+    device tensor) in every lane."""
+    return (start + torch.arange(B, device=device)).expand(b, B)
+
+
 def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                        spec: SamplerSpec, return_hidden: bool = False,
                        decode_attention_fn=decode_attention,
@@ -213,16 +321,17 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
     return (out.hidden if return_hidden else out.logits), out.emissions
 
 
-def _canvas_index(b: int, T: int, V: int, start: int, B: int, device):
+def _canvas_index(b: int, T: int, V: int, start, B: int, device):
     """The flat counters of a ``(b, T, V)`` draw at the block ``[start,
-    start + B)`` of every lane: ``(b, B, V)``, int32 where they fit."""
+    start + B)`` of every lane (``start`` an int or a 0-dim device
+    tensor): ``(b, B, V)``, int32 where they fit."""
     dt = torch.int32 if b * T * V <= 1 << 31 else torch.int64
     rows = ((torch.arange(b, device=device)[:, None] * T + start
              + torch.arange(B, device=device)) * V).to(dt)
     return rows[..., None] + torch.arange(V, dtype=dt, device=device)
 
 
-def _canvas_draw(logits, tokens, start: int, T: int, temperature: float,
+def _canvas_draw(logits, tokens, start, T: int, temperature: float,
                  key, cfg: ModelConfig):
     """Candidates and confidences of the block ``[start, start + B)`` from
     its logits ``(b, B, V)``, the draw taken as the reference takes it over
@@ -242,48 +351,37 @@ def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
     candidates, their confidences and the post-norm hidden states of the
     block at canvas coordinate ``start``, each (b, B[, d]). With
     ``spec.fused_select`` the forward runs through ``prefill_fn`` (the
-    block attention kernel; ``w``: the (V, d) unembedding); otherwise
-    through the generic attention, as the JAX collector does. Greedy
-    selection then goes through the fused select kernel
-    (``spec.fused_select``) or the block's logits; a sampled step
-    (``spec.temperature > 0`` and ``key``) draws from the block's logits
-    as the reference draws over the canvas. Call it under
+    block attention kernel); otherwise through the generic attention, as
+    the JAX collector does. ``w`` (default the model's): the (V, d)
+    unembedding. Selection as :func:`_top1_pick`. Call it under
     ``torch.no_grad()``."""
-    B = spec.block_size
-    if spec.fused_select:
-        return _fused_pick(_canvas_hidden(params, tokens, cfg=cfg,
-                                          spec=spec, prefill_fn=prefill_fn),
-                           tokens, start, cfg=cfg, spec=spec, w=w, key=key)
-    out = forward(params, tokens, cfg=cfg, device=tokens.device,
-                  mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
-                  block_size=B, logits_slice=(start, start + B))
-    bt = tokens[:, start:start + B]
-    if spec.temperature > 0 and key is not None:
-        cand, conf = _canvas_draw(out.logits, bt, start, tokens.shape[1],
-                                  spec.temperature, key, cfg)
-    else:
-        cand, conf = D.confidence_and_candidates(out.logits, bt,
-                                                 cfg.mask_token_id)
-    return cand, conf, out.hidden[:, start:start + B]
+    hidden = _canvas_hidden(params, tokens, cfg=cfg, spec=spec,
+                            prefill_fn=(prefill_fn if spec.fused_select
+                                        else None))
+    return _top1_pick(hidden, tokens, start, cfg=cfg, spec=spec,
+                      w=unembed_matrix(params, cfg) if w is None else w,
+                      key=key)
 
 
 def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                    prefill_fn=flash_block_attention):
-    """The fused top-1 step's forward: post-norm hidden states (b, P+G, d)
-    of the whole canvases, bidirectional, through ``prefill_fn`` (the block
-    attention kernel; the collector captures it as a CUDA graph)."""
+    """The top-1 step's forward: post-norm hidden states (b, P+G, d) of
+    the whole canvases, bidirectional, through ``prefill_fn`` (the block
+    attention kernel; None: the generic attention)."""
     return forward(params, tokens, cfg=cfg, device=tokens.device,
                    mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
                    block_size=spec.block_size, return_logits=False,
                    prefill_attention_fn=prefill_fn).hidden
 
 
-def _fused_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
-                spec: SamplerSpec, w, key=None):
-    """The fused top-1 step's selection from the canvas' hidden states: the
-    block's candidates and confidences (greedy: through the fused select
-    kernel; sampled: the block's logits and the canvas-shaped draw), and
-    the block's hidden states."""
+def _top1_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
+               spec: SamplerSpec, w, key=None):
+    """The top-1 step's selection from the canvas' hidden states: the
+    block's candidates and confidences, and its hidden states. A sampled
+    step (``spec.temperature > 0`` and ``key``) draws from the block's
+    logits (the lm_head by ``w``) as the reference draws over the canvas;
+    a greedy one selects through the fused select kernel
+    (``spec.fused_select``) or the argmax of the block's logits."""
     B = spec.block_size
     hidden = hidden[:, start:start + B]
     bt = tokens[:, start:start + B]
@@ -291,15 +389,33 @@ def _fused_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
         logits = D.dense_logits(hidden, w, cfg.final_logit_softcap)
         cand, conf = _canvas_draw(logits, bt, start, tokens.shape[1],
                                   spec.temperature, key, cfg)
-        return cand, conf, hidden
-    cand, conf = D.confidence_and_candidates_fused(
-        hidden, w, bt, cfg.mask_token_id, softcap=cfg.final_logit_softcap)
+    elif spec.fused_select:
+        cand, conf = D.confidence_and_candidates_fused(
+            hidden, w, bt, cfg.mask_token_id,
+            softcap=cfg.final_logit_softcap)
+    else:
+        cand, conf = D.confidence_and_candidates(
+            D.dense_logits(hidden, w, cfg.final_logit_softcap), bt,
+            cfg.mask_token_id)
     return cand, conf, hidden
+
+
+def _loaded(state: Optional[DecodeState], prompt_tokens, *,
+            cfg: ModelConfig, spec: SamplerSpec, strategy: DecodeStrategy,
+            key, lanes: Optional[LaneParams] = None) -> DecodeState:
+    """``state`` (a fresh one when None) loaded with the decode of
+    ``prompt_tokens``."""
+    if state is None:
+        state = DecodeState(cfg, spec, strategy, prompt_tokens.shape[0],
+                            prompt_tokens.device, dtype=prompt_tokens.dtype)
+    state.load(prompt_tokens, key, lanes)
+    return state
 
 
 def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                record_hidden: bool, key=None, graphs: Optional[bool] = None,
-               fns: AttentionFns = KERNELS):
+               fns: AttentionFns = KERNELS,
+               state: Optional[DecodeState] = None, replay=None):
     """N = G steps, one most-confident token finalized per step, each step a
     bidirectional forward over the whole canvas (the ``vanilla`` strategy,
     :func:`top1_step`). Runs under ``torch.no_grad()``. ``key`` (default
@@ -311,35 +427,43 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
     exact encoding), and the fp32 hidden buffer (b, G, d): the teacher's
     last hidden state at each position's finalization.
 
-    ``graphs``: None (the default) runs the fused step's forward as a CUDA
-    graph over the canvas (captured once per call, its warm-up run serving
-    as the first step's forward) on CUDA with ``spec.fused_select``, and
-    eagerly otherwise; False runs it eagerly; True where it cannot apply
-    raises. The selection after each forward (a sampled step's logits and
-    draw too) runs eagerly either way.
+    The canvas forward goes through ``replay`` (the step ``"canvas"``; the
+    selection after it runs eagerly); ``state`` and ``replay`` as in
+    :func:`run_block_loop`. Without ``replay``, ``graphs``: None (the
+    default) runs the fused step's forward as a CUDA graph captured once
+    per call (its warm-up run serving as the first step's forward) on CUDA
+    with ``spec.fused_select``, and eagerly otherwise; False runs it
+    eagerly; True where it cannot apply raises.
     """
     graphable = spec.fused_select and prompt_tokens.device.type == "cuda"
     if graphs and not graphable:
         raise ValueError("graphs=True needs spec.fused_select and a CUDA "
                          "device")
+    if replay is None:
+        replay = (GR.Graphs() if graphable and graphs is not False
+                  else GR.eager)
     sampled = spec.temperature > 0
+    dev = prompt_tokens.device
+    key = prng.key(0, dev) if key is None else key.to(dev)
     with torch.no_grad():
-        tokens = init_canvas(prompt_tokens, spec, cfg)
+        st = _loaded(state, prompt_tokens, cfg=cfg, spec=spec,
+                     strategy=STRATEGIES["vanilla"], key=key)
+        tokens = st.tokens
         b = tokens.shape[0]
         P, B, G = spec.prompt_len, spec.block_size, spec.gen_len
-        dev = tokens.device
-        key = prng.key(0, dev) if key is None else key.to(dev)
         finalized_at = torch.full((b, G), -1, dtype=torch.int32, device=dev)
         hidden_buf = torch.zeros((b, G, cfg.d_model), dtype=torch.float32,
                                  device=dev)
-        w = unembed_matrix(params, cfg) if spec.fused_select else None
+        w = unembed_matrix(params, cfg)
         whole_block = torch.ones((1, B), dtype=torch.bool, device=dev)
-        graph = None
-        if graphable and graphs is not False:
-            # the canvas is written in place below: the graph reads it at
+        prefill_fn = fns.prefill if spec.fused_select else None
+
+        def canvas():
+            # the canvas is written in place below: a graph reads it at
             # its fixed address
-            graph = GR.Graph(lambda: _canvas_hidden(
-                params, tokens, cfg=cfg, spec=spec, prefill_fn=fns.prefill))
+            return _canvas_hidden(params, tokens, cfg=cfg, spec=spec,
+                                  prefill_fn=prefill_fn)
+
         step = 0
         for blk in range(spec.n_blocks):
             start = P + blk * B
@@ -347,16 +471,9 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                 sub = None
                 if sampled:      # a greedy step never reads its subkey
                     key, sub = prng.split(key)
-                if graph is None:
-                    cand, conf, hidden = top1_step(params, tokens, start,
-                                                   cfg=cfg, spec=spec, w=w,
-                                                   key=sub,
-                                                   prefill_fn=fns.prefill)
-                else:
-                    full = graph.warm if step == 0 else graph.replay()
-                    cand, conf, hidden = _fused_pick(full, tokens, start,
-                                                     cfg=cfg, spec=spec, w=w,
-                                                     key=sub)
+                cand, conf, hidden = _top1_pick(
+                    replay("canvas", canvas), tokens, start, cfg=cfg,
+                    spec=spec, w=w, key=sub)
                 bt = tokens[:, start:start + B]
                 sel = D.select_topk_in_block(conf, whole_block, 1)
                 tokens[:, start:start + B] = torch.where(
@@ -380,28 +497,16 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
 # ---------------------------------------------------------------------------
 # Finalization family: threshold (Fast-dLLM, the cache baselines, CDLM)
 # ---------------------------------------------------------------------------
-def _finalize(tokens, start: int, cand, conf, tau, active) -> None:
+def _finalize(tokens, pos, cand, conf, tau, active) -> None:
     """The threshold rule in block coordinates: the active lanes' positions
-    of the block ``[start, start + B)`` whose confidence reaches ``tau``
-    (scalar or (b, 1)), and always the most confident masked one, take
-    their candidates; written into ``tokens`` in place."""
-    B = cand.shape[1]
-    bt = tokens[:, start:start + B]
-    whole = torch.ones((1, B), dtype=torch.bool, device=tokens.device)
+    ``pos`` (b, B) whose confidence reaches ``tau`` (scalar or (b, 1)), and
+    always the most confident masked one, take their candidates; written
+    into ``tokens`` in place."""
+    bt = tokens.gather(1, pos)
+    whole = torch.ones((1, pos.shape[1]), dtype=torch.bool,
+                       device=tokens.device)
     sel = D.select_threshold_in_block(conf, whole, tau) & active[:, None]
-    tokens[:, start:start + B] = torch.where(sel, cand.to(bt.dtype), bt)
-
-
-def _threshold_update(tokens, logits, start: int, spec: SamplerSpec,
-                      cfg: ModelConfig, key, active) -> None:
-    """The reference's canvas-coordinate threshold update, the scalar
-    sampled path: the draw is shaped like the ``(b, T, V)`` canvas logits
-    (zero outside the block), and only the block's elements are hashed.
-    Writes the finalized tokens into ``tokens`` in place."""
-    B = spec.block_size
-    cand, conf = _canvas_draw(logits, tokens[:, start:start + B], start,
-                              tokens.shape[1], spec.temperature, key, cfg)
-    _finalize(tokens, start, cand, conf, spec.conf_threshold, active)
+    tokens.scatter_(1, pos, torch.where(sel, cand.to(bt.dtype), bt))
 
 
 def _block_candidates(params, cfg: ModelConfig, spec: SamplerSpec, net,
@@ -416,16 +521,6 @@ def _block_candidates(params, cfg: ModelConfig, spec: SamplerSpec, net,
             softcap=cfg.final_logit_softcap)
     return D.confidence_and_candidates(net, block_tokens, cfg.mask_token_id,
                                        spec.temperature, key)
-
-
-def _threshold_block_update(params, cfg: ModelConfig, spec: SamplerSpec,
-                            tokens, net, start: int, key, active) -> None:
-    """Block-coordinate threshold finalization (the scalar greedy path):
-    select on the block's (b, B) candidates, write the finalized tokens
-    into ``tokens`` in place."""
-    bt = tokens[:, start:start + spec.block_size]
-    cand, conf = _block_candidates(params, cfg, spec, net, bt, key)
-    _finalize(tokens, start, cand, conf, spec.conf_threshold, active)
 
 
 def _block_candidates_per_lane(params, cfg: ModelConfig, spec: SamplerSpec,
@@ -444,18 +539,55 @@ def _block_candidates_per_lane(params, cfg: ModelConfig, spec: SamplerSpec,
         subs if sampled else None)
 
 
-def _threshold_lane_update(params, cfg: ModelConfig, spec: SamplerSpec,
-                           tokens, net, start: int, lanes: LaneParams, subs,
-                           active, *, fused: bool, sampled: bool) -> None:
-    """Block-coordinate threshold finalization with per-lane params: the
-    lane's temperature picks greedy or sampled candidates, its τ the
-    threshold. Writes into ``tokens`` in place."""
-    bt = tokens[:, start:start + spec.block_size]
-    cand, conf = _block_candidates_per_lane(params, cfg, spec, net, bt,
-                                            lanes, subs, fused=fused,
-                                            sampled=sampled)
-    _finalize(tokens, start, cand, conf, lanes.conf_threshold[:, None],
-              active)
+def _variant(spec: SamplerSpec, lane_params, lane_sampled: bool) -> str:
+    """The threshold iteration's variant, as the reference specializes its
+    sampler: the scalar path ``"greedy"`` (fused or dense logits, by
+    ``spec.fused_select``) or ``"sampled"`` (the canvas-shaped draw), the
+    per-lane path ``"lanes"`` (greedy; fused by ``spec.fused_select``) or
+    ``"lanes-sampled"``."""
+    if lane_params is not None:
+        return "lanes-sampled" if lane_sampled else "lanes"
+    return "sampled" if spec.temperature > 0 else "greedy"
+
+
+def _threshold_iteration(params, st: DecodeState, *, cfg: ModelConfig,
+                         spec: SamplerSpec, strategy: DecodeStrategy,
+                         fns: AttentionFns, variant: str) -> None:
+    """One refinement iteration of the active lanes on ``st`` alone (the
+    static engine captures it as a CUDA graph per variant): the key split
+    (every iteration of the scalar stream; each active lane's key on the
+    per-lane path), the block forward, the selection, the threshold rule,
+    the scatter into the canvases, ``steps += active`` and the next
+    iteration's ``active``."""
+    per_lane = variant.startswith("lanes")
+    if per_lane:
+        keys, sub = D.split_lane_keys(st.lanes.key, st.active)
+        st.lanes.key.copy_(keys)
+    else:
+        pairs = prng.split(st.key)
+        st.key.copy_(pairs[0])
+        sub = pairs[1]
+    fused = spec.fused_select and variant in ("greedy", "lanes")
+    net, _ = _block_forward(params, st.tokens, st.start, st.cache, cfg=cfg,
+                            spec=spec, strategy=strategy, fns=fns,
+                            return_hidden=fused)
+    pos = st.positions()
+    bt = st.tokens.gather(1, pos)
+    if per_lane:
+        cand, conf = _block_candidates_per_lane(
+            params, cfg, spec, net, bt, st.lanes, sub, fused=fused,
+            sampled=variant == "lanes-sampled")
+        tau = st.lanes.conf_threshold[:, None]
+    elif variant == "greedy":
+        cand, conf = _block_candidates(params, cfg, spec, net, bt, sub)
+        tau = spec.conf_threshold
+    else:
+        cand, conf = _canvas_draw(net, bt, st.start, st.tokens.shape[1],
+                                  spec.temperature, sub, cfg)
+        tau = spec.conf_threshold
+    _finalize(st.tokens, pos, cand, conf, tau, st.active)
+    st.steps += st.active.to(torch.int32)
+    st.refresh_active()
 
 
 def _commit_any(kv_cache, emissions, offset: int, b: int):
@@ -496,17 +628,18 @@ def _refresh_cache(params, tokens, kv_cache, *, cfg: ModelConfig,
     C.commit(kv_cache, out.emissions, 0)
 
 
-def _block_pos_mask(T: int, start: int, size: int, device) -> torch.Tensor:
+def _block_pos_mask(T: int, start, size: int, device) -> torch.Tensor:
     pos = torch.arange(T, device=device)
     return (pos >= start) & (pos < start + size)
 
 
-def _block_forward(params, tokens, start: int, kv_cache, *,
+def _block_forward(params, tokens, start, kv_cache, *,
                    cfg: ModelConfig, spec: SamplerSpec,
                    strategy: DecodeStrategy, fns: AttentionFns,
                    return_hidden: bool):
     """The forward of one threshold iteration for the block at canvas
-    coordinate ``start`` under ``strategy.cache_policy``: ``(the block's
+    coordinate ``start`` (an int, or a 0-dim int64 tensor on the device:
+    then no host read) under ``strategy.cache_policy``: ``(the block's
     post-norm hidden (b, B, d) with return_hidden, else its logits (b, B,
     V); emissions)``. ``none``: the whole canvases through
     ``fns.prefill``, the lm_head over the block only; the approx
@@ -515,41 +648,45 @@ def _block_forward(params, tokens, start: int, kv_cache, *,
     the block against the exact cache through the layout's decode
     attention."""
     policy, B, dev = strategy.cache_policy, spec.block_size, tokens.device
+    b, T = tokens.shape
+    start = torch.as_tensor(start, dtype=torch.int64, device=dev)
     if policy == "exact-commit":
-        starts = torch.full((tokens.shape[0],), start, dtype=torch.int64,
-                            device=dev)
-        return lane_block_forward(params, tokens, starts, kv_cache, cfg=cfg,
-                                  spec=spec, return_hidden=return_hidden,
+        return lane_block_forward(params, tokens, start.expand(b), kv_cache,
+                                  cfg=cfg, spec=spec,
+                                  return_hidden=return_hidden,
                                   decode_attention_fn=fns.decode,
                                   paged_decode_attention_fn=fns.paged_decode)
+    pos = _block_positions(start, B, b, dev)
     if policy == "none":
         out = forward(params, tokens, cfg=cfg, device=dev,
                       mode=strategy.attn_mode, prompt_len=spec.prompt_len,
                       block_size=B, prefill_attention_fn=fns.prefill,
-                      logits_slice=(start, start + B),
-                      return_logits=not return_hidden)
-        return ((out.hidden[:, start:start + B] if return_hidden
-                 else out.logits), out.emissions)
-    out = forward(params, tokens[:, start:start + B], cfg=cfg, device=dev,
+                      return_logits=False)
+        hidden = out.hidden.gather(
+            1, pos[..., None].expand(b, B, out.hidden.shape[-1]))
+        if return_hidden:
+            return hidden, out.emissions
+        return (D.dense_logits(hidden, unembed_matrix(params, cfg),
+                               cfg.final_logit_softcap), out.emissions)
+    out = forward(params, tokens.gather(1, pos), cfg=cfg, device=dev,
                   mode=strategy.attn_mode, prompt_len=spec.prompt_len,
                   block_size=B, positions=start + torch.arange(B, device=dev),
                   cache=kv_cache, cache_len=start,
-                  cache_valid=~_block_pos_mask(tokens.shape[1], start, B,
-                                               dev),
+                  cache_valid=~_block_pos_mask(T, start, B, dev),
                   return_logits=not return_hidden)
     return out.hidden if return_hidden else out.logits, out.emissions
 
 
-def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
-                    spec: SamplerSpec, strategy: DecodeStrategy, key,
-                    lane_params: Optional[LaneParams] = None,
-                    lane_sampled: bool = False,
-                    fns: AttentionFns = KERNELS) -> SampleResult:
-    """The threshold loop: per block the refinement iterations (each a
-    forward and the threshold rule) while a running lane holds a mask
-    token in the block and fewer than B ran. One host read per iteration
-    (the reference's ``while_loop`` condition). The forward of an
-    iteration, by ``strategy.cache_policy``:
+def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
+                    spec: SamplerSpec, strategy: DecodeStrategy,
+                    variant: str, fns: AttentionFns = KERNELS,
+                    replay=GR.eager) -> SampleResult:
+    """The threshold loop on the loaded state ``st``: per block the
+    refinement iterations (:func:`_threshold_iteration`, of the
+    ``variant`` :func:`_variant` names) while a running lane holds a mask token in the
+    block and fewer than B ran. One host read per iteration (the
+    reference's ``while_loop`` condition). The forward of an iteration, by
+    ``strategy.cache_policy``:
 
     - ``none`` (``fast_dllm``): the whole canvases through ``fns.prefill``,
       no cache, no prefill; the lm_head over the active block only;
@@ -566,137 +703,138 @@ def _threshold_loop(params, prompt_tokens, *, cfg: ModelConfig,
       cache through the layout's decode attention, and a commit pass at
       the block's end.
 
-    Selection as in the reference: per-lane params (``lane_params``) in
-    block coordinates with per-lane streams (``lane_sampled``: some lane
-    draws, so the forwards carry logits); scalar greedy in block
-    coordinates (through the fused select kernel with
-    ``spec.fused_select``); scalar sampled with the canvas-shaped draw."""
+    Every step goes through ``replay``: the iteration (named by its
+    variant), ``"prefill"``, ``"refresh"`` and the commit pass's forward
+    ``"commit"``. The cache writes at host offsets (the exact prefill's
+    and the commit pass's, :func:`_commit_any`) and the block's start and
+    first ``active`` run eagerly between them."""
     policy = strategy.cache_policy
+    P, B, R = spec.prompt_len, spec.block_size, spec.cache_refresh_interval
+    b = st.tokens.shape[0]
+    per_lane = variant.startswith("lanes")
+
+    def refresh():
+        _refresh_cache(params, st.tokens, st.cache, cfg=cfg, spec=spec,
+                       fns=fns)
+
+    def prompt_emissions():
+        return forward(params, st.tokens[:, :P], cfg=cfg,
+                       device=st.tokens.device, mode=strategy.attn_mode,
+                       prompt_len=P, block_size=B, return_logits=False,
+                       prefill_attention_fn=fns.prefill).emissions
+
+    def iteration():
+        _threshold_iteration(params, st, cfg=cfg, spec=spec,
+                             strategy=strategy, fns=fns, variant=variant)
+
+    def commit_emissions():
+        return _block_forward(params, st.tokens, st.start, st.cache, cfg=cfg,
+                              spec=spec, strategy=strategy, fns=fns,
+                              return_hidden=True)[1]
+
     with torch.no_grad():
-        tokens = init_canvas(prompt_tokens, spec, cfg)
-        b, T = tokens.shape
-        P, B, R = spec.prompt_len, spec.block_size, spec.cache_refresh_interval
-        dev = tokens.device
-        lanes = lane_params is not None
-        blockwise = True if lanes else spec.temperature <= 0
-        fused = spec.fused_select and (not lane_sampled if lanes
-                                       else blockwise)
-        key_state = lane_params.key if lanes else key
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        steps = torch.zeros((b,), dtype=torch.int32, device=dev)
-        kv_cache, calls = None, 0
+        calls = 0
         if policy == "exact-commit":
-            kv_cache = _init_exact_cache(cfg, b, T, spec, dev)
-            out = forward(params, tokens[:, :P], cfg=cfg, device=dev,
-                          mode=strategy.attn_mode, prompt_len=P,
-                          block_size=B, return_logits=False,
-                          prefill_attention_fn=fns.prefill)
-            _commit_any(kv_cache, out.emissions, 0, b)
+            _commit_any(st.cache, replay("prefill", prompt_emissions), 0, b)
             calls = 1
         elif policy != "none":
-            kv_cache = C.init_cache(cfg, b, T, device=dev)
-            _refresh_cache(params, tokens, kv_cache, cfg=cfg, spec=spec,
-                           fns=fns)
+            replay("refresh", refresh)
             calls = 1
 
         for blk in range(spec.n_blocks):
             start = P + blk * B
-
-            def block_out(return_hidden):
-                return _block_forward(params, tokens, start, kv_cache,
-                                      cfg=cfg, spec=spec, strategy=strategy,
-                                      fns=fns, return_hidden=return_hidden)
-
+            st.start.fill_(start)
             if policy == "approx-dual" and blk > 0:
-                _refresh_cache(params, tokens, kv_cache, cfg=cfg, spec=spec,
-                               fns=fns)
+                replay("refresh", refresh)
                 calls += 1
+            st.refresh_active()
             for it in range(B):
-                masked = (tokens[:, start:start + B]
-                          == cfg.mask_token_id).any(-1)
-                active = masked & ~done
-                if not bool(active.any()):
+                if not bool(st.active.any()):
                     break
-                if lanes:
-                    key_state, sub = D.split_lane_keys(key_state, active)
-                else:
-                    key_state, sub = prng.split(key_state)
                 if policy == "approx-interval" and it % R == R - 1:
-                    _refresh_cache(params, tokens, kv_cache, cfg=cfg,
-                                   spec=spec, fns=fns)
-                net, _ = block_out(fused)
-                if lanes:
-                    _threshold_lane_update(params, cfg, spec, tokens, net,
-                                           start, lane_params, sub, active,
-                                           fused=fused, sampled=lane_sampled)
-                elif blockwise:
-                    _threshold_block_update(params, cfg, spec, tokens, net,
-                                            start, sub, active)
-                else:
-                    _threshold_update(tokens, net, start, spec, cfg, sub,
-                                      active)
-                steps += active.to(torch.int32)
+                    replay("refresh", refresh)
+                replay(variant, iteration)
                 calls += 1
             if policy == "exact-commit":
                 # commit pass: recompute the finalized block's KV exactly
-                _, emissions = block_out(True)
-                _commit_any(kv_cache, emissions, start, b)
+                _commit_any(st.cache, replay("commit", commit_emissions),
+                            start, b)
                 calls += 1
             if spec.early_stop:
-                eos = (lane_params.eos_id[:, None] if lanes
-                       else cfg.eos_token_id)
-                done |= (tokens[:, start:start + B] == eos).any(-1)
-    return SampleResult(tokens, steps, calls,
-                        _gen_lengths(tokens, spec, cfg,
-                                     eos_id=(lane_params.eos_id if lanes
+                eos = st.lanes.eos_id[:, None] if per_lane \
+                    else cfg.eos_token_id
+                st.done |= (st.block() == eos).any(-1)
+    return SampleResult(st.tokens, st.steps, calls,
+                        _gen_lengths(st.tokens, spec, cfg,
+                                     eos_id=(st.lanes.eos_id if per_lane
                                              else None)))
 
 
 # ---------------------------------------------------------------------------
 # Finalization family: greedy-next (the AR baseline)
 # ---------------------------------------------------------------------------
-def _greedy_next_loop(params, prompt_tokens, *, cfg: ModelConfig,
+def _ar_prefill(params, st: DecodeState, *, cfg: ModelConfig,
+                spec: SamplerSpec, strategy: DecodeStrategy,
+                fns: AttentionFns) -> None:
+    """The AR prefill: the prompts under ``strategy.attn_mode`` through
+    ``fns.prefill``, committed at 0, the logits of the last row into
+    ``st.last``."""
+    P = spec.prompt_len
+    out = forward(params, st.tokens[:, :P], cfg=cfg, device=st.tokens.device,
+                  mode=strategy.attn_mode, prefill_attention_fn=fns.prefill,
+                  logits_slice=(P - 1, P))
+    C.commit(st.cache, out.emissions, 0)
+    st.last.copy_(out.logits[:, -1])
+
+
+def _ar_step(params, st: DecodeState, *, cfg: ModelConfig,
+             strategy: DecodeStrategy, fns: AttentionFns) -> None:
+    """One AR step at the canvas position ``st.pos``, on ``st`` alone (the
+    static engine captures it as one CUDA graph and replays it G times):
+    the argmax of ``st.last`` (EOS once a lane is done) into the canvas,
+    ``steps`` and ``done``, the cached forward of that token through
+    ``fns.decode``, its KV committed at ``st.pos``, its logits into
+    ``st.last``, and ``st.pos`` advanced."""
+    tokens, b = st.tokens, st.tokens.shape[0]
+    eos = torch.full((b,), cfg.eos_token_id, dtype=tokens.dtype,
+                     device=tokens.device)
+    nxt = torch.where(st.done, eos, torch.argmax(st.last, -1).to(
+        tokens.dtype))
+    tokens.scatter_(1, st.pos.expand(b, 1), nxt[:, None])
+    st.steps += (~st.done).to(torch.int32)
+    st.done |= nxt == eos
+    out = forward(params, nxt[:, None], cfg=cfg, device=tokens.device,
+                  mode=strategy.attn_mode, cache=st.cache, cache_len=st.pos,
+                  decode_attention_fn=fns.decode)
+    C.commit_at(st.cache, out.emissions, st.pos)
+    st.last.copy_(out.logits[:, -1])
+    st.pos += 1
+
+
+def _greedy_next_loop(params, st: DecodeState, *, cfg: ModelConfig,
                       spec: SamplerSpec, strategy: DecodeStrategy,
-                      fns: AttentionFns = KERNELS) -> SampleResult:
-    """Autoregressive greedy decode with a KV cache: the prompt prefilled
-    under ``strategy.attn_mode`` (causal) through ``fns.prefill`` and
-    committed, the logits of its last row only; then ``gen_len`` steps,
-    each the argmax of the last logits (first occurrence; EOS once a lane
-    is done), one cached forward of that token through ``fns.decode`` and
-    its KV committed. ``steps`` counts a lane's steps before its EOS,
-    ``calls`` is ``1 + gen_len`` (the reference's ``fori_loop``, which also
-    runs the last step's forward); ``spec.early_stop`` changes nothing,
-    as in the reference. No host read."""
+                      fns: AttentionFns = KERNELS,
+                      replay=GR.eager) -> SampleResult:
+    """Autoregressive greedy decode with a KV cache on the loaded state
+    ``st``: the prompt prefilled under ``strategy.attn_mode`` (causal)
+    through ``fns.prefill`` and committed, the logits of its last row only
+    (:func:`_ar_prefill`, the step ``"prefill"``); then ``gen_len`` steps
+    (:func:`_ar_step`, the step ``"step"``), each the argmax of the last
+    logits (first occurrence; EOS once a lane is done), one cached forward
+    of that token through ``fns.decode`` and its KV committed. ``steps``
+    counts a lane's steps before its EOS, ``calls`` is ``1 + gen_len``
+    (the reference's ``fori_loop``, which also runs the last step's
+    forward); ``spec.early_stop`` changes nothing, as in the reference. No
+    host read."""
     with torch.no_grad():
-        tokens = init_canvas(prompt_tokens, spec, cfg)
-        b, T = tokens.shape
-        P = spec.prompt_len
-        dev = tokens.device
-        kv_cache = C.init_cache(cfg, b, T, device=dev)
-        out = forward(params, tokens[:, :P], cfg=cfg, device=dev,
-                      mode=strategy.attn_mode,
-                      prefill_attention_fn=fns.prefill,
-                      logits_slice=(P - 1, P))
-        C.commit(kv_cache, out.emissions, 0)
-        last = out.logits[:, -1]
-        eos = torch.full((b,), cfg.eos_token_id, dtype=tokens.dtype,
-                         device=dev)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        steps = torch.zeros((b,), dtype=torch.int32, device=dev)
-        for i in range(spec.gen_len):
-            pos = P + i
-            nxt = torch.where(done, eos, torch.argmax(last, -1).to(
-                tokens.dtype))
-            tokens[:, pos] = nxt
-            steps += (~done).to(torch.int32)
-            done |= nxt == eos
-            out = forward(params, nxt[:, None], cfg=cfg, device=dev,
-                          mode=strategy.attn_mode, cache=kv_cache,
-                          cache_len=pos, decode_attention_fn=fns.decode)
-            C.commit(kv_cache, out.emissions, pos)
-            last = out.logits[:, -1]
-    return SampleResult(tokens, steps, 1 + spec.gen_len,
-                        _gen_lengths(tokens, spec, cfg))
+        replay("prefill", lambda: _ar_prefill(params, st, cfg=cfg, spec=spec,
+                                              strategy=strategy, fns=fns))
+        st.pos.fill_(spec.prompt_len)
+        for _ in range(spec.gen_len):
+            replay("step", lambda: _ar_step(params, st, cfg=cfg,
+                                            strategy=strategy, fns=fns))
+    return SampleResult(st.tokens, st.steps, 1 + spec.gen_len,
+                        _gen_lengths(st.tokens, spec, cfg))
 
 
 def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
@@ -705,7 +843,8 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
                    lane_params: Optional[LaneParams] = None,
                    lane_sampled: bool = False,
                    graphs: Optional[bool] = None,
-                   attention_fns: AttentionFns = KERNELS):
+                   attention_fns: AttentionFns = KERNELS,
+                   state: Optional[DecodeState] = None, replay=None):
     """Decode ``prompt_tokens`` (b, P) with ``strategy`` over the block
     grid; returns :class:`SampleResult`, with ``record_hidden`` (top-1
     only) also the trajectory encoding ``(finalized_at, hidden)``.
@@ -716,7 +855,13 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
     loop's (:func:`_top1_loop`). ``attention_fns`` is the attention of
     every forward (:class:`AttentionFns`; default the CUDA kernels',
     :data:`PLAIN` the plain versions). A strategy whose (cache policy,
-    finalize rule) pair is none of :data:`STRATEGIES`' raises."""
+    finalize rule) pair is none of :data:`STRATEGIES`' raises.
+
+    ``state``: a :class:`DecodeState` for ``strategy`` and ``spec`` to
+    decode in, loaded here (default: a fresh one); the result's tokens and
+    steps are then its buffers, which its next decode rewrites.
+    ``replay``: the hook every step goes through (``repro_torch.graphs``;
+    default :func:`repro_torch.graphs.eager`, and the top-1 loop's own)."""
     if lane_params is not None and strategy.finalize != "threshold":
         raise ValueError(
             "per-request sampling params (lane_params) require a "
@@ -742,11 +887,18 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
     if strategy.finalize == "top1":
         return _top1_loop(params, prompt_tokens, cfg=cfg, spec=spec,
                           record_hidden=record_hidden, key=key,
-                          graphs=graphs, fns=attention_fns)
+                          graphs=graphs, fns=attention_fns, state=state,
+                          replay=replay)
+    replay = GR.eager if replay is None else replay
+    with torch.no_grad():
+        st = _loaded(state, prompt_tokens, cfg=cfg, spec=spec,
+                     strategy=strategy, key=key, lanes=lane_params)
     if strategy.finalize == "threshold":
-        return _threshold_loop(params, prompt_tokens, cfg=cfg, spec=spec,
-                               strategy=strategy, key=key,
-                               lane_params=lane_params,
-                               lane_sampled=lane_sampled, fns=attention_fns)
-    return _greedy_next_loop(params, prompt_tokens, cfg=cfg, spec=spec,
-                             strategy=strategy, fns=attention_fns)
+        return _threshold_loop(params, st, cfg=cfg, spec=spec,
+                               strategy=strategy,
+                               variant=_variant(spec, lane_params,
+                                                lane_sampled),
+                               fns=attention_fns, replay=replay)
+    return _greedy_next_loop(params, st, cfg=cfg, spec=spec,
+                             strategy=strategy, fns=attention_fns,
+                             replay=replay)

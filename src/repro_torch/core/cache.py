@@ -17,7 +17,7 @@ it: a copy of the whole cache per block boundary would cost more than the
 block's decode. ``reset`` and ``commit_rows`` touch only the selected
 lanes, so a scheduler can recycle one lane while the others keep
 decoding, and both dispatch on the layout; ``commit`` writes every lane of
-a dense cache at one offset.
+a dense cache at one offset (``commit_at``: an offset on the device).
 
 The paged layout keeps its allocator on the host: ``page_table`` and
 ``page_owner`` are numpy arrays, and the device holds an int32 copy of the
@@ -90,6 +90,17 @@ def commit(cache: tuple, emissions: tuple, offset: int) -> tuple:
                 raise ValueError(f"rows [{offset}, {offset + val.shape[2]})"
                                  f" outside a cache of {max_len}")
             buf[:, :, offset:offset + val.shape[2]] = val.to(buf.dtype)
+    return cache
+
+
+def commit_at(cache: tuple, emissions: tuple, offset: torch.Tensor) -> tuple:
+    """:func:`commit` at a device offset, a 0-dim int64 tensor: no host
+    read (a CUDA graph captures it), and no bounds check on the host."""
+    idx = offset + torch.arange(emissions[0]["k"].shape[2],
+                                device=offset.device)
+    for cslot, eslot in zip(cache, emissions):
+        for key, buf in cslot.items():
+            buf.index_copy_(2, idx, eslot[key].to(buf.dtype))
     return cache
 
 

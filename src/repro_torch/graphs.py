@@ -1,7 +1,7 @@
 """The compiled step boundary: a CUDA graph of one step, the port's
-counterpart of the JAX package's ``jax.jit`` of the continuous engine's
-state transitions (``serving/engine.py``) and of the collector
-(``training/trainer.py``).
+counterpart of the JAX package's ``jax.jit`` of the engines' decode (the
+continuous engine's state transitions and the static engine's sampler,
+``serving/engine.py``) and of the collector (``training/trainer.py``).
 
 A :class:`Graph` captures a callable that reads and writes tensors at
 fixed addresses (static inputs) and returns tensors that each replay
@@ -13,6 +13,11 @@ The kernels' wrappers count their launches in Python
 So the graph records how much each counter rose while it was captured,
 takes that back (the capture launched nothing), and adds it again at every
 replay: a counter still counts the kernel's launches.
+
+A loop that runs either way takes a replay hook, ``replay(name, fn)``,
+that returns ``fn()``'s result: :func:`eager` calls ``fn``, a
+:class:`Graphs` runs it through its graph ``name``. So the code a graph
+replays is the code the eager path runs.
 
 There is no fallback: a capture that fails raises.
 """
@@ -49,17 +54,19 @@ def _add(deltas) -> None:
 class Graph:
     """``fn()`` captured into a ``torch.cuda.CUDAGraph``.
 
-    ``fn`` runs once first on a side stream, as PyTorch requires before a
-    capture (the kernels are built and loaded, the TMA maps of fixed
-    operands encoded, the library handles made); that run is real and
-    counted, and ``warm`` is its result. Then ``fn`` is captured on the same
-    stream, into ``pool`` (a ``torch.cuda.graph_pool_handle()`` that graphs
-    replayed in their capture order may share). :meth:`replay` launches the
-    captured work on the current stream and returns ``out``, the captured
-    call's result, which every replay rewrites."""
+    ``fn`` runs once first on a side stream (``stream``, default a new
+    one), as PyTorch requires before a capture (the kernels are built and
+    loaded, the TMA maps of fixed operands encoded, the library handles
+    made); that run is real and counted, and ``warm`` is its result. Then
+    ``fn`` is captured on the same stream, into ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``; the allocator reuses a pool's
+    memory only within one stream, so graphs that share a pool share a
+    stream too). :meth:`replay` launches the captured work on the current
+    stream and returns ``out``, the captured call's result, which every
+    replay rewrites."""
 
-    def __init__(self, fn, *, pool=None):
-        side = torch.cuda.Stream()
+    def __init__(self, fn, *, pool=None, stream=None):
+        side = torch.cuda.Stream() if stream is None else stream
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self.warm = fn()
@@ -90,3 +97,36 @@ def _tensors(tree):
     if isinstance(tree, (list, tuple)):
         return [t for x in tree for t in _tensors(x)]
     return []
+
+
+def eager(name, fn):
+    """The replay hook of an eager decode: ``fn()``."""
+    del name
+    return fn()
+
+
+class Graphs(dict):
+    """Named :class:`Graph` s sharing one memory pool (and the side stream
+    they are captured on), as a replay hook:
+    ``graphs(name, fn)`` replays the graph ``name`` and returns its
+    ``out``, or, at the first call of that name, captures ``fn`` and
+    returns the capture's warm-up result (that run is the call).
+
+    The shared pool lets one graph's intermediates reuse another's; a
+    graph's ``out`` may then share memory with another graph's
+    intermediates, so a caller reads each result before its next replay of
+    any graph (every decode loop of the port does)."""
+
+    def __init__(self):
+        super().__init__()
+        self.pool = self.stream = None
+
+    def __call__(self, name: str, fn):
+        graph = self.get(name)
+        if graph is not None:
+            return graph.replay()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream()
+        self[name] = Graph(fn, pool=self.pool, stream=self.stream)
+        return self[name].warm

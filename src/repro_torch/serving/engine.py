@@ -9,10 +9,10 @@ tokens are the JAX engine's and do not depend on its batch.
 
 - :class:`Engine`, **static batching**: up to ``max_batch`` queued
   requests are padded into one batch and decoded to completion by the
-  sampler (``core/sampler.py``: any of the six decoders), eagerly; a
-  batch without explicit params takes the engine's scalar path and key
-  chain (``PRNGKey(0)`` by default, split once per batch), one with them
-  the per-lane path. ``step()`` emits the batch's block events at once.
+  sampler (``core/sampler.py``: any of the six decoders); a batch without
+  explicit params takes the engine's scalar path and key chain
+  (``PRNGKey(0)`` by default, split once per batch), one with them the
+  per-lane path. ``step()`` emits the batch's block events at once.
 
 - :class:`ContinuousEngine`, **continuous block-level batching** over the
   ``cdlm`` strategy, on the dense or the block-paged KV layout.
@@ -67,8 +67,25 @@ device page table and the per-lane ``starts``, ``live``, ``taus``,
 and written in place, so the graphs read it at fixed addresses. The host
 loop and its stop rule stay as they are: one read of ``active`` per
 iteration, so tokens, steps, call counts and page statistics are the
-eager path's. ``graphs=False`` keeps the eager path on CUDA, for A/B runs
-and tests; the CPU runs eagerly. The static engine runs eagerly.
+eager path's.
+
+The static engine's decode replays CUDA graphs too, the counterpart of
+the JAX engine's ``jax.jit`` of its sampler: the batch shape is fixed
+(``max_batch`` lanes, ``prompt_len``), so the decode's device state
+(``core.block_loop.DecodeState``: canvases, cache, keys, the per-lane
+vectors and params, the block's start and the AR step's position as
+device tensors) is allocated once per engine and each batch is loaded
+into it in place. Every step of the sampler's loop is captured once per
+engine, at :meth:`Engine.warmup` or on first use, into one memory pool:
+the threshold iteration of each variant the engine meets (scalar greedy
+or sampled, per-lane greedy or sampled), the prompt prefill, the approx
+policies' refresh and the commit pass's forward; the AR step; and
+``vanilla``'s canvas forward. The host loop stays the sampler's (one read
+of ``active`` per threshold iteration), so tokens, steps and calls are
+the eager path's.
+
+``graphs=False`` keeps either engine eager on CUDA, for A/B runs and
+tests; the CPU runs eagerly.
 """
 from __future__ import annotations
 
@@ -87,6 +104,7 @@ from repro_torch.core import diffusion as D
 from repro_torch.core import masks
 from repro_torch.core.block_loop import (
     STRATEGIES,
+    DecodeState,
     LaneParams,
     SamplerSpec,
     _gen_lengths,
@@ -157,8 +175,9 @@ def _finish_reason(gen: np.ndarray, glen_raw: int,
 
 
 class _RequestStepper:
-    """Request-level surface: id/param validation at enqueue time, and the
-    ``stream()``/``generate()`` drains over the engine's ``step()``."""
+    """Request-level surface: id/param validation at enqueue time, the
+    ``stream()``/``generate()`` drains over the engine's ``step()``, and
+    the decode's replay hook over the engine's ``_graphs``."""
 
     def _register(self, request: GenerationRequest, taken) -> None:
         _validate_params(request, self.serve)
@@ -197,6 +216,12 @@ class _RequestStepper:
         return [ev.output for ev in self.stream(requests, key=key)
                 if ev.finished]
 
+    def _replay(self, name: str, fn):
+        """The decode's replay hook: ``fn()`` through the engine's CUDA
+        graph ``name`` (captured now, the capture's warm-up run being this
+        call, if new), or eagerly when the engine has no graphs."""
+        return fn() if self._graphs is None else self._graphs(name, fn)
+
 
 class _Flight:
     """Host record of one in-flight request; ``arrival`` is its effective
@@ -218,21 +243,33 @@ def _check_params_device(params, device: torch.device) -> None:
                          f", the engine runs on {device}")
 
 
+def _check_graphs(graphs, device: torch.device) -> bool:
+    """Whether an engine on ``device`` decodes through CUDA graphs:
+    ``graphs`` None on CUDA or True; True off CUDA raises."""
+    if graphs and device.type != "cuda":
+        raise ValueError(f"graphs=True needs a CUDA device, the engine "
+                         f"runs on {device}")
+    return device.type == "cuda" and graphs is not False
+
+
 class Engine(_RequestStepper):
     """Static fixed-shape batching over any of the six samplers
     (``core/sampler.py``). ``step()`` pops up to ``max_batch`` queued
     requests, pads them into one batch, decodes it to completion and emits
-    every block event of the batch at once. The decode runs eagerly
-    through ``run_block_loop``: full-sequence forwards (prompt prefill,
-    full-canvas recompute, cache refresh) through the block attention
-    kernel, exact-cache and AR forwards through the decode attention
-    kernel, and, with ``fused_select``, greedy threshold and top-1
-    selection through the select kernel. ``device`` defaults to the CUDA
-    device; pass ``device="cpu"`` to run on the CPU (the kernels' plain
-    versions)."""
+    every block event of the batch at once. The decode runs through
+    ``run_block_loop`` on the engine's :class:`DecodeState`: full-sequence
+    forwards (prompt prefill, full-canvas recompute, cache refresh)
+    through the block attention kernel, exact-cache and AR forwards
+    through the decode attention kernel, and, with ``fused_select``,
+    greedy threshold and top-1 selection through the select kernel.
+    ``device`` defaults to the CUDA device; pass ``device="cpu"`` to run
+    on the CPU (the kernels' plain versions). ``graphs``: None (the
+    default) replays each step of the decode as a CUDA graph on CUDA
+    (captured once per engine) and runs eagerly on the CPU; False runs
+    eagerly on CUDA too; True on the CPU raises."""
 
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
-                 prompt_len: int, *, device="cuda"):
+                 prompt_len: int, *, device="cuda", graphs=None):
         if serve.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {serve.sampler!r} (expected "
                              f"one of {', '.join(SAMPLERS)})")
@@ -244,6 +281,7 @@ class Engine(_RequestStepper):
                 "always sized dense-equivalent (batch x full canvas)")
         check_dense(cfg)
         self.device = resolve_device(device)
+        self.graphed = _check_graphs(graphs, self.device)
         _check_params_device(params, self.device)
         self.params = params
         self.cfg = cfg
@@ -255,6 +293,11 @@ class Engine(_RequestStepper):
             cache_refresh_interval=serve.cache_refresh_interval,
             cache_layout=serve.cache_layout, fused_select=serve.fused_select)
         self._strategy = STRATEGIES[serve.sampler]
+        # the decode's device buffers, loaded in place by every batch, and
+        # the graphs of its steps by name (captured at first use)
+        self._state = DecodeState(cfg, self.spec, self._strategy,
+                                  serve.max_batch, self.device)
+        self._graphs = GR.Graphs() if self.graphed else None
         self._next_id = 0
         self._reset()
 
@@ -295,13 +338,15 @@ class Engine(_RequestStepper):
 
     def _run(self, prompts, key=None, lanes: Optional[LaneParams] = None,
              sampled: bool = False):
-        """One batch through the sampler's strategy: the scalar path with
-        ``key``, or per-lane params ``lanes`` (``sampled``: some lane
-        draws)."""
+        """One batch through the sampler's strategy on the engine's state
+        and graphs: the scalar path with ``key``, or per-lane params
+        ``lanes`` (``sampled``: some lane draws). The result's tokens and
+        steps are the state's buffers, rewritten by the next batch."""
         return run_block_loop(self.params, prompts, cfg=self.cfg,
                               spec=self.spec, strategy=self._strategy,
                               key=key, lane_params=lanes,
-                              lane_sampled=sampled)
+                              lane_sampled=sampled, state=self._state,
+                              replay=self._replay)
 
     def _lanes(self, rps: Sequence[ResolvedSamplingParams]) -> LaneParams:
         dev = self.device
@@ -316,7 +361,8 @@ class Engine(_RequestStepper):
                                 device=dev))
 
     def warmup(self, *, per_request: bool = False) -> None:
-        """Build and load the kernels on one batch of the scalar path;
+        """Build and load the kernels, and capture the decode's CUDA graphs
+        (once per engine), on one batch of the scalar path;
         ``per_request=True`` (servers) also runs the per-lane variants (the
         sampled one unless ``fused_select``)."""
         b = self.serve.max_batch
@@ -377,8 +423,10 @@ class Engine(_RequestStepper):
             res = self._run(prompts, sub)
         self._calls["batches"] += 1
         self._calls["total"] += res.n_model_calls
-        toks = res.tokens.cpu().numpy()
-        steps = res.steps.cpu().numpy()
+        # copies: the result is the engine's state, which the next batch
+        # rewrites (on the CPU, .cpu() aliases it)
+        toks = res.tokens.cpu().numpy().copy()
+        steps = res.steps.cpu().numpy().copy()
         glens = res.gen_lengths.cpu().numpy()
         dt = (time.perf_counter() - t0) / len(chunk)
         P, B = self.spec.prompt_len, self.spec.block_size
@@ -487,13 +535,10 @@ class ContinuousEngine(_RequestStepper):
                 "across batch compositions")
         check_dense(cfg)
         self.device = resolve_device(device)
-        if graphs and self.device.type != "cuda":
-            raise ValueError(f"graphs=True needs a CUDA device, the engine "
-                             f"runs on {self.device}")
-        self.graphed = self.device.type == "cuda" and graphs is not False
+        self.graphed = _check_graphs(graphs, self.device)
         # the captured graphs by name: the iteration variants ("fused",
-        # "dense", "sampled") and "commit"; None until the first capture
-        self._graphs: Optional[Dict[str, GR.Graph]] = None
+        # "dense", "sampled") and "commit"
+        self._graphs = GR.Graphs() if self.graphed else None
         _check_params_device(params, self.device)
         self.params = params
         self.cfg = cfg
@@ -672,20 +717,6 @@ class ContinuousEngine(_RequestStepper):
             state.cache.device_table()
         self._refresh_active(state)
 
-    def _replayed(self, name: str, fn):
-        """``fn()`` through its CUDA graph ``name``: replayed, or captured
-        now, the capture's warm-up run being this call (eager when the
-        engine is not graphed). Returns ``fn``'s result."""
-        if not self.graphed:
-            return fn()
-        if self._graphs is None:
-            self._graphs = {}
-        graph = self._graphs.get(name)
-        if graph is None:
-            graph = self._graphs[name] = GR.Graph(fn)
-            return graph.warm
-        return graph.replay()
-
     def _decode_block(self, state: _Slots, run,
                       variant: Optional[str] = None) -> None:
         """Advance the lanes in ``run`` by one block: threshold refinement
@@ -708,14 +739,14 @@ class ContinuousEngine(_RequestStepper):
             active = state.active_t.cpu().numpy().copy()
             if not active.any():
                 break
-            self._replayed(variant, lambda: self._refine(variant))
+            self._replay(variant, lambda: self._refine(variant))
             state.steps += active
             state.calls["refine"] += 1
             it += 1
 
         # commit pass: recompute the finalized blocks' KV exactly, for the
         # lanes that ran, each at its own offset
-        C.commit_rows(state.cache, self._replayed("commit",
+        C.commit_rows(state.cache, self._replay("commit",
                                                   self._commit_forward),
                       starts, live)
         state.calls["commit"] += 1
@@ -1016,14 +1047,11 @@ class ContinuousEngine(_RequestStepper):
 
 def make_engine(params, cfg: ModelConfig, serve: ServeConfig,
                 prompt_len: int, **kw):
-    """Engine factory switched by ``serve.scheduler`` (``device`` and, for
-    the continuous engine, ``graphs`` pass through)."""
+    """Engine factory switched by ``serve.scheduler`` (``device`` and
+    ``graphs`` pass through)."""
     if serve.scheduler == "continuous":
         return ContinuousEngine(params, cfg, serve, prompt_len, **kw)
     if serve.scheduler == "static":
-        if kw.pop("graphs", None):
-            raise ValueError("the static engine runs eagerly: graphs=True "
-                             "is refused")
         return Engine(params, cfg, serve, prompt_len, **kw)
     raise ValueError(f"unknown scheduler {serve.scheduler!r} "
                      "(expected 'static' or 'continuous')")

@@ -820,6 +820,83 @@ def test_baseline_decoder_kernel_path_equals_plain(cuda, name):
     assert (k_counts[0] > 0) == (name == "ar")
 
 
+# the static engine's CUDA graphs: each decoder's steps captured once per
+# engine and replayed for every batch, against the same engine eagerly
+STATIC_THRESHOLD = ("fast_dllm", "dual_cache", "interval_cache", "cdlm")
+STATIC_CASES = (
+    [(n, "dense", "greedy-fused") for n in
+     ("vanilla", "fast_dllm", "dual_cache", "interval_cache", "cdlm", "ar")]
+    + [(n, "dense", c) for n in ("vanilla",) + STATIC_THRESHOLD
+       for c in ("greedy-dense", "sampled")]
+    + [(n, "dense", c) for n in STATIC_THRESHOLD
+       for c in ("lanes-greedy", "lanes-sampled")]
+    + [("cdlm", "paged", c) for c in ("greedy-fused", "greedy-dense",
+                                      "sampled", "lanes-greedy",
+                                      "lanes-sampled")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layout,case", STATIC_CASES,
+                         ids=[f"{n}-{lay}-{c}" for n, lay, c in
+                              STATIC_CASES])
+def test_static_graph_equals_eager(cuda, name, layout, case):
+    """The static engine through its CUDA graphs and eagerly
+    (``graphs=False``) on one trace of three batches (a short last one):
+    tokens, steps, gen_length, finish_reason, call counts and every
+    kernel's launch count equal; the graph engine captured each of its
+    steps once (at warmup), the eager one none."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import Engine, Request, SamplingParams
+    cfg, params = _reduced_params(cuda)
+    with torch.no_grad():
+        params["embed"]["tok"][cfg.eos_token_id] *= 3.0  # some lanes stop
+    P, G, B = 8, 16, 4
+    serve = ServeConfig(
+        max_batch=2, block_size=B, gen_length=G, conf_threshold=0.5,
+        cache_refresh_interval=2, scheduler="static", sampler=name,
+        cache_layout=layout, fused_select=case == "greedy-fused",
+        temperature=0.7 if case == "sampled" else 0.0)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
+                                                (5, P))
+    sps = [None] * 5
+    if case.startswith("lanes"):
+        sps = [SamplingParams(conf_threshold=0.3), None,
+               SamplingParams(temperature=0.8, seed=3)
+               if case == "lanes-sampled" else None,
+               SamplingParams(temperature=1.2, seed=9)
+               if case == "lanes-sampled" else SamplingParams(),
+               SamplingParams(conf_threshold=0.7)]
+    runs = {}
+    for graphs in (False, None):
+        eng = Engine(params, cfg, serve, prompt_len=P, device=cuda,
+                     graphs=graphs)
+        eng.warmup(per_request=True)
+        captured = set(eng._graphs or ())
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i, params=sp, max_tokens=(
+                B if i == 1 else None))
+             for i, (p, sp) in enumerate(zip(prompts, sps))]))
+        assert set(eng._graphs or ()) == captured   # nothing new captured
+        runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
+                                o.finish_reason) for o in outs},
+                        eng.call_counts(), counts)
+        if graphs is None:
+            assert captured, "the graph engine captured nothing"
+    assert runs[None] == runs[False]
+    assert sorted(runs[None][0]) == list(range(5))
+    # COUNTERS order: decode, paged decode, block attention, select, xent
+    # forward, xent backward
+    counts = runs[None][2]
+    assert (counts[0] > 0) == (name == "ar" or name == "cdlm"
+                               and layout == "dense")
+    assert (counts[1] > 0) == (name == "cdlm" and layout == "paged")
+    assert (counts[2] > 0) == (name != "vanilla" or case == "greedy-fused")
+    assert (counts[3] > 0) == (case == "greedy-fused" and name != "ar")
+    assert counts[4:] == [0, 0]
+
+
 # the tuning registry's candidates (kernels/tuning.py): every knob the
 # sweep tries launches and holds the plain version
 def _limits():
