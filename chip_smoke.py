@@ -10,9 +10,10 @@ Phases, each timed, any failure raises and exits non-zero:
    tensor-core kernels' (xent, block attention, select, decode attention)
    registers, shared memory and spills, and the fp32 decode kernel's
    (ptxas: none may spill), each template instance apart
-   (the dense and paged decode instances too), and every kernel's HGMMA
-   instructions (cuobjdump: present in every bf16 instance, absent from
-   every fp32 one);
+   (the dense and paged decode instances too, and every head dim the
+   attention kernels take: 64, 112, 128, 256, each of ``INSTANCES`` must be
+   reported), and every kernel's HGMMA instructions (cuobjdump: present in
+   every bf16 instance, absent from every fp32 one);
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (and small softcap / window / mode cases), each timed with
    CUDA events beside its plain version and one PyTorch yardstick call; the
@@ -34,7 +35,18 @@ Phases, each timed, any failure raises and exits non-zero:
    timed, fp32 but for llada-8b),
    block attention over fast_dllm's canvas (b=8, L=576, bidirectional)
    and over ar's causal prefill (b=8, L=512), both timed against masked
-   SDPA, and both modes at fp32;
+   SDPA, and both modes at fp32; the shapes of phase 9's configs, each
+   mixer kind with its own scale, softcap and window: gemma-7b (Kv 16,
+   G 1, hd 256), gemma2-27b's local and global slots (Kv 16, G 2, hd 128,
+   scale 144^-1/2, softcap 50, the local slot's window 4096),
+   llama4-maverick (Kv 8, G 5, hd 128) and kimi-k2 (Kv 8, G 8, hd 112;
+   padded to 128 inside the kernels), decode (dense and paged, bit for
+   bit, split edges too) and prefill block attention (b=8, L=512), bf16
+   (the first mixer kind timed against masked SDPA, or where SDPA cannot
+   compute the case, a softcap or a window, against a compiled
+   ``flex_attention`` that must match the plain version within 1e-2) and
+   fp32, and the fused select at T=256 over each config's (V, d)
+   unembedding with gemma2's final softcap 30, timed;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -122,6 +134,21 @@ Phases, each timed, any failure raises and exits non-zero:
    (c) the H100 config of ``repro_torch.configs``, whose peaks every bound
    reads, and its roofline ridge.
 
+9. other architectures on the main path: ``ContinuousEngine`` serving
+   greedy CDLM (fused select, bf16, seeded random init, every leaf built
+   in its own dtype) through the attention kernels at every head dim they
+   take: gemma-7b at full width and depth (28 layers, hd 256), gemma2-27b
+   at full width and depth (46 layers: local slots with window 4096 and
+   both softcaps), llama4-maverick at full width and one period (2 layers:
+   an MLP slot and a 128-expert MOE slot) and kimi-k2 at full width and one
+   layer (384 experts, top 8, hd 112): 8 requests of one or two 32-token
+   blocks after a 128-token prompt through 8 lanes, on the dense then the
+   paged layout, each through the engine's CUDA graphs (the MoE dispatch
+   inside them); launches equal to the call accounting, every token a
+   vocabulary id, paged tokens equal to dense, tokens/s and peak memory
+   beside the card's name and power limit; each config freed before the
+   next.
+
 The line before the last two is the kernels' JSON summary, then the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -169,6 +196,21 @@ FP32_KERNELS = XENT_FP32_KERNELS + ["block_attn_kernel",
                                     "decode_attn_kernel"]
 # source -> further kernels whose ptxas report must show no spills
 NO_SPILL = {"decode_attn.cu": ["decode_attn_kernel"]}
+# template instances ptxas and cuobjdump must report: the attention
+# kernels at every head dim they take
+INSTANCES = ([f"block_attn_tc<{hd}>" for hd in (64, 112, 128, 256)]
+             + [f"decode_attn_tc<{hd},{lay}>" for hd in (64, 112, 128, 256)
+                for lay in ("dense", "paged")]
+             + [f"decode_attn_kernel<{hd},{rows},{lay}>"
+                for hd, rows in ((64, 32), (112, 8), (128, 16), (256, 16))
+                for lay in ("dense", "paged")])
+# phase 9's configs: (name, layers kept or None for full depth); phase 2
+# checks the kernels at each one's shapes (``arch_attention_cases``), and
+# the kernels' summary carries one entry per kernel and config
+ARCH_RUNS = (("gemma-7b", None), ("gemma2-27b", None),
+             ("llama4-maverick-400b-a17b", 2), ("kimi-k2-1t-a32b", 1))
+ARCH_KERNELS = ("decode_attention", "paged_decode_attention",
+                "block_attention", "fused_select")
 XENT_FWD_KERNELS = ["xent_partial_tc", "xent_partial_kernel",
                     "xent_merge_kernel"]
 XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
@@ -243,6 +285,64 @@ def bound_ms(n_bytes, n_ops, dtype):
     return bound(n_bytes, n_ops, dtype)
 
 
+_FLEX = {}
+
+
+def flex_library(torch, q, k, v, want, *, scale, softcap, mask_mod, name):
+    """The yardstick of a softcapped or windowed attention case, which SDPA
+    cannot compute: one call of torch's ``flex_attention``, compiled as its
+    documentation runs it, with the softcap as its ``score_mod`` and the
+    visibility as a block mask. q: (b, H, Lq, hd); k, v: (b, Kv, Lk, hd);
+    ``want``: the plain version's (b, Lq, Kv, G, hd), which its output must
+    match within 1e-2 (bf16 outputs), so that the yardstick computes the
+    case's function. Timed only: nothing of the port calls it. Returns
+    (the call, its max abs error)."""
+    from torch.nn.attention.flex_attention import (
+        create_block_mask,
+        flex_attention,
+    )
+    if "fn" not in _FLEX:
+        # inductor's and triton's caches inside the checkout's build dir
+        import os
+        for var, sub_dir in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                             ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(ROOT / "build" / sub_dir))
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    if softcap not in _FLEX:
+        _FLEX[softcap] = (None if softcap is None else lambda s, b, h, qi, ki:
+                          softcap * torch.tanh(s / softcap))
+    b, H, Lq, hd = q.shape
+    mask = create_block_mask(mask_mod, b, None, Lq, k.shape[2],
+                             device=q.device)
+    call = lambda: _FLEX["fn"](q, k, v, score_mod=_FLEX[softcap],  # noqa
+                               block_mask=mask, scale=scale, enable_gqa=True)
+    out = call()
+    Kv = k.shape[1]
+    out = out.float().reshape(b, Kv, H // Kv, Lq, hd).permute(0, 3, 1, 2, 4)
+    err = (out - want).abs().max().item()
+    if not err <= 1e-2:
+        raise AssertionError(f"flex_attention yardstick {name}: max error "
+                             f"{err} > 1e-2 against the plain version")
+    return call, err
+
+
+def decode_mask_mod(cl, S, window):
+    """flex_attention's visibility of a decode case over the keys
+    ``[cache rows | the block's]`` (S + Bq), as the plain version's: cache
+    row j if j < cache_len and (cache_len + i) - j < window; block key j
+    if |i - j| < window."""
+    def mod(b, h, qi, ki):
+        n = cl[b]
+        in_cache = ki < S
+        vis_cache = ki < n
+        vis_blk = ki >= S
+        if window is not None:
+            vis_cache = vis_cache & (n + qi - ki < window)
+            vis_blk = vis_blk & ((qi - (ki - S)).abs() < window)
+        return (in_cache & vis_cache) | (~in_cache & vis_blk)
+    return mod
+
+
 # ---------------------------------------------------------------------------
 # phase 1: what the compiler made of the tensor-core kernels
 # ---------------------------------------------------------------------------
@@ -294,11 +394,15 @@ def ptxas_check(ptxas):
         for name in names:
             if not any(k.split("<")[0] == name for k in rep):
                 raise AssertionError(f"ptxas: no report of {name} in {src}")
-        for label, r in rep.items():
-            if ("registers" not in r or r.get("spill_stores", 1)
-                    or r.get("spill_loads", 1)):
-                raise AssertionError(f"ptxas: {label} {r}")
+        bad = {label: r for label, r in rep.items()
+               if "registers" not in r or r.get("spill_stores", 1)
+               or r.get("spill_loads", 1)}
+        if bad:
+            raise AssertionError(f"ptxas: {bad}")
         out.update(rep)
+    missing = [k for k in INSTANCES if k not in out]
+    if missing:
+        raise AssertionError(f"ptxas: no report of {missing}")
     return out
 
 
@@ -320,7 +424,9 @@ def sass_hgmma(so):
         elif cur is not None and "HGMMA" in line:
             counts[cur] += 1
     base = {k: k.split("<")[0] for k in counts}
-    if not (all(any(b == n for b in base.values()) for n in tc + FP32_KERNELS)
+    if not (all(k in counts for k in INSTANCES)
+            and all(any(b == n for b in base.values())
+                    for n in tc + FP32_KERNELS)
             and all(c > 0 for k, c in counts.items() if base[k] in tc)
             and all(c == 0 for k, c in counts.items()
                     if base[k] in FP32_KERNELS)):
@@ -332,7 +438,8 @@ def sass_hgmma(so):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
-                 softcap=None, window=None, timed=False, name=""):
+                 softcap=None, window=None, scale=None, timed=False,
+                 name=""):
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import decode_attention
@@ -345,7 +452,7 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
     vc = rnd(2, b, S, Kv, hd)[1]
     kb, vb = rnd(b, Bq, Kv, hd), rnd(b, Bq, Kv, hd)
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     kw = dict(scale=scale, softcap=softcap, window=window)
     got = decode_attention(q, kc, vc, kb, vb, cl, **kw)
     want = dref.decode_attention(q, kc, vc, kb, vb, cl, **kw)
@@ -367,8 +474,13 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
         slot = torch.arange(Lk, device=dev)
         mask = ((slot[None, :] < cl[:, None]) | (slot[None, :] >= S))
         mask = mask[:, None, None, :].expand(b, 1, Bq, Lk)
-        library = (lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True))
+        # SDPA has no softcap, and its mask here no window: flex_attention
+        library = lambda: F.scaled_dot_product_attention(  # noqa
+            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True)
+        if softcap or window:
+            library, rec["library_max_abs_err"] = flex_library(
+                torch, qs, ks, vs, want, scale=scale, softcap=softcap,
+                mask_mod=decode_mask_mod(cl, S, window), name=name)
         times = alternate(
             torch, lambda: dref.decode_attention(q, kc, vc, kb, vb, cl, **kw),
             lambda: decode_attention(q, kc, vc, kb, vb, cl, **kw),
@@ -381,7 +493,8 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
         n_ops = 4 * Kv * Bq * G * hd * n_keys
         bms, by = bound_ms(n_bytes, n_ops, dtype)
         rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
-                   library_ms=times["library"], bound_ms=bms, bound_by=by,
+                   library_ms=times.get("library"), bound_ms=bms,
+                   bound_by=by,
                    kernel_device_ms=device_ms(
                        torch, lambda: decode_attention(q, kc, vc, kb, vb, cl,
                                                        **kw),
@@ -390,7 +503,8 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
                        torch, lambda: decode_attention(q, kc, vc, kb, vb, cl,
                                                        **kw),
                        50, ["decode_merge_kernel"]),
-                   library_device_ms=device_ms(torch, library, 50, [""]))
+                   library_device_ms=library and device_ms(torch, library,
+                                                           50, [""]))
     log(json.dumps(rec))
     return rec
 
@@ -416,7 +530,7 @@ def _paged_pool(torch, dev, kc, vc, lens, page, perm_gen):
 
 
 def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
-                softcap=None, window=None, timed=False, name="",
+                softcap=None, window=None, scale=None, timed=False, name="",
                 config=None):
     """The paged kernel against its plain version over a shuffled table with
     -1 tail entries, and bit for bit against the dense kernel on the same
@@ -436,7 +550,8 @@ def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
     kc, vc = rnd(b, S, Kv, hd), rnd(b, S, Kv, hd)
     kb, vb = rnd(b, Bq, Kv, hd), rnd(b, Bq, Kv, hd)
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    kw = dict(scale=hd ** -0.5 if scale is None else scale, softcap=softcap,
+              window=window)
     kp, vp, table = _paged_pool(torch, dev, kc, vc, cl, page, g)
     got = paged_decode_attention(q, kp, vp, kb, vb, table, cl, **kw,
                                  config=config)
@@ -473,9 +588,14 @@ def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
         slot = torch.arange(Lk, device=dev)
         mask = ((slot[None, :] < cl[:, None]) | (slot[None, :] >= S))
         mask = mask[:, None, None, :].expand(b, 1, Bq, Lk)
-        # the yardstick reads the gathered dense view (the gather untimed)
-        library = (lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=kw["scale"], enable_gqa=True))
+        # the yardstick reads the gathered dense view (the gather untimed);
+        # SDPA has no softcap, and its mask here no window: flex_attention
+        library = lambda: F.scaled_dot_product_attention(  # noqa
+            qs, ks, vs, attn_mask=mask, scale=kw["scale"], enable_gqa=True)
+        if softcap or window:
+            library, rec["library_max_abs_err"] = flex_library(
+                torch, qs, ks, vs, want, scale=kw["scale"], softcap=softcap,
+                mask_mod=decode_mask_mod(cl, S, window), name=name)
         times = alternate(
             torch, lambda: dref.paged_decode_attention(q, kp, vp, kb, vb,
                                                        table, cl, **kw),
@@ -490,7 +610,8 @@ def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
         n_ops = 4 * Kv * Bq * G * hd * n_keys
         bms, by = bound_ms(n_bytes, n_ops, dtype)
         rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
-                   library_ms=times["library"], bound_ms=bms, bound_by=by,
+                   library_ms=times.get("library"), bound_ms=bms,
+                   bound_by=by,
                    kernel_device_ms=device_ms(
                        torch, lambda: paged_decode_attention(
                            q, kp, vp, kb, vb, table, cl, **kw),
@@ -499,14 +620,15 @@ def check_paged(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype, page=32,
                        torch, lambda: paged_decode_attention(
                            q, kp, vp, kb, vb, table, cl, **kw),
                        50, ["decode_merge_kernel"]),
-                   library_device_ms=device_ms(torch, library, 50, [""]))
+                   library_device_ms=library and device_ms(torch, library,
+                                                           50, [""]))
     log(json.dumps(rec))
     return rec
 
 
 def check_block(torch, dev, *, b, L, Kv, G, hd, dtype, mode, prompt_len=0,
-                block_size=1, window=None, softcap=None, timed=False,
-                name=""):
+                block_size=1, window=None, softcap=None, scale=None,
+                timed=False, name=""):
     """The block attention kernel against its plain version (both keep
     scores and probabilities in fp32)."""
     import torch.nn.functional as F
@@ -519,7 +641,8 @@ def check_block(torch, dev, *, b, L, Kv, G, hd, dtype, mode, prompt_len=0,
     q = rnd(b, L, Kv, G, hd)
     k, v = rnd(b, L, Kv, hd), rnd(b, L, Kv, hd)
     kw = dict(mode=mode, prompt_len=prompt_len, block_size=block_size,
-              window=window, scale=hd ** -0.5, softcap=softcap)
+              window=window, scale=hd ** -0.5 if scale is None else scale,
+              softcap=softcap)
     got = flash_block_attention(q, k, v, **kw)
     want = bref.block_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -540,8 +663,13 @@ def check_block(torch, dev, *, b, L, Kv, G, hd, dtype, mode, prompt_len=0,
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, Kv * G, L, hd)
         ks = k.permute(0, 2, 1, 3).contiguous()
         vs = v.permute(0, 2, 1, 3).contiguous()
-        library = (lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=vis, scale=kw["scale"], enable_gqa=True))
+        # SDPA has no softcap: flex_attention for a softcapped case
+        library = lambda: F.scaled_dot_product_attention(  # noqa
+            qs, ks, vs, attn_mask=vis, scale=kw["scale"], enable_gqa=True)
+        if softcap:
+            library, rec["library_max_abs_err"] = flex_library(
+                torch, qs, ks, vs, want, scale=kw["scale"], softcap=softcap,
+                mask_mod=lambda b_, h_, qi, ki: vis[qi, ki], name=name)
         times = alternate(
             torch, lambda: bref.block_attention(q, k, v, **kw),
             lambda: flash_block_attention(q, k, v, **kw), library, iters=10)
@@ -550,11 +678,13 @@ def check_block(torch, dev, *, b, L, Kv, G, hd, dtype, mode, prompt_len=0,
         n_ops = 4 * hd * int(vis.sum()) * b * Kv * G
         bms, by = bound_ms(n_bytes, n_ops, dtype)
         rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
-                   library_ms=times["library"], bound_ms=bms, bound_by=by,
-                   visible_pairs=int(vis.sum()),
+                   library_ms=times.get("library"), bound_ms=bms,
+                   bound_by=by, visible_pairs=int(vis.sum()),
                    kernel_device_ms=device_ms(
                        torch, lambda: flash_block_attention(q, k, v, **kw),
-                       10, BLOCK_KERNELS))
+                       10, BLOCK_KERNELS),
+                   library_device_ms=library and device_ms(torch, library,
+                                                           10, [""]))
     log(json.dumps(rec))
     return rec
 
@@ -588,9 +718,10 @@ def select_limits(torch, h, w, cand, V):
     return conf_rel.float(), gap.float()
 
 
-def select_f64(torch, h, w, chunk=8192):
+def select_f64(torch, h, w, chunk=8192, softcap=None):
     """(cand, conf) in float64, vocab chunk by chunk, first occurrence: an
-    oracle for fp32 sums (bf16 products are exact in float64)."""
+    oracle for fp32 sums (bf16 products are exact in float64); the logits
+    softcapped to ``softcap * tanh(z / softcap)`` where given."""
     hd = h.double()
     m = torch.full((h.shape[0],), -torch.inf, dtype=torch.float64,
                    device=h.device)
@@ -598,6 +729,8 @@ def select_f64(torch, h, w, chunk=8192):
     best = torch.zeros(h.shape[0], dtype=torch.int64, device=h.device)
     for j in range(0, w.shape[0], chunk):
         lo = hd @ w[j:j + chunk].double().t()
+        if softcap is not None:
+            lo = softcap * torch.tanh(lo / softcap)
         tm, ti = lo.amax(-1), lo.argmax(-1)
         m_new = torch.maximum(m, tm)
         l = l * torch.exp(m - m_new) + torch.exp(lo - m_new[:, None]).sum(-1)
@@ -606,14 +739,16 @@ def select_f64(torch, h, w, chunk=8192):
     return best.to(torch.int32), 1.0 / l
 
 
-def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
-                 name="", config=None):
+def check_select(torch, dev, *, T, d, V, dtype, scale, softcap=None,
+                 timed=False, name="", config=None):
     """``scale`` sets W's spread: at 0.02 the logits spread about 0.6 and
     confidences sit near 1/V (as at random init); at 1 they spread about
     sqrt(d) and most rows are near-certain, as in a trained model, where
     threshold finalization and the confidence comparison bite. ``config``:
     the ``tuning.KernelConfig`` the kernel launches with (None: the
-    table's)."""
+    table's). ``softcap``: the final logit softcap, on every side; the
+    limits stay those of the uncapped logits (tanh's slope is at most 1,
+    and its rounding, near 2^-24 of the cap, is far inside them)."""
     from repro_torch.kernels.select import fused_select
     from repro_torch.kernels.select import ref as sref
     dt = getattr(torch, dtype)
@@ -625,10 +760,13 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
     # row 0's maximum (a logit near 0.4 d scale, far above the spread); the
     # lower index must win
     w[1] = w[V - 7] = (h[0].float().sign() * scale / 2).to(dt)
-    got_c, got_f = fused_select(h, w, masked, config=config)
-    want_c, want_f = sref.select_streaming(h, w, masked)
-    exact_c, exact_f = select_f64(torch, h, w)
-    logits = h.float() @ w.float().t()
+    got_c, got_f = fused_select(h, w, masked, softcap=softcap,
+                                config=config)
+    want_c, want_f = sref.select_streaming(h, w, masked, softcap=softcap)
+    exact_c, exact_f = select_f64(torch, h, w, softcap=softcap)
+    cap = ((lambda z: z) if softcap is None else
+           (lambda z: softcap * torch.tanh(z / softcap)))
+    logits = cap(h.float() @ w.float().t())
     top2 = logits.topk(2, dim=-1).values
     del logits
     conf_tol, gap_tol = select_limits(torch, h, w, got_c, V)
@@ -680,7 +818,8 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
         raise AssertionError(f"select {name}: against float64 {f64}")
     conf = want_f[fin]
     rec = {"kernel": "fused_select", "case": name, "dtype": dtype,
-           "shape": dict(T=T, d=d, V=V, w_scale=scale), "max_abs_err": err,
+           "shape": dict(T=T, d=d, V=V, w_scale=scale, softcap=softcap),
+           "max_abs_err": err,
            "max_rel_err": rel,
            "rel_limit": [conf_tol[same].min().item(),
                          conf_tol[same].max().item()],
@@ -689,17 +828,20 @@ def check_select(torch, dev, *, T, d, V, dtype, scale, timed=False,
            "conf_ge_0.9": (conf >= 0.9).float().mean().item(),
            "near_ties": ties}
     if timed:
-        library = lambda: torch.softmax((h @ w.t()).float(), -1).max(-1)  # noqa
-        times = alternate(torch, lambda: sref.select_streaming(h, w, masked),
-                          lambda: fused_select(h, w, masked), library,
-                          iters=5)
+        library = lambda: torch.softmax(cap((h @ w.t()).float()),  # noqa
+                                        -1).max(-1)
+        times = alternate(torch, lambda: sref.select_streaming(
+                              h, w, masked, softcap=softcap),
+                          lambda: fused_select(h, w, masked, softcap=softcap),
+                          library, iters=5)
         item = h.element_size()
         bms, by = bound_ms((T * d + V * d) * item + 4 * T + 8 * T,
                            2 * T * V * d, dtype)
         rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
                    library_ms=times["library"], bound_ms=bms, bound_by=by,
                    kernel_device_ms=device_ms(
-                       torch, lambda: fused_select(h, w, masked), 5,
+                       torch, lambda: fused_select(h, w, masked,
+                                                   softcap=softcap), 5,
                        SELECT_KERNELS))
     log(json.dumps(rec))
     return rec
@@ -873,6 +1015,83 @@ def check_nan_residue(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
     return rec
 
 
+def arch_attention_cases(cfg):
+    """The attention of phase 9's config ``cfg`` as its forward calls the
+    kernels, one case per mixer kind of its layer period, in the period's
+    order: (slot kind, Kv, G, hd, scale / softcap / window keywords)."""
+    from repro_torch.configs.base import ATTN_LOCAL
+    from repro_torch.models.layers import attn_scale
+    out = []
+    for kind in dict.fromkeys(slot[0] for slot in cfg.layer_period):
+        kw = dict(scale=attn_scale(cfg), softcap=cfg.attn_logit_softcap,
+                  window=cfg.sliding_window if kind == ATTN_LOCAL else None)
+        out.append((kind, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim, kw))
+    return out
+
+
+def check_architectures(torch, dev, lens):
+    """The kernels at phase 9's shapes, config by config (``ARCH_RUNS``):
+    for each mixer kind, decode (dense and paged) at the main path's
+    lengths and the prefill of 8 prompts of 512 tokens, bf16 and fp32, and
+    decode at the split edges; the fused select at 8 lanes of a 32-token
+    block over the config's unembedding (its final softcap too). The first
+    mixer kind's bf16 cases and the select case are timed. Returns each
+    config's bf16 records by summary entry ("decode_attention gemma-7b",
+    ...); an entry whose config has two mixer kinds (gemma2-27b's local
+    and global slots, of one shape) keeps the timed kind's times and the
+    larger error of the two."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ref as dref
+    main = {}
+    for config, _ in ARCH_RUNS:
+        cfg = get_config(config)
+        for i, (kind, kv, g, hd, extra) in enumerate(
+                arch_attention_cases(cfg)):
+            name = f"{config} {kind}"
+            for dtype in ("bfloat16", "float32"):
+                main_case = dtype == "bfloat16"
+                timed = main_case and i == 0
+                recs = {
+                    "decode_attention": check_decode(
+                        torch, dev, b=8, Bq=32, Kv=kv, G=g, hd=hd, S=768,
+                        lens=lens, dtype=dtype, timed=timed,
+                        name=f"{name}/{dtype}", **extra),
+                    "paged_decode_attention": check_paged(
+                        torch, dev, b=8, Bq=32, Kv=kv, G=g, hd=hd, S=768,
+                        lens=lens, dtype=dtype, timed=timed,
+                        name=f"{name}/{dtype}", **extra),
+                    "block_attention": check_block(
+                        torch, dev, b=8 if main_case else 2, L=512, Kv=kv,
+                        G=g, hd=hd, dtype=dtype, mode="block_causal",
+                        prompt_len=512, block_size=32, timed=timed,
+                        name=f"{name} prefill {dtype}", **extra)}
+                for kernel, rec in recs.items():
+                    key = f"{kernel} {config}"
+                    if timed:
+                        main[key] = dict(rec, cases=[rec["case"]])
+                    elif main_case:
+                        main[key]["max_abs_err"] = max(
+                            main[key]["max_abs_err"], rec["max_abs_err"])
+                        main[key]["cases"].append(rec["case"])
+            edge = dref.tiles_per_split(kv, 32 * g) * 64
+            edges = dict(b=4, Bq=32, Kv=kv, G=g, hd=hd, S=edge + 40,
+                         lens=[0, edge, edge + 1, edge + 40])
+            for dtype in ("bfloat16", "float32"):
+                check_decode(torch, dev, **edges, dtype=dtype, **extra,
+                             name=f"{name} split edge {dtype}")
+                check_paged(torch, dev, **edges, dtype=dtype, page=8,
+                            **extra, name=f"{name} split edge {dtype}")
+        _, kv, g, hd, _ = arch_attention_cases(cfg)[0]
+        check_block(torch, dev, b=2, L=130, Kv=kv, G=g, hd=hd,
+                    dtype="bfloat16", mode="causal", window=40,
+                    name=f"{config} causal window ragged")
+        main[f"fused_select {config}"] = check_select(
+            torch, dev, T=256, d=cfg.d_model, V=cfg.vocab_size,
+            dtype="bfloat16", scale=0.02, softcap=cfg.final_logit_softcap,
+            timed=True, name=f"{config} unembed")
+    return main
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attn import ref as dref
     lens8 = [0, 512, 536, 577, 608, 640, 700, 736]
@@ -963,6 +1182,7 @@ def phase_kernels(torch, dev):
     for mode, L in (("bidirectional", 576), ("causal", 512)):
         check_block(torch, dev, b=2, L=L, Kv=2, G=7, hd=64, dtype="float32",
                     mode=mode, name=f"{mode} L={L} float32")
+    main.update(check_architectures(torch, dev, lens8))
     main["fused_select"] = check_select(
         torch, dev, T=256, d=896, V=151_936, dtype="bfloat16", scale=0.02,
         timed=True, name="qwen2-0.5b tied")
@@ -1002,6 +1222,8 @@ def _random_params(torch, cfg, dev, dtype):
     # a zero mask-token row: as in a trained model, the mask token is never
     # a candidate, so every returned span holds real tokens
     params["embed"]["tok"][cfg.mask_token_id] = 0
+    if "head" in params["embed"]:                 # an untied head, (V, d)
+        params["embed"]["head"][cfg.mask_token_id] = 0
     return params
 
 
@@ -1418,7 +1640,8 @@ def phase_paths(torch, dev):
             h, _ = lane_block_forward(params, tokens, starts, cache, cfg=cfg,
                                       spec=spec, return_hidden=True,
                                       decode_attention_fn=attn,
-                                      paged_decode_attention_fn=attn)
+                                      paged_decode_attention_fn=attn,
+                                      moe_per_row=True)
             cand, conf = select(h, w, bt == cfg.mask_token_id)
             sel = D.select_threshold_in_block(conf, all_block, tau)
             res[name] = (h, cand, conf, sel,
@@ -2815,6 +3038,103 @@ def phase_tuning_and_benches(torch, dev, ctx):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: other architectures on the main path
+# ---------------------------------------------------------------------------
+def serve_architecture(torch, dev, name, depth, smi):
+    """One config of ``ARCH_RUNS`` through ``ContinuousEngine``, dense then
+    paged; returns (record, launches summed over both runs)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.bridge import param_count
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.serving import ContinuousEngine, Request
+
+    P, B, G = 128, 32, 64
+    caps = [64, 32, 64, 32, 64, 32, 64, 32]
+    cfg = get_config(name)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = _random_params(torch, cfg, dev, "bfloat16")
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    n_params = param_count(params)
+    prompts = np.random.default_rng(9).integers(0, cfg.mask_token_id,
+                                                (len(caps), P))
+    runs, total = {}, None
+    for layout in ("dense", "paged"):
+        serve = ServeConfig(max_batch=8, block_size=B, gen_length=G,
+                            conf_threshold=0.9, scheduler="continuous",
+                            fused_select=True, cache_layout=layout)
+        eng = ContinuousEngine(params, cfg, serve, prompt_len=P, device=dev)
+        t = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t
+        if not eng._graphs:
+            raise AssertionError(f"{name}: the engine captured no graph")
+        reqs = [Request(prompt=p, id=i, max_tokens=c)
+                for i, (p, c) in enumerate(zip(prompts, caps))]
+        outs, wall, launches = serve_counted(torch, dev, eng, reqs)
+        calls = eng.call_counts()
+        check_outputs(cfg, outs, dict(enumerate(caps)), B)
+        check_launches(cfg, calls, launches, layout)
+        for rid, o in outs.items():
+            if not ((o.tokens >= 0) & (o.tokens < cfg.vocab_size)).all():
+                raise AssertionError(f"{name} {layout} request {rid}: a "
+                                     "token outside the vocabulary")
+        tokens = sum(o.gen_length for o in outs.values())
+        runs[layout] = {"outs": outs, "rec": {
+            "tokens": tokens, "wall_s": wall, "tps": tokens / wall,
+            "warmup_s": warm_s,
+            "mean_steps": float(np.mean([o.steps for o in outs.values()])),
+            "calls": calls, "launches": launches}}
+        total = (launches if total is None else
+                 {k: total[k] + launches[k] for k in total})
+        del eng
+        gc.collect()
+    dense, paged = runs["dense"]["outs"], runs["paged"]["outs"]
+    for rid, o in dense.items():
+        p = paged[rid]
+        if not (np.array_equal(o.tokens, p.tokens)
+                and (o.steps, o.gen_length) == (p.steps, p.gen_length)):
+            raise AssertionError(f"{name} request {rid}: paged tokens differ "
+                                 "from dense")
+    rec = {"phase": "architecture serving", "config": name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "head_dim": cfg.head_dim, "params": n_params, "dtype": "bfloat16",
+           "requests": len(caps), "max_batch": 8, "block": B, "gen": G,
+           "prompt_len": P, "tau": 0.9, "init_s": init_s,
+           "dense": runs["dense"]["rec"], "paged": runs["paged"]["rec"],
+           "paged_equals_dense": True,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "card": smi}
+    log(json.dumps(rec))
+    del params, dense, paged, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, total
+
+
+def phase_architectures(torch, dev, smi):
+    """Each config of ``ARCH_RUNS`` in turn; returns the launches of each
+    summary entry ("decode_attention gemma-7b", ...) over the config's
+    main-path runs."""
+    launches = {}
+    for name, depth in ARCH_RUNS:
+        t = time.perf_counter()
+        _, got = serve_architecture(torch, dev, name, depth, smi)
+        for k in ARCH_KERNELS:
+            launches[f"{k} {name}"] = got[k]
+        if not all(got[k] > 0 for k in ARCH_KERNELS):
+            raise AssertionError(f"{name}: a kernel never launched {got}")
+        log(f"phase 9 ({name}): {time.perf_counter() - t:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2871,6 +3191,10 @@ def main():
     t = time.perf_counter()
     phase8_launches = phase_tuning_and_benches(torch, dev, ctx)
     log(f"phase 8 (tuning and benches): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    arch_launches = phase_architectures(torch, dev, smi)
+    log(f"phase 9 (other architectures): {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     # launches: summed over the main-path runs (phase 3, both runs of phase
@@ -2899,6 +3223,19 @@ def main():
         src, tpu = sources[name]
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"]})
+    # the attention and select kernels at each of phase 9's configs: times
+    # and errors from phase 2's bf16 cases at the config's shapes, launches
+    # from its phase 9 runs
+    for key, launches in arch_launches.items():
+        rec = main_recs[key]
+        name = key.split()[0]
+        src, tpu = sources[name]
+        summary.append({
+            "name": key, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

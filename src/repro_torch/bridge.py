@@ -3,7 +3,11 @@ package's param tree or its npz checkpoints.
 
 The port's params are the JAX tree's structure as nested dicts of tensors:
 ``{"embed": {"tok", ["head"]}, "final_norm": {"w"}, "slots": (slot, ...)}``
-with every slot leaf stacked over ``cfg.n_periods``. Weights keep the JAX
+with every slot leaf stacked over ``cfg.n_periods``; a slot holds ``norm1``,
+``norm2``, ``attn`` (an ``ATTN`` or ``ATTN_LOCAL`` mixer alike) and ``mlp``
+or, for an ``MOE`` slot, ``moe`` (``router`` (d, E) fp32, ``wi_gate`` and
+``wi_up`` (E, d, f), ``wo`` (E, f, d), and a ``shared`` gated FFN where the
+config has one). Weights keep the JAX
 ``(in, out)`` layout except the untied head, which is stored ``(V, d)``
 (the transpose of the JAX ``(d, V)``) so that ``lm_head`` and the fused
 select kernel read the same rows for tied and untied models.
@@ -17,8 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_dense
+from repro_torch.configs.base import MOE, ModelConfig, check_supported
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,11 +33,21 @@ def torch_dtype(name) -> torch.dtype:
     return _DTYPES[str(name)]
 
 
+def _ffn(n: int, d: int, f: int, lead=()):
+    """A gated FFN's leaves, stacked over ``n`` periods (and ``lead``)."""
+    return {"wi_gate": ((n, *lead, d, f), 1 / math.sqrt(d)),
+            "wi_up": ((n, *lead, d, f), 1 / math.sqrt(d)),
+            "wo": ((n, *lead, f, d), 1 / math.sqrt(f))}
+
+
 def _specs(cfg: ModelConfig):
-    """Nested dict of leaf -> (shape, init) with init one of "ones",
-    "zeros" or a normal's standard deviation; the distributions of the JAX
-    package's ``init_model`` (dense_init: std = 1/sqrt(fan_in))."""
-    check_dense(cfg)
+    """Nested dict of leaf -> (shape, init[, dtype]) with init one of
+    "ones", "zeros" or a normal's standard deviation; the distributions of
+    the JAX package's ``init_model`` (dense_init: std = 1/sqrt(fan_in); an
+    expert's matrices 1/sqrt(d) in and 1/sqrt(moe_d_ff) out). A third
+    element pins the leaf's dtype: the MoE router is fp32 whatever the
+    model's dtype, as in the reference."""
+    check_supported(cfg)
     d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_periods
     nq, nkv, V = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_size
     attn = {"wq": ((n, d, nq), 1 / math.sqrt(d)),
@@ -44,17 +57,31 @@ def _specs(cfg: ModelConfig):
     if cfg.qkv_bias:
         attn.update(bq=((n, nq), "zeros"), bk=((n, nkv), "zeros"),
                     bv=((n, nkv), "zeros"))
-    slot = {"norm1": {"w": ((n, d), "ones")},
-            "norm2": {"w": ((n, d), "ones")},
-            "attn": attn,
-            "mlp": {"wi_gate": ((n, d, cfg.d_ff), 1 / math.sqrt(d)),
-                    "wi_up": ((n, d, cfg.d_ff), 1 / math.sqrt(d)),
-                    "wo": ((n, cfg.d_ff, d), 1 / math.sqrt(cfg.d_ff))}}
+
+    def slot(ffn):
+        s = {"norm1": {"w": ((n, d), "ones")},
+             "norm2": {"w": ((n, d), "ones")},
+             "attn": attn}
+        if ffn == MOE:
+            f, E = cfg.moe_d_ff, cfg.n_experts
+            s["moe"] = {"router": ((n, d, E), 1 / math.sqrt(d),
+                                   torch.float32),
+                        **_ffn(n, d, f, (E,))}
+            if cfg.n_shared_experts:
+                s["moe"]["shared"] = _ffn(n, d, f * cfg.n_shared_experts)
+        else:
+            s["mlp"] = _ffn(n, d, cfg.d_ff)
+        return s
+
     embed = {"tok": ((V, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["head"] = ((V, d), 1 / math.sqrt(d))
     return {"embed": embed, "final_norm": {"w": ((d,), "ones")},
-            "slots": (slot,) * len(cfg.layer_period)}
+            "slots": tuple(slot(ffn) for _, ffn in cfg.layer_period)}
+
+
+def _leaf_dtype(spec, dt):
+    return spec[2] if len(spec) > 2 else dt
 
 
 def _map(fn, spec, *trees):
@@ -66,23 +93,43 @@ def _map(fn, spec, *trees):
     return fn(spec, *trees)
 
 
+#: elements of one fp32 draw of :func:`init_params` (1 GiB)
+DRAW_CHUNK = 1 << 28
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=None):
     """Seeded random params, drawn (in fp32, on the generator's device) from
     the distributions of the JAX package's ``init_model``. The numbers are
     not JAX's: tests that compare the two build params with numpy and pass
-    them through :func:`params_from_jax`."""
+    them through :func:`params_from_jax`.
+
+    Each leaf is allocated in its own dtype; a leaf of more than
+    ``DRAW_CHUNK`` elements is drawn in chunks of that many and cast into
+    it chunk by chunk, so no fp32 copy of a large leaf exists (gemma2-27b's
+    stacked FFN leaf is 7.8 GB in bf16)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
 
+    def randn(n):
+        return torch.randn(n, generator=generator, device=generator.device)
+
     def draw(spec):
-        shape, init = spec
+        shape, init = spec[:2]
+        leaf_dt = _leaf_dtype(spec, dt)
         if init == "ones":
-            return torch.ones(shape, dtype=dt, device=dev)
+            return torch.ones(shape, dtype=leaf_dt, device=dev)
         if init == "zeros":
-            return torch.zeros(shape, dtype=dt, device=dev)
-        x = torch.randn(shape, generator=generator, device=generator.device)
-        return (x * init).to(device=dev, dtype=dt)
+            return torch.zeros(shape, dtype=leaf_dt, device=dev)
+        n = math.prod(shape)
+        if n <= DRAW_CHUNK:
+            return (randn(shape) * init).to(device=dev, dtype=leaf_dt)
+        out = torch.empty(shape, dtype=leaf_dt, device=dev)
+        flat = out.view(-1)
+        for i in range(0, n, DRAW_CHUNK):
+            m = min(DRAW_CHUNK, n - i)
+            flat[i:i + m] = (randn(m) * init).to(device=dev, dtype=leaf_dt)
+        return out
 
     return _map(draw, _specs(cfg))
 
@@ -127,7 +174,7 @@ def params_from_jax(tree_or_npz, cfg: ModelConfig, device="cuda",
         if tuple(leaf.shape) != spec[0]:
             raise ValueError(f"param shape {tuple(leaf.shape)} does not "
                              f"match {cfg.name}'s {spec[0]}")
-        return leaf.to(device=dev, dtype=dt).contiguous()
+        return leaf.to(device=dev, dtype=_leaf_dtype(spec, dt)).contiguous()
 
     return _map(place, _specs(cfg), out)
 

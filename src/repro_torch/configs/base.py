@@ -1,7 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``configs/base.py``, limited to what the port
-uses: the layer kinds, ``ModelConfig`` (with ``reduced()``),
+uses: the layer kinds, ``ModelConfig`` (with ``reduced()``, the parameter
+counts and the backbone predicates), ``check_supported`` (the slot kinds,
+norm and activation the port's model stack runs),
 ``CDLMConfig``, ``TrainConfig``, ``ServeConfig`` and ``HardwareConfig``
 (the roofline constants of the paper's A100 and of the port's H100). The
 port keeps its own copy so that it imports nothing of the JAX package; the
@@ -52,7 +54,7 @@ class ModelConfig:
     long_context_window: Optional[int] = None
 
     # FFN flavor
-    activation: str = "silu"         # silu (SwiGLU)
+    activation: str = "silu"         # silu (SwiGLU) | gelu (GeGLU)
 
     # MoE
     n_experts: int = 0
@@ -118,18 +120,59 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return all(mix in (MAMBA, RWKV) for mix, _ in self.layer_period)
+
+    @property
+    def supports_bidirectional(self) -> bool:
+        """Can this backbone act as a bidirectional DLM teacher?"""
+        return not any(mix in (MAMBA, RWKV) for mix, _ in self.layer_period)
+
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + layers + head) of a dense
-        ``ATTN``/``MLP`` model."""
+        """Analytic parameter count (embedding + layers + head), as the JAX
+        package counts it (the Mamba and RWKV terms approximate)."""
         d, hd = self.d_model, self.head_dim
+        n_q, n_kv = self.n_heads, self.n_kv_heads
+        glu = 3  # gated FFNs use 3 matrices
         total = self.vocab_size * d
         if not self.tie_embeddings:
             total += self.vocab_size * d
-        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
-            + (self.n_heads * hd) * d
-        mlp = 3 * d * self.d_ff
-        total += (attn + mlp + 2 * d) * self.n_layers
+        per = {}
+        per[ATTN] = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+        per[ATTN_LOCAL] = per[ATTN]
+        exp = self.mamba_expand * d
+        per[MAMBA] = (d * exp * 2 + exp * self.mamba_d_conv
+                      + exp * (self.mamba_d_state * 2 + 1) + exp * d)
+        per[RWKV] = 4 * d * d + d * d
+        per[MLP] = glu * d * self.d_ff
+        per[RWKV_CM] = 2 * d * self.d_ff + d * d
+        if self.n_experts:
+            per[MOE] = ((self.n_experts + self.n_shared_experts)
+                        * glu * d * self.moe_d_ff + d * self.n_experts)
+        for mix, ffn in self.layer_period:
+            per.setdefault((mix, ffn), per[mix] + per[ffn] + 2 * d)
+        total += sum(per[(mix, ffn)]
+                     for mix, ffn in self.layer_period) * self.n_periods
+        if self.is_encoder_decoder:
+            # encoder layers, and cross attention in every decoder layer
+            total += self.n_encoder_layers * (per[ATTN] + per[MLP] + 2 * d)
+            total += self.n_layers * per[ATTN]
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the routed and shared
+        experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        full_moe = self.n_experts * 3 * d * self.moe_d_ff
+        active_moe = ((self.experts_per_token + self.n_shared_experts)
+                      * 3 * d * self.moe_d_ff)
+        n_moe_layers = sum(1 for _, f in self.layer_period
+                           if f == MOE) * self.n_periods
+        return int(self.param_count() - n_moe_layers * (full_moe
+                                                        - active_moe))
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant: <=2 periods, d_model<=256, tiny vocab."""
@@ -160,6 +203,30 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+# what the port's model stack runs (``check_supported``)
+MIXERS = (ATTN, ATTN_LOCAL)
+FFNS = (MLP, MOE)
+ACTIVATIONS = ("silu", "gelu")   # the gated FFN's
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raises for a config the port's stack does not run: a slot other than
+    ``ATTN``/``ATTN_LOCAL`` mixers with ``MLP``/``MOE`` FFNs (Mamba, RWKV),
+    an encoder, positions other than RoPE, a norm other than rmsnorm, an
+    activation other than the gated silu or gelu."""
+    bad = [slot for slot in cfg.layer_period
+           if slot[0] not in MIXERS or slot[1] not in FFNS]
+    if bad:
+        raise ValueError(f"{cfg.name}: repro_torch runs {MIXERS} mixers "
+                         f"with {FFNS} FFNs only, got slots {bad}")
+    if cfg.is_encoder_decoder or cfg.pos_embed != "rope":
+        raise ValueError(f"{cfg.name}: repro_torch runs decoder-only RoPE "
+                         "models only")
+    if cfg.norm_type != "rmsnorm" or cfg.activation not in ACTIVATIONS:
+        raise ValueError(f"{cfg.name}: norm {cfg.norm_type!r} or activation "
+                         f"{cfg.activation!r} is not ported")
 
 
 @dataclass(frozen=True)

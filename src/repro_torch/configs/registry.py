@@ -1,19 +1,45 @@
 """Architecture registry of the port: ``--config <id>`` resolution.
 
-The port serves dense decoders made of ``ATTN``/``MLP`` slots only; every
-other architecture of the JAX package is refused with a clear error.
+The registry holds every architecture of the JAX package. The port's model
+stack runs the configs made of ``ATTN``, ``ATTN_LOCAL``, ``MLP`` and
+``MOE`` slots with rmsnorm and a gated silu or gelu FFN
+(``configs/base.py::check_supported``); building params for, or
+running, any other (jamba's Mamba, rwkv6, whisper, internvl2's prefix
+embeddings) raises.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import dream_7b, llada_8b, qwen2_0_5b
+from repro_torch.configs import (
+    dream_7b,
+    gemma2_27b,
+    gemma_7b,
+    internvl2_1b,
+    jamba_v01_52b,
+    kimi_k2_1t,
+    llada_8b,
+    llama4_maverick_400b,
+    qwen1_5_110b,
+    qwen2_0_5b,
+    rwkv6_1_6b,
+    whisper_base,
+)
 from repro_torch.configs.base import ModelConfig
 
 ARCHITECTURES: Dict[str, ModelConfig] = {
     "qwen2-0.5b": qwen2_0_5b.CONFIG,
     "dream-7b": dream_7b.CONFIG,
     "llada-8b": llada_8b.CONFIG,
+    "gemma-7b": gemma_7b.CONFIG,
+    "gemma2-27b": gemma2_27b.CONFIG,
+    "internvl2-1b": internvl2_1b.CONFIG,
+    "jamba-v0.1-52b": jamba_v01_52b.CONFIG,
+    "kimi-k2-1t-a32b": kimi_k2_1t.CONFIG,
+    "llama4-maverick-400b-a17b": llama4_maverick_400b.CONFIG,
+    "qwen1.5-110b": qwen1_5_110b.CONFIG,
+    "rwkv6-1.6b": rwkv6_1_6b.CONFIG,
+    "whisper-base": whisper_base.CONFIG,
 }
 
 
@@ -21,7 +47,5 @@ def get_config(arch: str) -> ModelConfig:
     try:
         return ARCHITECTURES[arch]
     except KeyError:
-        raise KeyError(
-            f"architecture {arch!r} is not served by repro_torch, which runs "
-            f"dense ATTN/MLP decoders only; available: "
-            f"{sorted(ARCHITECTURES)}") from None
+        raise KeyError(f"unknown architecture {arch!r}; available: "
+                       f"{sorted(ARCHITECTURES)}") from None

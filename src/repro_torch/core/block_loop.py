@@ -285,7 +285,8 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                        spec: SamplerSpec, return_hidden: bool = False,
                        decode_attention_fn=decode_attention,
                        paged_decode_attention_fn=paged_decode_attention,
-                       use_long_window: bool = False):
+                       use_long_window: bool = False,
+                       moe_per_row: bool):
     """Block-causal cached forward where each lane decodes its own block.
 
     tokens: (b, T) canvases; starts: (b,) canvas coordinate of each lane's
@@ -305,7 +306,11 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
 
     Exactness: under the block-causal mask a lane's output depends only on
     its own cache rows and its own block, so lanes at different block
-    offsets share one batch without loss.
+    offsets share one batch without loss. That holds for MoE slots too:
+    ``moe_per_row`` gives each lane its own expert capacity, as the
+    reference's one-lane forward has: the continuous engine passes True;
+    the static engine's block loop, which the reference runs as one
+    batched forward, passes False. Every caller states its choice.
     """
     B = spec.block_size
     starts = torch.as_tensor(starts, dtype=torch.int64, device=tokens.device)
@@ -317,7 +322,7 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                   decode_attention_fn=decode_attention_fn,
                   paged_decode_attention_fn=paged_decode_attention_fn,
                   use_long_window=use_long_window,
-                  return_logits=not return_hidden)
+                  return_logits=not return_hidden, moe_per_row=moe_per_row)
     return (out.hidden if return_hidden else out.logits), out.emissions
 
 
@@ -651,11 +656,14 @@ def _block_forward(params, tokens, start, kv_cache, *,
     b, T = tokens.shape
     start = torch.as_tensor(start, dtype=torch.int64, device=dev)
     if policy == "exact-commit":
+        # one batched forward, as the reference's block loop runs it: the
+        # lanes' tokens share the MoE slots' expert capacity
         return lane_block_forward(params, tokens, start.expand(b), kv_cache,
                                   cfg=cfg, spec=spec,
                                   return_hidden=return_hidden,
                                   decode_attention_fn=fns.decode,
-                                  paged_decode_attention_fn=fns.paged_decode)
+                                  paged_decode_attention_fn=fns.paged_decode,
+                                  moe_per_row=False)
     pos = _block_positions(start, B, b, dev)
     if policy == "none":
         out = forward(params, tokens, cfg=cfg, device=dev,

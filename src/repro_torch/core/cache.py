@@ -32,7 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.bridge import torch_dtype
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_supported
 
 DENSE = "dense"
 PAGED = "paged"
@@ -41,15 +41,34 @@ CACHE_LAYOUTS = (DENSE, PAGED)
 FREE = -1  # unallocated page-table entry / unowned pool page
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cuda") -> tuple:
-    """Zeroed cache buffers for every period slot."""
-    dev = resolve_device(device)
-    shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    dt = torch_dtype(dtype or cfg.dtype)
+def _kv_slots(cfg: ModelConfig, rows: int, lead: int, dt, dev) -> tuple:
+    """Zeroed ``{"k", "v"}`` buffers ``(n_periods, lead, rows, Kv, hd)``
+    for every period slot: ``ATTN`` and ``ATTN_LOCAL`` mixers alike (a
+    local slot keeps every row; its window is applied when it is read),
+    the only mixers of a config the port's stack runs."""
+    check_supported(cfg)
+    shape = (cfg.n_periods, lead, rows, cfg.n_kv_heads, cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
                   "v": torch.zeros(shape, dtype=dt, device=dev)}
                  for _ in cfg.layer_period)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> tuple:
+    """Zeroed cache buffers for every period slot."""
+    return _kv_slots(cfg, max_len, batch, torch_dtype(dtype or cfg.dtype),
+                     resolve_device(device))
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of every buffer of a dense cache, or of a paged cache's pools
+    and its int32 page table and owners (the JAX ``cache_bytes`` counts
+    every leaf of the ``PagedCache``)."""
+    if isinstance(cache, PagedCache):
+        return (cache_bytes(cache.slots) + cache.page_table.nbytes
+                + cache.page_owner.nbytes)
+    return sum(buf.numel() * buf.element_size()
+               for slot in cache for buf in slot.values())
 
 
 def _lanes(rows, batch: int) -> np.ndarray:
@@ -186,14 +205,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      device="cuda") -> PagedCache:
     """A zeroed pool of ``n_pages`` pages, sized independently of
     ``batch * max_len``; ``max_len`` only sets the table width."""
-    dev = resolve_device(device)
-    dt = torch_dtype(dtype or cfg.dtype)
     n_tables = -(-max_len // page_size)
-    shape = (cfg.n_periods, n_pages, page_size, cfg.n_kv_heads,
-             cfg.head_dim)
-    slots = tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
-                   "v": torch.zeros(shape, dtype=dt, device=dev)}
-                  for _ in cfg.layer_period)
+    slots = _kv_slots(cfg, page_size, n_pages,
+                      torch_dtype(dtype or cfg.dtype), resolve_device(device))
     return PagedCache(slots, np.full((batch, n_tables), FREE, np.int32),
                       np.full((n_pages,), FREE, np.int32))
 

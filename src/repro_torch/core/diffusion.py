@@ -1,5 +1,6 @@
-"""The masking of the forward process (Eq. 6 setup), candidate selection
-(greedy, sampled, and per lane) and finalization rules (paper §4.3),
+"""The masking of the forward process (Eq. 6 setup), its token-level
+transition and timesteps (Eq. 2), candidate selection (greedy, sampled,
+and per lane) and finalization rules (paper §4.3),
 ported from the JAX package's ``core/diffusion.py``.
 
 Sampled candidates come from the JAX package's PRNG streams
@@ -41,6 +42,25 @@ def mask_tokens_from(u, tokens, t, mask_id: int, maskable=None):
     if maskable is not None:
         m = m & maskable
     return torch.where(m, torch.full_like(tokens, mask_id), tokens), m
+
+
+def transition_probs(t: float, s: float, is_masked: bool,
+                     p_unmask_token: torch.Tensor) -> dict:
+    """Token-level q_{s|t} probabilities (Eq. 2), for tests and
+    properties: ``{"keep": P(stay as is), "still_masked": ..., "unmask":
+    vector}``."""
+    if not 0 <= s < t <= 1:
+        raise ValueError(f"need 0 <= s < t <= 1, got s={s}, t={t}")
+    if not is_masked:
+        return {"keep": 1.0, "still_masked": 0.0,
+                "unmask": torch.zeros_like(p_unmask_token)}
+    return {"keep": 0.0, "still_masked": s / t,
+            "unmask": (t - s) / t * p_unmask_token}
+
+
+def timestep(k: int, n_steps: int) -> float:
+    """t_k = 1 - k/N."""
+    return 1.0 - k / n_steps
 
 
 def _divide(logits: torch.Tensor, t) -> torch.Tensor:

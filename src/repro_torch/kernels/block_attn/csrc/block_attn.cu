@@ -53,6 +53,22 @@
 //    scores key j of a 32-key tile, the warp reduces max and sum with
 //    shuffles, and each lane keeps hd/32 output columns in registers. CUDA
 //    cores in fp32 (the tensor cores' fp32 would be TF32).
+//
+// Head dims 64, 112, 128 and 256. Two of them do not fit the 128-row,
+// three-stage layout as it is:
+//  - 112 (kimi-k2) is not a multiple of the 64-value TMA box. K and V come
+//    through 3-D tensor maps (rows, KV head, head_dim) whose second box
+//    covers columns 64 .. 127: TMA zero-fills those past 112, so no box
+//    reads the next head's values. Q is copied zero-padded to 128; S runs 7
+//    k-steps over the real columns, P V at N = 128, and columns past 112 are
+//    never written. The scale is the caller's (1/sqrt(112)).
+//  - 256 (gemma-7b): a 64 x 256 fp32 O would take 128 registers a thread
+//    on top of S, and Q for 128 rows plus three K/V stages would not fit
+//    227 KB. A block holds 64 rows; its two warpgroups both compute S over
+//    all 256 columns and each keeps one 128-column half of O (registers as
+//    at head_dim 128), with two stages of 64 KB and 32 KB of Q (166 KB).
+//    The fp32 kernel's shared memory at 256 (82 KB) is dynamic, opted into
+//    above 48 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,19 +140,39 @@ __device__ __forceinline__ void key_range(int row0, int n, int rows, int G,
   *k_end = min(ke, L);
 }
 
+// Head dims not a multiple of 64 (kimi-k2's 112) run padded to the next
+// multiple of 64 in shared memory and registers: the padding is zero, every
+// global offset uses the real head_dim, and nothing past it is written.
+__host__ __device__ constexpr int padded(int hd) {
+  return (hd + 63) / 64 * 64;
+}
+
+// Dynamic shared memory of block_attn_kernel: Q (ROWS x P), K (32 x P+1)
+// and V (32 x P) in fp32; over 48 KB at head_dim 256, so it is opted into
+// at launch.
+template <int HD, int ROWS>
+constexpr int f32_smem() {
+  return (ROWS * padded(HD) + kTileK * (padded(HD) + 1) +
+          kTileK * padded(HD)) * 4;
+}
+
 // grid: (ceil(L*G / ROWS), Kv, b); block: kThreads. q (b, L, Kv, G, hd),
-// k/v (b, L, Kv, hd) contiguous; out (b, L, Kv, G, hd) fp32.
+// k/v (b, L, Kv, hd) contiguous; out (b, L, Kv, G, hd) fp32. Loads and
+// stores use HD; the products run over P = padded(HD), whose padding is
+// zero.
 template <typename T, int HD, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, float* __restrict__ out, int L,
                   int Kv, int G, int mode, int prompt_len, int block_size,
                   int window, float scale, float softcap) {
+  constexpr int P = padded(HD);
   constexpr int kRowsPerWarp = ROWS / kWarps;
-  constexpr int kColsPerLane = HD / 32;
-  __shared__ float sq[ROWS][HD];
-  __shared__ float sk[kTileK][HD + 1];  // +1: lane j reads row j conflict-free
-  __shared__ float sv[kTileK][HD];
+  constexpr int kColsPerLane = P / 32;
+  extern __shared__ float f32_raw[];
+  float* sq = f32_raw;                 // [ROWS][P]
+  float* sk = sq + ROWS * P;           // [kTileK][P + 1]: lane j reads row
+  float* sv = sk + kTileK * (P + 1);   // j conflict-free; [kTileK][P]
 
   const int rows = L * G;
   const int row0 = blockIdx.x * ROWS;
@@ -146,15 +182,15 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  for (int idx = tid; idx < ROWS * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD, row = row0 + r;
+  for (int idx = tid; idx < ROWS * P; idx += kThreads) {
+    const int r = idx / P, d = idx % P, row = row0 + r;
     float x = 0.f;
-    if (row < rows) {
+    if (row < rows && d < HD) {
       const long long off =
           ((((long long)lb * L + row / G) * Kv + kvh) * G + row % G) * HD + d;
       x = to_float(q[off]) * scale;
     }
-    sq[r][d] = x;
+    sq[r * P + d] = x;
   }
 
   int k_begin, k_end;
@@ -172,16 +208,16 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin / kTileK * kTileK; k0 < k_end; k0 += kTileK) {
     __syncthreads();  // the previous tile is consumed (first pass: sq ready)
-    for (int idx = tid; idx < kTileK * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD, kp = k0 + j;
+    for (int idx = tid; idx < kTileK * P; idx += kThreads) {
+      const int j = idx / P, d = idx % P, kp = k0 + j;
       float xk = 0.f, xv = 0.f;
-      if (kp < L) {
+      if (kp < L && d < HD) {
         const long long off = (((long long)lb * L + kp) * Kv + kvh) * HD + d;
         xk = to_float(k[off]);
         xv = to_float(v[off]);
       }
-      sk[j][d] = xk;
-      sv[j][d] = xv;
+      sk[j * (P + 1) + d] = xk;
+      sv[j * P + d] = xv;
     }
     __syncthreads();
 
@@ -194,7 +230,7 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kp = k0 + lane;
       float s = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < HD; ++d) s += sq[r][d] * sk[lane][d];
+      for (int d = 0; d < HD; ++d) s += sq[r * P + d] * sk[lane * (P + 1) + d];
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       const bool vis = kp < L && visible(qp, kp, mode, prompt_len,
                                          block_size, window);
@@ -212,7 +248,7 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float pj = __shfl_sync(kFull, p, j);
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c)
-          acc[i][c] += pj * sv[j][lane + 32 * c];
+          acc[i][c] += pj * sv[j * P + lane + 32 * c];
       }
       m[i] = m_new;
     }
@@ -227,7 +263,7 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ((((long long)lb * L + row / G) * Kv + kvh) * G + row % G) * HD;
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c)
-      out[base + lane + 32 * c] = acc[i][c] * inv;
+      if (lane + 32 * c < HD) out[base + lane + 32 * c] = acc[i][c] * inv;
   }
 }
 
@@ -236,8 +272,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int b, int L, int Kv, int G, int mode, int prompt_len,
                    int block_size, int window, float scale, float softcap,
                    cudaStream_t stream) {
+  constexpr int smem = f32_smem<HD, ROWS>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_attn_kernel<T, HD, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((L * G + ROWS - 1) / ROWS, Kv, b);
-  block_attn_kernel<T, HD, ROWS><<<grid, kThreads, 0, stream>>>(
+  block_attn_kernel<T, HD, ROWS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(out), L, Kv, G, mode,
       prompt_len, block_size, window, scale, softcap);
@@ -250,16 +291,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 constexpr int kKeys = 64;  // keys per K/V tile
 
 // Shared memory of block_attn_tc: a ring of K and V tiles (the ring's
-// barriers after it), then the block's Q (128 rows, hd / 64 boxes per 64
-// rows), each 1024-byte aligned.
+// barriers after it), then the block's Q (kRows rows, P / 64 boxes per 64
+// rows, P the head_dim padded to a multiple of 64), each 1024-byte
+// aligned.
 template <int HD>
 struct AttnTc {
-  static constexpr int kBoxes = HD / 64;                 // boxes per tile
-  static constexpr int kQBytes = tc::kTile * HD * 2;
-  static constexpr int kKvTile = kKeys * HD * 2;         // one K or V tile
+  static constexpr int kP = padded(HD);
+  // warpgroups that share a row group of 64 rows, each owning kP / kSplit
+  // columns of O: at head_dim 256 a 64 x 256 fp32 O would take 128
+  // registers a thread, so both warpgroups compute the 64 rows' S and keep
+  // half of O each, and a block holds 64 rows instead of 128
+  static constexpr int kSplit = kP > 128 ? 2 : 1;
+  static constexpr int kOCols = kP / kSplit;
+  static constexpr int kRows = 64 * 2 / kSplit;          // rows a block
+  static constexpr int kBoxes = kP / 64;                 // boxes per tile
+  static constexpr int kQBytes = kRows * kP * 2;
+  static constexpr int kKvTile = kKeys * kP * 2;         // one K or V tile
   static constexpr int kStage = 2 * kKvTile;
-  static constexpr int kStages = 3;
-  // blocks per SM: two at hd 64 (128 registers a thread), one at hd 128
+  // three stages and Q fit 227 KB up to head_dim 128; two at 256
+  static constexpr int kStages = kP > 128 ? 2 : 3;
+  // blocks per SM: two at hd 64 (128 registers a thread), one above
   static constexpr int kBlocksPerSm = HD == 64 ? 2 : 1;
   static constexpr int kSmem = kStages * kStage + kQBytes + 2 * 1024 + 256;
 };
@@ -278,11 +329,14 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// grid: (ceil(L*G / 128), Kv, b); block: tc::kConsumers threads, two
-// warpgroups of 64 rows. Thread 0 also issues the TMA loads of the ring
-// (no producer warp: without it two blocks fit an SM at hd 64). q (b, L,
-// Kv, G, HD) bf16 contiguous; kmap / vmap: k and v (b, L, Kv, HD) as
-// (b L, Kv HD) matrices; out (b, L, Kv, G, HD) fp32.
+// grid: (ceil(L*G / kRows), Kv, b); block: tc::kConsumers threads, two
+// warpgroups: of 64 rows each (kSplit 1), or both of the block's 64 rows,
+// each with half of O's columns (kSplit 2). Thread 0 also issues the TMA
+// loads of the ring (no producer warp: without it two blocks fit an SM at
+// hd 64). q (b, L, Kv, G, HD) bf16 contiguous; kmap / vmap: k and v (b, L,
+// Kv, HD) as (b L, Kv HD) matrices, or at a head_dim not a multiple of 64
+// as (b L, Kv, HD) 3-D maps whose boxes TMA zero-fills past HD; out (b, L,
+// Kv, G, HD) fp32.
 template <int HD>
 __global__ void __launch_bounds__(tc::kConsumers, AttnTc<HD>::kBlocksPerSm)
 block_attn_tc(const __grid_constant__ CUtensorMap kmap,
@@ -298,10 +352,10 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
       (reinterpret_cast<uintptr_t>(rest) + 1023) & ~uintptr_t(1023));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rows = L * G;
-  const int row0 = blockIdx.x * tc::kTile;
+  const int row0 = blockIdx.x * A::kRows;
   const int kvh = blockIdx.y, lb = blockIdx.z;
   int k_begin, k_end;
-  key_range(row0, tc::kTile, rows, G, L, mode, prompt_len, block_size,
+  key_range(row0, A::kRows, rows, G, L, mode, prompt_len, block_size,
             window, &k_begin, &k_end);
   const int j0 = k_begin / kKeys, j1 = (k_end + kKeys - 1) / kKeys;
   // thread 0's loads: tile jl into the ring once both warpgroups freed its
@@ -318,10 +372,17 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
     const int key = lb * L + jl * kKeys;
 #pragma unroll
     for (int x = 0; x < A::kBoxes; ++x) {
-      hopper::tma_load(st + x * hopper::kBoxBytes, &kmap, bar,
-                       kvh * HD + 64 * x, key);
-      hopper::tma_load(st + A::kKvTile + x * hopper::kBoxBytes, &vmap, bar,
-                       kvh * HD + 64 * x, key);
+      if constexpr (HD % 64 == 0) {
+        hopper::tma_load(st + x * hopper::kBoxBytes, &kmap, bar,
+                         kvh * HD + 64 * x, key);
+        hopper::tma_load(st + A::kKvTile + x * hopper::kBoxBytes, &vmap, bar,
+                         kvh * HD + 64 * x, key);
+      } else {
+        hopper::tma_load_3d(st + x * hopper::kBoxBytes, &kmap, bar, 64 * x,
+                            kvh, key);
+        hopper::tma_load_3d(st + A::kKvTile + x * hopper::kBoxBytes, &vmap,
+                            bar, 64 * x, kvh, key);
+      }
     }
     lc.next(A::kStages);
     ++jl;
@@ -334,15 +395,19 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
   __syncwarp();
   tc::Cursor c;
   const int wg = warp / 4, tid = threadIdx.x % 128;
-  // this warpgroup's 64 query rows, K-major, 128-byte swizzle: 16-byte
-  // chunk ch of row rr at rr * 128 + ((ch ^ rr) % 8) * 16 of box ch / 8
-  char* qs = q_all + wg * A::kBoxes * hopper::kBoxBytes;
-  constexpr int kChunks = HD / 8;
-  for (int x = tid; x < 64 * kChunks; x += 128) {
+  const int rg = wg / A::kSplit, half = wg % A::kSplit;
+  // this row group's 64 query rows, K-major, 128-byte swizzle: 16-byte
+  // chunk ch of row rr at rr * 128 + ((ch ^ rr) % 8) * 16 of box ch / 8;
+  // zero in the padding past HD. Copied by the row group's warpgroups.
+  char* qs = q_all + rg * A::kBoxes * hopper::kBoxBytes;
+  constexpr int kChunks = A::kP / 8, kReal = HD / 8;
+  constexpr int kGroupThreads = 128 * A::kSplit;
+  for (int x = threadIdx.x % kGroupThreads; x < 64 * kChunks;
+       x += kGroupThreads) {
     const int rr = x / kChunks, ch = x % kChunks;
-    const int row = row0 + 64 * wg + rr;
+    const int row = row0 + 64 * rg + rr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows)
+    if (row < rows && ch < kReal)
       val = *reinterpret_cast<const uint4*>(
           q + ((((long long)lb * L + row / G) * Kv + kvh) * G + row % G) *
                   HD + 8 * ch);
@@ -350,27 +415,29 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
                               (((ch % 8) ^ (rr & 7)) * 16)) = val;
   }
   hopper::fence_proxy_async();  // st.shared before wgmma reads it
-  hopper::named_sync(1 + wg, 128);
+  hopper::named_sync(1 + rg, kGroupThreads);
 
   int qp[2];  // query position of the thread's two rows
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf)
-    qp[hf] = (row0 + 64 * wg + tc::frag_row(hf, warp, lane)) / G;
+    qp[hf] = (row0 + 64 * rg + tc::frag_row(hf, warp, lane)) / G;
   const int q_lo = row0 / G;
   const bool capped = softcap > 0.f;
   // base-2 scores: log2 e folds into the scale (after the softcap if any)
   const float s_scale = capped ? scale : scale * tc::kLog2e;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[HD / 2];
+  constexpr int kO = A::kOCols / 2;   // this warpgroup's O fragment
+  float o[kO];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
 
   for (int j = j0; j < j1; ++j) {
     const int k0 = j * kKeys;
     hopper::bar_wait(&r.full[c.stage], c.phase);
     const char* kt = r.data + c.stage * A::kStage;
     const char* vt = kt + A::kKvTile;
-    // S = Q K^T (64 x 64 per warpgroup), both K-major
+    // S = Q K^T (64 x 64 per warpgroup), both K-major, over the real
+    // head_dim (the padding is zero)
     float s[32];
     hopper::wgmma_fence();
 #pragma unroll
@@ -425,7 +492,7 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
       m[hf] = m_new;                   // at the end
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+    for (int i = 0; i < kO; ++i) o[i] *= alpha[(i / 2) & 1];
     // P as the bf16 pair, in the A fragment of each 16-key step
     uint32_t hi[4][4], lo[4][4];
 #pragma unroll
@@ -438,10 +505,12 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
         lo[ks][e] = bits(__floats2bfloat162_rn(x0 - __low2float(h2),
                                                x1 - __high2float(h2)));
       }
+    // this warpgroup's O columns: V's boxes from half kOCols / 64
+    const char* vh = vt + half * (A::kOCols / 64) * hopper::kBoxBytes;
     hopper::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t dv = hopper::desc_mn(vt, ks);
+      const uint64_t dv = hopper::desc_mn(vh, ks);
       pv_step(o, hi[ks], dv);
       pv_step(o, lo[ks], dv);
     }
@@ -461,15 +530,17 @@ block_attn_tc(const __grid_constant__ CUtensorMap kmap,
     lt += __shfl_xor_sync(kFull, lt, 1);
     lt += __shfl_xor_sync(kFull, lt, 2);
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    const int row = row0 + 64 * wg + tc::frag_row(hf, warp, lane);
+    const int row = row0 + 64 * rg + tc::frag_row(hf, warp, lane);
     if (row >= rows) continue;
     float* orow =
         out + ((((long long)lb * L + row / G) * Kv + kvh) * G + row % G) * HD;
 #pragma unroll
-    for (int qq = 0; qq < HD / 8; ++qq) {
+    for (int qq = 0; qq < kO / 4; ++qq) {
       const int i = 4 * qq + 2 * hf;
-      *reinterpret_cast<float2*>(orow + tc::frag_col(i, lane)) =
-          make_float2(o[i] * inv, o[i + 1] * inv);
+      const int col = half * A::kOCols + tc::frag_col(i, lane);
+      if (col < HD)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(o[i] * inv, o[i + 1] * inv);
     }
   }
 }
@@ -480,14 +551,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int block_size, int window, float scale, float softcap,
                       cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  if (!hopper::make_map(&kmap, k, b * L, Kv * HD, Kv * HD) ||
-      !hopper::make_map(&vmap, v, b * L, Kv * HD, Kv * HD))
-    return cudaErrorInvalidValue;
+  const bool ok =
+      HD % 64 == 0
+          ? hopper::make_map(&kmap, k, b * L, Kv * HD, Kv * HD) &&
+                hopper::make_map(&vmap, v, b * L, Kv * HD, Kv * HD)
+          : hopper::make_map_heads(&kmap, k, b * L, Kv, HD) &&
+                hopper::make_map_heads(&vmap, v, b * L, Kv, HD);
+  if (!ok) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       block_attn_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       AttnTc<HD>::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L * G + tc::kTile - 1) / tc::kTile, Kv, b);
+  const dim3 grid((L * G + AttnTc<HD>::kRows - 1) / AttnTc<HD>::kRows, Kv,
+                  b);
   block_attn_tc<HD><<<grid, tc::kConsumers, AttnTc<HD>::kSmem, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<float*>(out), L, Kv, G, mode, prompt_len, block_size,
@@ -502,8 +578,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 // causal, 2 block_causal; block_size > 0; softcap <= 0 and window <= 0 mean
 // none. bf16 runs on the tensor cores, fp32 on CUDA cores. Launches on
 // `stream`, allocates nothing, returns cudaGetLastError()
-// (cudaErrorInvalidValue for a head_dim other than 64 or 128, or a TMA
-// tensor map the driver refuses).
+// (cudaErrorInvalidValue for a head_dim other than 64, 112, 128 or 256, or
+// a TMA tensor map the driver refuses).
 extern "C" int block_attn_forward(const void* q, const void* k,
                                   const void* v, void* out, int b, int L,
                                   int Kv, int G, int hd, int mode,
@@ -515,17 +591,32 @@ extern "C" int block_attn_forward(const void* q, const void* k,
     if (hd == 64)
       return launch_tc<64>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
                            block_size, window, scale, softcap, s);
+    if (hd == 112)
+      return launch_tc<112>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
+                            block_size, window, scale, softcap, s);
     if (hd == 128)
       return launch_tc<128>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
                             block_size, window, scale, softcap, s);
+    if (hd == 256)
+      return launch_tc<256>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
+                            block_size, window, scale, softcap, s);
     return cudaErrorInvalidValue;
   }
-  // shared memory: ROWS*HD + 32*(HD+1) + 32*HD floats stays under 48 KB
+  // shared memory (f32_smem): 33 KB at head_dim 64, 41 KB at 128, 37 KB at
+  // 112 (8 rows a block, one a warp: with 16, ptxas kept the instance at 48
+  // registers and spilled), 82 KB at 256 (the opt-in above 48 KB)
   if (hd == 64)
     return launch<float, 64, 64>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
                                  block_size, window, scale, softcap, s);
+  if (hd == 112)
+    return launch<float, 112, 8>(q, k, v, out, b, L, Kv, G, mode, prompt_len,
+                                 block_size, window, scale, softcap, s);
   if (hd == 128)
     return launch<float, 128, 16>(q, k, v, out, b, L, Kv, G, mode,
+                                  prompt_len, block_size, window, scale,
+                                  softcap, s);
+  if (hd == 256)
+    return launch<float, 256, 16>(q, k, v, out, b, L, Kv, G, mode,
                                   prompt_len, block_size, window, scale,
                                   softcap, s);
   return cudaErrorInvalidValue;

@@ -27,7 +27,7 @@ from repro_torch.kernels.block_attn import ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -76,6 +76,24 @@
 //    query row at a time, lane j scores key j of a 32-key tile, the warp
 //    reduces max and sum with shuffles, each lane keeps hd / 32 output
 //    columns in registers.
+//
+// Head dims 64, 112, 128 and 256 (qwen2-0.5b, kimi-k2, dream-7b / llada-8b /
+// gemma2 / llama4, gemma-7b). Two of them do not fit the layouts above as
+// they are:
+//  - 112 is not a multiple of the 64-value swizzle box. Rows are padded to
+//    128 in shared memory and registers: the 16-byte copies of columns 112
+//    .. 127 read nothing and zero-fill, S runs 7 k-steps of 16 over the real
+//    columns, P V runs at N = 128 and columns past 112 are never written.
+//    The scale is the caller's (1/sqrt(112)), never the padded width's.
+//  - 256 would need a 64 x 256 fp32 O accumulator, 128 registers a thread
+//    on top of S. Two warpgroups share each group of 64 rows instead: both
+//    compute the same S (16 k-steps) and softmax statistics, and each keeps
+//    and writes one 128-column half of O (its P V reads V's boxes from its
+//    half), so a thread holds the registers of the head_dim 128 kernel; the
+//    block holds one row group (256 threads), and a K and a V tile take 32
+//    KB each (two stages and Q: 165 KB of shared memory).
+//    The fp32 kernel's shared memory at 256 (82 KB) is dynamic, opted into
+//    above 48 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,10 +120,28 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid: (ceil(Bq*G / ROWS), Kv, b); block: kThreads. Dense: the cache is
-// (b, S, Kv, hd) with strides (c_sb, c_ss, c_sk, 1). Paged: the pool is
-// (n_pages, page, Kv, hd) with strides (c_sb, c_ss, c_sk, 1), page_table is
-// (b, n_t) int32 and S = n_t * page.
+// Head dims not a multiple of 64 (kimi-k2's 112) run padded to the next
+// multiple of 64 in shared memory and registers: the padding columns are
+// zero, every global offset uses the real head_dim, and nothing past it is
+// written.
+__host__ __device__ constexpr int padded(int hd) {
+  return (hd + 63) / 64 * 64;
+}
+
+// Dynamic shared memory of decode_attn_kernel: Q (ROWS x P), K (32 x P+1),
+// V (32 x P) in fp32 and a byte per key, P = padded(HD); over 48 KB at
+// head_dim 256, so it is opted into at launch.
+template <int HD, int ROWS>
+constexpr int f32_smem() {
+  return (ROWS * padded(HD) + kTileK * (padded(HD) + 1) +
+          kTileK * padded(HD)) * 4 + kTileK;
+}
+
+// grid: (ceil(Bq*G / ROWS), Kv, b); block: kThreads. Loads and stores use
+// HD; the products run over P = padded(HD), whose padding is zero. Dense:
+// the cache is (b, S, Kv, hd) with strides (c_sb, c_ss, c_sk, 1). Paged:
+// the pool is (n_pages, page, Kv, hd) with strides (c_sb, c_ss, c_sk, 1),
+// page_table is (b, n_t) int32 and S = n_t * page.
 template <int HD, int ROWS, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const float* __restrict__ q,
@@ -116,12 +152,15 @@ decode_attn_kernel(const float* __restrict__ q,
                    float* __restrict__ out, int Bq, int Kv, int G, int S,
                    int n_t, int page, long long c_sb, long long c_ss,
                    long long c_sk, float scale, float softcap, int window) {
+  constexpr int P = padded(HD);
   constexpr int kRowsPerWarp = ROWS / kWarps;
-  constexpr int kColsPerLane = HD / 32;
-  __shared__ float sq[ROWS][HD];
-  __shared__ float sk[kTileK][HD + 1];  // +1: lane j reads row j conflict-free
-  __shared__ float sv[kTileK][HD];
-  __shared__ bool s_ok[kTileK];  // paged: the key's page is allocated
+  constexpr int kColsPerLane = P / 32;
+  extern __shared__ float f32_raw[];
+  float* sq = f32_raw;                  // [ROWS][P]
+  float* sk = sq + ROWS * P;            // [kTileK][P + 1]: lane j reads row
+  float* sv = sk + kTileK * (P + 1);    // j conflict-free; [kTileK][P]
+  bool* s_ok = reinterpret_cast<bool*>(sv + kTileK * P);  // paged: the
+                                        // key's page is allocated
 
   const int rows = Bq * G;
   const int row0 = blockIdx.x * ROWS;
@@ -131,15 +170,15 @@ decode_attn_kernel(const float* __restrict__ q,
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  for (int idx = tid; idx < ROWS * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD, row = row0 + r;
+  for (int idx = tid; idx < ROWS * P; idx += kThreads) {
+    const int r = idx / P, d = idx % P, row = row0 + r;
     float x = 0.f;
-    if (row < rows) {
+    if (row < rows && d < HD) {
       const long long off =
           ((((long long)lb * Bq + row / G) * Kv + kvh) * G + row % G) * HD + d;
       x = q[off] * scale;
     }
-    sq[r][d] = x;
+    sq[r * P + d] = x;
   }
   const int clen = min(max(cache_lens[lb], 0), S);
 
@@ -159,10 +198,10 @@ decode_attn_kernel(const float* __restrict__ q,
     const int k0 = (in_cache ? t : t - cache_tiles) * kTileK;
     const int klimit = in_cache ? clen : Bq;
     __syncthreads();  // the previous tile is consumed (first pass: sq ready)
-    for (int idx = tid; idx < kTileK * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD, kp = k0 + j;
+    for (int idx = tid; idx < kTileK * P; idx += kThreads) {
+      const int j = idx / P, d = idx % P, kp = k0 + j;
       float xk = 0.f, xv = 0.f;
-      if (kp < klimit) {
+      if (kp < klimit && d < HD) {
         if (in_cache) {
           long long off;
           bool ok = true;
@@ -184,8 +223,8 @@ decode_attn_kernel(const float* __restrict__ q,
           xv = vb[off];
         }
       }
-      sk[j][d] = xk;
-      sv[j][d] = xv;
+      sk[j * (P + 1) + d] = xk;
+      sv[j * P + d] = xv;
     }
     __syncthreads();
 
@@ -198,7 +237,7 @@ decode_attn_kernel(const float* __restrict__ q,
       const int kp = k0 + lane;
       float s = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < HD; ++d) s += sq[r][d] * sk[lane][d];
+      for (int d = 0; d < HD; ++d) s += sq[r * P + d] * sk[lane * (P + 1) + d];
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       bool vis = kp < klimit;
       if constexpr (PAGED) vis = vis && (!in_cache || s_ok[lane]);
@@ -219,7 +258,7 @@ decode_attn_kernel(const float* __restrict__ q,
         const float pj = __shfl_sync(kFull, p, j);
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c)
-          acc[i][c] += pj * sv[j][lane + 32 * c];
+          acc[i][c] += pj * sv[j * P + lane + 32 * c];
       }
       m[i] = m_new;
     }
@@ -234,7 +273,7 @@ decode_attn_kernel(const float* __restrict__ q,
         ((((long long)lb * Bq + row / G) * Kv + kvh) * G + row % G) * HD;
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c)
-      out[base + lane + 32 * c] = acc[i][c] * inv;
+      if (lane + 32 * c < HD) out[base + lane + 32 * c] = acc[i][c] * inv;
   }
 }
 
@@ -247,22 +286,29 @@ constexpr int kMaxT = 8;    // tiles per split at most (ref.tiles_per_split)
 constexpr int kMergeWarps = 8;
 
 // Shared memory of decode_attn_tc, 1024-byte aligned: kStages stages of a
-// K tile and a V tile (each head_dim / 64 boxes of 64 keys x 64 values),
-// then the block's Q (nwg warpgroups x head_dim / 64 boxes of 64 rows), then
+// K tile and a V tile (each P / 64 boxes of 64 keys x 64 values, P the
+// head_dim padded to a multiple of 64), then the block's Q (a row group's
+// P / 64 boxes of 64 rows per row group), then
 // the pool row of each of the split's cache keys (paged), per stage the last
 // tile it held with a key on a -1 page below its limit, then one byte per
 // key and stage: the key may be seen (below its limit, on an allocated
 // page).
 template <int HD>
 struct DecTc {
-  static constexpr int kTileBytes = kKeys * HD * 2;   // one K or V tile
+  static constexpr int kP = padded(HD);
+  // warpgroups that share a row group, each owning kP / kSplit columns of
+  // O: at head_dim 256 a whole 64 x 256 fp32 O would take 128 registers a
+  // thread, so two warpgroups each compute the row group's S and keep half
+  static constexpr int kSplit = kP > 128 ? 2 : 1;
+  static constexpr int kOCols = kP / kSplit;          // O columns a warpgroup
+  static constexpr int kTileBytes = kKeys * kP * 2;   // one K or V tile
   static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kWgQBytes = 64 * HD * 2;       // one warpgroup's Q
+  static constexpr int kWgQBytes = 64 * kP * 2;       // one row group's Q
   // warpgroups a block may hold: 4 x 128 threads at <= 128 registers at
-  // head_dim 64; the head_dim 128 O accumulator needs more, so 2
+  // head_dim 64; a 64 x 128 O accumulator needs more, so 2
   static constexpr int kMaxWg = HD == 64 ? 4 : 2;
-  static constexpr int smem(int nwg) {
-    return 1024 + kStages * kStageBytes + nwg * kWgQBytes +
+  static constexpr int smem(int nrg) {
+    return 1024 + kStages * kStageBytes + nrg * kWgQBytes +
            kMaxT * kKeys * 8 + kStages * 4 + kStages * kKeys;
   }
 };
@@ -273,7 +319,7 @@ struct TcArgs {
   float *part_acc, *part_ml, *out;
   int Bq, Kv, G, S, n_t, page;
   int T;          // 64-key tiles per split
-  int nwg;        // warpgroups per block (64 rows each)
+  int nwg;        // warpgroups per block (kSplit per row group of 64 rows)
   int vec;        // every row 16-byte aligned: cp.async, else 2-byte loads
   long long c_sb, c_ss, c_sk;
   float scale, softcap;
@@ -305,7 +351,9 @@ __device__ __forceinline__ void pv_step(float (&o)[64], const uint32_t (&a)[4],
   hopper::wgmma_128_rs<1>(o, a, dv, 1);
 }
 
-// grid: (Kv * row tiles, splits, b); block: 128 * a.nwg threads. Split
+// grid: (Kv * row tiles, splits, b); block: 128 * a.nwg threads, a.nwg /
+// kSplit row groups of 64 rows (warpgroup w: row group w / kSplit, O
+// columns (w % kSplit) kOCols ..). Split
 // blockIdx.y walks the lane's logical key tiles [y T, y T + T) (cache tiles
 // first, then the fresh keys) for the rows of row tile blockIdx.x / Kv, and
 // writes their output (a lane with one split) or their partials: acc
@@ -323,10 +371,11 @@ decode_attn_tc(const TcArgs a) {
   char* stages = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   char* q_all = stages + kStages * D::kStageBytes;
+  const int nrg = a.nwg / D::kSplit;  // row groups
   // paged: the pool row of each cache key of the split (element offset,
   // -1 on a -1 page)
   long long* row_off =
-      reinterpret_cast<long long*>(q_all + a.nwg * D::kWgQBytes);
+      reinterpret_cast<long long*>(q_all + nrg * D::kWgQBytes);
   // per stage, the last tile loaded there that had a key on a -1 page
   int* hole_at = reinterpret_cast<int*>(row_off + kMaxT * kKeys);
   unsigned char* ok_key = reinterpret_cast<unsigned char*>(hole_at + kStages);
@@ -336,30 +385,36 @@ decode_attn_tc(const TcArgs a) {
   const int rows = a.Bq * a.G;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid / 32, lane = tid % 32, wg = warp / 4;
-  constexpr int kChunks = HD / 8;  // 16-byte chunks of a row
+  const int rg = wg / D::kSplit, half = wg % D::kSplit;
+  constexpr int kChunks = D::kP / 8;  // 16-byte chunks of a padded row
+  constexpr int kReal = HD / 8;       // of them, those that hold values
   // the thread's chunk of every row it copies (nthr is a multiple of
   // kChunks, so it is the same in every row)
   const int ch = tid % kChunks;
+  constexpr int kGroupThreads = 128 * D::kSplit;
 
-  // this warpgroup's 64 query rows, K-major, 128-byte swizzle, zero past
-  // the lane's rows; their copies start before cache_len is read and join
-  // tile t0's cp.async group
-  const int wrow0 = (rt * a.nwg + wg) * 64;
+  // this row group's 64 query rows, K-major, 128-byte swizzle, zero past
+  // the lane's rows and in the padding; copied by the row group's
+  // warpgroups, they start before cache_len is read and join tile t0's
+  // cp.async group
+  const int wrow0 = (rt * nrg + rg) * 64;
   const bool active = wrow0 < rows;  // warpgroup-uniform
-  char* qs = q_all + wg * D::kWgQBytes;
-  for (int rr = (tid % 128) / kChunks; rr < 64; rr += 128 / kChunks) {
+  char* qs = q_all + rg * D::kWgQBytes;
+  for (int rr = (tid % kGroupThreads) / kChunks; rr < 64;
+       rr += kGroupThreads / kChunks) {
     const int row = wrow0 + rr;
+    const bool real = row < rows && ch < kReal;
     const __nv_bfloat16* src =
-        row < rows ? a.q + ((((long long)lb * a.Bq + row / a.G) * a.Kv +
-                             kvh) * a.G + row % a.G) * HD + 8 * ch
-                   : a.q;
+        real ? a.q + ((((long long)lb * a.Bq + row / a.G) * a.Kv + kvh) *
+                          a.G + row % a.G) * HD + 8 * ch
+             : a.q;
     char* dst = qs + (ch / 8) * hopper::kBoxBytes + rr * 128 +
                 (((ch % 8) ^ (rr & 7)) * 16);
     if (a.vec)
-      hopper::cp_async_16(dst, src, row < rows ? 16 : 0);
+      hopper::cp_async_16(dst, src, real ? 16 : 0);
     else
       *reinterpret_cast<uint4*>(dst) =
-          row < rows ? load8(src) : make_uint4(0u, 0u, 0u, 0u);
+          real ? load8(src) : make_uint4(0u, 0u, 0u, 0u);
   }
 
   const int clen = min(max(a.cache_lens[lb], 0), a.S);
@@ -389,7 +444,7 @@ decode_attn_tc(const TcArgs a) {
   // The thread's share of logical tile t's K and V rows into stage st, in
   // the swizzled layout: chunk ch of key row j at box ch / 8, j * 128 +
   // ((ch % 8) ^ (j % 8)) * 16. A key past its limit or on a -1 page is not
-  // read, and its row is zero.
+  // read, and its row is zero, as is the padding past head_dim.
   auto load_tile = [&](int t, int st) {
     char* kt = stages + st * D::kStageBytes;
     char* vt = kt + D::kTileBytes;
@@ -421,14 +476,16 @@ decode_attn_tc(const TcArgs a) {
       }
       const int so = (ch / 8) * hopper::kBoxBytes + j * 128 +
                      (((ch % 8) ^ (j & 7)) * 16);
+      const bool rd = ok && ch < kReal;
+      const int co = rd ? 8 * ch : 0;
       if (a.vec) {
-        hopper::cp_async_16(kt + so, ks + off + 8 * ch, ok ? 16 : 0);
-        hopper::cp_async_16(vt + so, vs + off + 8 * ch, ok ? 16 : 0);
+        hopper::cp_async_16(kt + so, ks + off + co, rd ? 16 : 0);
+        hopper::cp_async_16(vt + so, vs + off + co, rd ? 16 : 0);
       } else {
         const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(kt + so) = ok ? load8(ks + off + 8 * ch)
+        *reinterpret_cast<uint4*>(kt + so) = rd ? load8(ks + off + co)
                                                 : zero;
-        *reinterpret_cast<uint4*>(vt + so) = ok ? load8(vs + off + 8 * ch)
+        *reinterpret_cast<uint4*>(vt + so) = rd ? load8(vs + off + co)
                                                 : zero;
       }
     }
@@ -447,9 +504,10 @@ decode_attn_tc(const TcArgs a) {
   // base-2 scores: log2 e folds into the scale (after the softcap if any)
   const float s_scale = capped ? a.scale : a.scale * tc::kLog2e;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[HD / 2];
+  constexpr int kO = D::kOCols / 2;   // this warpgroup's O fragment
+  float o[kO];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
 
   for (int t = t0; t < t1; ++t) {
     const int st = (t - t0) % kStages;
@@ -459,7 +517,8 @@ decode_attn_tc(const TcArgs a) {
     if (active) {
       const char* kt = stages + st * D::kStageBytes;
       const char* vt = kt + D::kTileBytes;
-      // S = Q K^T (64 x 64 per warpgroup), both K-major
+      // S = Q K^T (64 x 64 per warpgroup), both K-major, over the real
+      // head_dim (the padding is zero)
       float s[32];
       hopper::wgmma_fence();
 #pragma unroll
@@ -522,7 +581,7 @@ decode_attn_tc(const TcArgs a) {
         m[hf] = m_new;                   // summed at the end
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+      for (int i = 0; i < kO; ++i) o[i] *= alpha[(i / 2) & 1];
       // P as the bf16 pair, in the A fragment of each 16-key step
       uint32_t hi[4][4], lo[4][4];
 #pragma unroll
@@ -535,10 +594,12 @@ decode_attn_tc(const TcArgs a) {
           lo[ks][e] = bits(__floats2bfloat162_rn(x0 - __low2float(h2),
                                                  x1 - __high2float(h2)));
         }
+      // this warpgroup's O columns: V's boxes from half kOCols / 64
+      const char* vh = vt + half * (D::kOCols / 64) * hopper::kBoxBytes;
       hopper::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        const uint64_t dv = hopper::desc_mn(vt, ks);
+        const uint64_t dv = hopper::desc_mn(vh, ks);
         pv_step(o, hi[ks], dv);
         pv_step(o, lo[ks], dv);
       }
@@ -568,10 +629,12 @@ decode_attn_tc(const TcArgs a) {
         float* orow = a.out + (out_row0 + (long long)(row / a.G) * a.Kv *
                                a.G + row % a.G) * HD;
 #pragma unroll
-        for (int qq = 0; qq < HD / 8; ++qq) {
+        for (int qq = 0; qq < kO / 4; ++qq) {
           const int i = 4 * qq + 2 * hf;
-          *reinterpret_cast<float2*>(orow + tc::frag_col(i, lane)) =
-              make_float2(o[i] * inv, o[i + 1] * inv);
+          const int col = half * D::kOCols + tc::frag_col(i, lane);
+          if (col < HD)
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(o[i] * inv, o[i + 1] * inv);
         }
       }
     }
@@ -590,12 +653,13 @@ decode_attn_tc(const TcArgs a) {
     if (row >= rows) continue;
     float* arow = a.part_acc + (r0 + row) * HD;
 #pragma unroll
-    for (int qq = 0; qq < HD / 8; ++qq) {
+    for (int qq = 0; qq < kO / 4; ++qq) {
       const int i = 4 * qq + 2 * hf;
-      *reinterpret_cast<float2*>(arow + tc::frag_col(i, lane)) =
-          make_float2(o[i], o[i + 1]);
+      const int col = half * D::kOCols + tc::frag_col(i, lane);
+      if (col < HD)
+        *reinterpret_cast<float2*>(arow + col) = make_float2(o[i], o[i + 1]);
     }
-    if ((lane & 3) == 0)
+    if ((lane & 3) == 0 && half == 0)
       *reinterpret_cast<float2*>(a.part_ml + 2 * (r0 + row)) =
           make_float2(m[hf], lt);
   }
@@ -614,7 +678,8 @@ decode_merge_kernel(const float* __restrict__ part_acc,
                     const int* __restrict__ cache_lens,
                     float* __restrict__ out, int Bq, int Kv, int G, int S,
                     int T) {
-  constexpr int kCols = HD / 32;  // per lane
+  constexpr int kCols = (HD + 31) / 32;  // per lane; the last lanes may
+                                         // hold fewer (head_dim 112)
   const int rows = Bq * G;
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -642,13 +707,15 @@ decode_merge_kernel(const float* __restrict__ part_acc,
     l += ml.y * w;
     const float* src = part_acc + r * HD + kCols * lane;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] += src[c] * w;
+    for (int c = 0; c < kCols; ++c)
+      if (kCols * lane + c < HD) acc[c] += src[c] * w;
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
   float* dst = out + ((((long long)lb * Bq + row / G) * Kv + kvh) * G +
                       row % G) * HD + kCols * lane;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) dst[c] = acc[c] * inv;
+  for (int c = 0; c < kCols; ++c)
+    if (kCols * lane + c < HD) dst[c] = acc[c] * inv;
 }
 
 struct Args {
@@ -662,8 +729,13 @@ struct Args {
 
 template <int HD, int ROWS, bool PAGED>
 cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
+  constexpr int smem = f32_smem<HD, ROWS>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      decode_attn_kernel<HD, ROWS, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.Bq * a.G + ROWS - 1) / ROWS, a.Kv, a.b);
-  decode_attn_kernel<HD, ROWS, PAGED><<<grid, kThreads, 0, stream>>>(
+  decode_attn_kernel<HD, ROWS, PAGED><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.kc),
       static_cast<const float*>(a.vc), static_cast<const float*>(a.kb),
       static_cast<const float*>(a.vb), static_cast<const int*>(a.cache_lens),
@@ -683,9 +755,11 @@ template <int HD, bool PAGED>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   using D = DecTc<HD>;
   const int rows = a.Bq * a.G;
-  const int wg_tiles = (rows + 63) / 64;
-  const int nwg = wg_tiles < D::kMaxWg ? wg_tiles : D::kMaxWg;
-  const int row_tiles = (wg_tiles + nwg - 1) / nwg;
+  const int wg_tiles = (rows + 63) / 64;   // row groups of 64 rows
+  constexpr int kMaxRg = D::kMaxWg / D::kSplit;
+  const int nrg = wg_tiles < kMaxRg ? wg_tiles : kMaxRg;
+  const int nwg = nrg * D::kSplit;
+  const int row_tiles = (wg_tiles + nrg - 1) / nrg;
   float* part_acc = static_cast<float*>(a.scratch);
   TcArgs t;
   t.q = static_cast<const __nv_bfloat16*>(a.q);
@@ -718,10 +792,10 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   t.window = a.window;
   cudaError_t err = cudaFuncSetAttribute(
       decode_attn_tc<HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      D::smem(D::kMaxWg));
+      D::smem(kMaxRg));
   if (err != cudaSuccess) return err;
   const dim3 grid(a.Kv * row_tiles, a.n_splits, a.b);
-  decode_attn_tc<HD, PAGED><<<grid, 128 * nwg, D::smem(nwg), stream>>>(t);
+  decode_attn_tc<HD, PAGED><<<grid, 128 * nwg, D::smem(nrg), stream>>>(t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 mgrid((rows + kMergeWarps - 1) / kMergeWarps, a.Kv, a.b);
@@ -736,12 +810,19 @@ cudaError_t dispatch(int hd, int is_bf16, const Args& a, cudaStream_t s) {
     if (a.T <= 0 || a.T > kMaxT || a.n_splits <= 0 || a.scratch == nullptr)
       return cudaErrorInvalidValue;
     if (hd == 64) return launch_tc<64, PAGED>(a, s);
+    if (hd == 112) return launch_tc<112, PAGED>(a, s);
     if (hd == 128) return launch_tc<128, PAGED>(a, s);
+    if (hd == 256) return launch_tc<256, PAGED>(a, s);
     return cudaErrorInvalidValue;
   }
-  // shared memory: ROWS*HD + 32*(HD+1) + 32*HD floats stays under 48 KB
+  // shared memory (f32_smem): 25 KB at head_dim 64, 37 KB at 112, 41 KB
+  // at 128, 82 KB at 256 (the opt-in above 48 KB). At 112 a block holds 8
+  // rows, one a warp: with 16, ptxas kept the instance at 48 registers and
+  // spilled
   if (hd == 64) return launch_fp32<64, 32, PAGED>(a, s);
+  if (hd == 112) return launch_fp32<112, 8, PAGED>(a, s);
   if (hd == 128) return launch_fp32<128, 16, PAGED>(a, s);
+  if (hd == 256) return launch_fp32<256, 16, PAGED>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -755,7 +836,7 @@ cudaError_t dispatch(int hd, int is_bf16, const Args& a, cudaStream_t s) {
 // (hd + 2) floats (16-byte aligned), then merged by a second kernel; fp32
 // on CUDA cores (T, n_splits and scratch unused). Launches on `stream`,
 // allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
-// a head_dim other than 64 or 128).
+// a head_dim other than 64, 112, 128 or 256).
 extern "C" int decode_attn_forward(
     const void* q, const void* kc, const void* vc, const void* kb,
     const void* vb, const void* cache_lens, void* out, void* scratch, int b,

@@ -37,7 +37,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
 _PAGED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,4 +1,4 @@
-"""Functional layers of the dense decoder, ported from the JAX package's
+"""Functional layers of the decoder stack, ported from the JAX package's
 ``models/layers.py``.
 
 Conventions (the JAX package's, kept so that tests compare like with like):
@@ -169,11 +169,20 @@ def attention_core(q, k, v, *, q_pos, kv_pos, kv_valid=None, bias_fn: BiasFn,
 # ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
+def act(x, kind: str):
+    """The gate's activation: silu (SwiGLU) or gelu (GeGLU). JAX's
+    ``jax.nn.gelu`` defaults to the tanh approximation, so gelu is
+    ``approximate="tanh"`` here, not torch's exact default."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"activation {kind!r} is not ported")
+
+
 def apply_mlp(params, x, cfg: ModelConfig):
-    """SwiGLU."""
-    if cfg.activation != "silu":
-        raise ValueError(f"activation {cfg.activation!r} is not ported")
-    g = F.silu(x @ params["wi_gate"])
+    """The gated FFN: act(x W_gate) * (x W_up), then W_out."""
+    g = act(x @ params["wi_gate"], cfg.activation)
     return (g * (x @ params["wi_up"])) @ params["wo"]
 
 
@@ -181,9 +190,16 @@ def apply_mlp(params, x, cfg: ModelConfig):
 # Embedding / head
 # ---------------------------------------------------------------------------
 def embed_tokens(params, tokens, cfg: ModelConfig):
+    """The token embeddings, times sqrt(d_model) where ``embed_scale`` says
+    so. The scale is first rounded to the embeddings' dtype, as the
+    reference does (``jnp.asarray(sqrt(d), x.dtype)``): in bf16 gemma-7b's
+    sqrt(3072) = 55.43 becomes 55.5, and a product with the unrounded scale
+    (rounded once, in fp32) differs from the reference's in about a fifth
+    of the entries."""
     x = params["tok"][tokens]
     if cfg.embed_scale:
-        x = x * math.sqrt(cfg.d_model)
+        # rounded on the host: no copy to the device inside a graph
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
     return x
 
 

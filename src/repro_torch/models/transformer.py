@@ -1,5 +1,6 @@
-"""The dense decoder stack, ported from the JAX package's
-``models/transformer.py`` for ``ATTN``/``MLP`` slots.
+"""The decoder stack, ported from the JAX package's
+``models/transformer.py`` for ``ATTN``, ``ATTN_LOCAL`` (a sliding window of
+``cfg.sliding_window``), ``MLP`` and ``MOE`` slots.
 
 A model is ``cfg.n_periods`` repeats of ``cfg.layer_period``; each slot's
 params are stacked over periods and the stack runs as a Python loop over
@@ -13,7 +14,8 @@ forward. ``forward`` covers:
   dense or block-paged (``core.cache.PagedCache``).
 
 Per-slot emissions ``{"k", "v"}`` come back stacked over periods,
-``(n_periods, b, L, Kv, hd)``, ready for ``core.cache.commit_rows``.
+``(n_periods, b, L, Kv, hd)``, ready for ``core.cache.commit_rows``; the
+MoE slots' load-balance losses come back summed as ``aux_loss``.
 """
 from __future__ import annotations
 
@@ -23,31 +25,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, MLP, ModelConfig
+from repro_torch.configs.base import (
+    ATTN_LOCAL,
+    MOE,
+    ModelConfig,
+    check_supported,
+)
 from repro_torch.core import masks
 from repro_torch.kernels.decode_attn.ref import gather_pages
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MO
+
 
 
 class ModelOutput(NamedTuple):
-    """The JAX ``ModelOutput`` without ``aux_loss``: a dense ``ATTN``/``MLP``
-    stack has no router, so its aux loss is 0 and the training losses add
-    ``router_aux_weight * 0`` by leaving it out."""
     logits: Optional[torch.Tensor]  # (b, Lq, V) fp32; None without logits
     hidden: torch.Tensor            # (b, Lq, d) last hidden (post final norm)
     emissions: tuple                # per slot {"k", "v"} stacked over periods
+    aux_loss: torch.Tensor          # MoE load-balance aux (fp32 scalar; 0
+    #                                 without an MOE slot)
 
 
 def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     """The (V, d) matrix ``lm_head`` multiplies by, handed to the fused
     unembed + select kernel so decode never builds logits."""
     return L.unembed_w(params["embed"], cfg)
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    if any(slot != (ATTN, MLP) for slot in cfg.layer_period):
-        raise ValueError(f"{cfg.name}: repro_torch runs ATTN/MLP slots only, "
-                         f"got layer_period={cfg.layer_period}")
 
 
 def _by_period(tree, n: int):
@@ -62,14 +64,19 @@ def _by_period(tree, n: int):
     return torch.unbind(tree, 0)
 
 
-def _self_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
-    """Returns (y, emission)."""
+def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
+    """Returns (y, emission). An ``ATTN_LOCAL`` slot attends within
+    ``cfg.sliding_window`` whatever ``use_long_window`` says."""
     h = L.apply_norm(slot["norm1"], x, cfg)
     q = L.project_q(slot["attn"], h, cfg)
     k, v = L.project_kv(slot["attn"], h, cfg)
     q = L.rope(q, ctx["q_pos"], cfg.rope_theta)
     k = L.rope(k, ctx["q_pos"], cfg.rope_theta)
-    window = (cfg.long_context_window if ctx["use_long_window"] else None)
+    window = None
+    if mixer == ATTN_LOCAL:
+        window = cfg.sliding_window
+    elif ctx["use_long_window"] and cfg.long_context_window:
+        window = cfg.long_context_window
     scale, cap = L.attn_scale(cfg), cfg.attn_logit_softcap
     cache = ctx["cache_slot"]
     pages = ctx["pages"]
@@ -142,7 +149,8 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             decode_attention_fn=None, paged_decode_attention_fn=None,
             prefill_attention_fn=None, remat: bool = False,
             logits_slice: Optional[Tuple[int, int]] = None,
-            return_logits: bool = True) -> ModelOutput:
+            return_logits: bool = True,
+            moe_per_row: bool = False) -> ModelOutput:
     """Run the model.
 
     tokens: (b, L) int. ``cache`` (a ``core.cache.init_cache`` tuple or a
@@ -170,9 +178,14 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     positions ``[s0, s1)`` only (the CDLM losses read generation-span
     logits). ``remat`` recomputes each layer period in the backward
     (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``
-    of the period body) when grad mode is on.
+    of the period body) when grad mode is on. The MoE slots of a cached
+    forward size their expert buffers by the decode's bounded capacity
+    (dropless), those of a cache-less one by the capacity factor, as the
+    reference's defaults do. ``moe_per_row`` gives each row of the batch
+    its own expert capacity (as in ``models.moe.apply_moe``): the
+    reference's per-lane forward.
     """
-    check_dense(cfg)
+    check_supported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev)
     if params["embed"]["tok"].device != tokens.device:
@@ -213,25 +226,34 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     cache_slots = (None if cache is None
                    else [_by_period(c, n) for c in cache])
 
-    def period_body(x, p: int):
+    def period_body(x, aux, p: int):
         ems = []
-        for i, slot_by_period in enumerate(slots):
-            slot = slot_by_period[p]
+        for i, (mixer, ffn) in enumerate(cfg.layer_period):
+            slot = slots[i][p]
             c = dict(ctx, cache_slot=None if cache is None
                      else cache_slots[i][p])
-            x, em = _self_attention_slot(slot, x, cfg=cfg, ctx=c)
+            x, em = _self_attention_slot(slot, x, cfg=cfg, mixer=mixer,
+                                         ctx=c)
             h = L.apply_norm(slot["norm2"], x, cfg)
-            x = x + L.apply_mlp(slot["mlp"], h, cfg)
+            if ffn == MOE:
+                y, a = MO.apply_moe(slot["moe"], h, cfg,
+                                    dropless=cache is not None,
+                                    moe_per_row=moe_per_row)
+                x, aux = x + y, aux + a
+            else:
+                x = x + L.apply_mlp(slot["mlp"], h, cfg)
             ems.append(em)
-        return x, ems
+        return x, aux, ems
 
     checkpointed = remat and torch.is_grad_enabled()
     emitted = [[] for _ in cfg.layer_period]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for p in range(n):
         if checkpointed:
-            x, ems = checkpoint(period_body, x, p, use_reentrant=False)
+            x, aux, ems = checkpoint(period_body, x, aux, p,
+                                     use_reentrant=False)
         else:
-            x, ems = period_body(x, p)
+            x, aux, ems = period_body(x, aux, p)
         for i, em in enumerate(ems):
             emitted[i].append(em)
     emissions = tuple({key: torch.stack([em[key] for em in ems])
@@ -239,8 +261,9 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
 
     hidden = L.apply_norm(params["final_norm"], x, cfg)
     if not return_logits:
-        return ModelOutput(logits=None, hidden=hidden, emissions=emissions)
+        return ModelOutput(logits=None, hidden=hidden, emissions=emissions,
+                           aux_loss=aux)
     head_in = (hidden if logits_slice is None
                else hidden[:, logits_slice[0]:logits_slice[1]])
     return ModelOutput(logits=L.lm_head(params["embed"], head_in, cfg),
-                       hidden=hidden, emissions=emissions)
+                       hidden=hidden, emissions=emissions, aux_loss=aux)

@@ -98,7 +98,7 @@ import torch
 
 from repro_torch import graphs as GR
 from repro_torch import prng, resolve_device
-from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.configs.base import ModelConfig, ServeConfig, check_supported
 from repro_torch.core import cache as C
 from repro_torch.core import diffusion as D
 from repro_torch.core import masks
@@ -115,7 +115,6 @@ from repro_torch.core.block_loop import (
 from repro_torch.core.sampler import SAMPLERS
 from repro_torch.kernels.block_attn import flash_block_attention
 from repro_torch.models import forward, unembed_matrix
-from repro_torch.models.transformer import check_dense
 from repro_torch.serving.api import (
     BlockEvent,
     GenerationOutput,
@@ -279,7 +278,7 @@ class Engine(_RequestStepper):
                 "scheduler with the paged layout; the static engine runs "
                 "whole sequences to completion, so its paged pool is "
                 "always sized dense-equivalent (batch x full canvas)")
-        check_dense(cfg)
+        check_supported(cfg)
         self.device = resolve_device(device)
         self.graphed = _check_graphs(graphs, self.device)
         _check_params_device(params, self.device)
@@ -533,7 +532,7 @@ class ContinuousEngine(_RequestStepper):
                 "(temperature > 0) would route every step through the "
                 "dense selection path, mixing fused and dense decodes "
                 "across batch compositions")
-        check_dense(cfg)
+        check_supported(cfg)
         self.device = resolve_device(device)
         self.graphed = _check_graphs(graphs, self.device)
         # the captured graphs by name: the iteration variants ("fused",
@@ -679,7 +678,8 @@ class ContinuousEngine(_RequestStepper):
             state.keys_t.copy_(keys)
         net, _ = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache, cfg=cfg,
-            spec=self.spec, return_hidden=variant == "fused")
+            spec=self.spec, return_hidden=variant == "fused",
+            moe_per_row=True)
         if variant == "fused":
             cand, conf = D.confidence_and_candidates_fused(
                 net, unembed_matrix(self.params, cfg), bt, cfg.mask_token_id,
@@ -703,7 +703,8 @@ class ContinuousEngine(_RequestStepper):
         state = self._state
         _, emissions = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache,
-            cfg=self.cfg, spec=self.spec, return_hidden=True)
+            cfg=self.cfg, spec=self.spec, return_hidden=True,
+            moe_per_row=True)
         return emissions
 
     def _write_block_inputs(self, state: _Slots, starts, live) -> None:

@@ -54,10 +54,6 @@ def _xent_w(params, cfg: ModelConfig):
     return L.unembed_w(params["embed"], cfg)
 
 
-def _zero(ref):
-    return torch.zeros((), device=ref.device)
-
-
 # ---------------------------------------------------------------------------
 # Teacher pretrain (Eq. 6)
 # ---------------------------------------------------------------------------
@@ -78,7 +74,8 @@ def dlm_pretrain_loss(params, batch, draws, *, cfg: ModelConfig,
                   return_logits=False)
     loss = LS.dlm_loss_from_hidden(out.hidden[:, P:], _xent_w(params, cfg),
                                    answer, m, t)
-    return loss, {"dlm_loss": loss.detach(), "aux": _zero(loss)}
+    total = loss + cfg.router_aux_weight * out.aux_loss
+    return total, {"dlm_loss": loss.detach(), "aux": out.aux_loss.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +96,8 @@ def ar_loss(params, batch, *, cfg: ModelConfig, remat: bool = False):
                      answer.reshape(b * G)).reshape(b, G)
     w = batch["maskable"].float()
     loss = (nll * w).sum() / w.sum().clamp_min(1.0)
-    return loss, {"ar_loss": loss.detach(), "aux": _zero(loss)}
+    total = loss + cfg.router_aux_weight * out.aux_loss
+    return total, {"ar_loss": loss.detach(), "aux": out.aux_loss.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -131,10 +129,16 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
     def span(out):
         return out.logits if efficient_loss else out.logits[:, P:]
 
-    # (i) student at y; (ii) student at y*, the detached consistency target
-    logits_y = span(forward(params, batch["y"], **kw))
+    # (i) student at y; (ii) student at y*, the detached consistency target.
+    # Its router's aux loss is not detached in the reference, so with MoE
+    # slots y*'s forward keeps its graph and only its logits are detached.
+    out_y = forward(params, batch["y"], **kw)
+    logits_y = span(out_y)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and
+                                cfg.n_experts > 0):
+        out_ystar = forward(params, batch["y_star"], **kw)
+    logits_ystar = span(out_ystar).detach()
     with torch.no_grad():
-        logits_ystar = span(forward(params, batch["y_star"], **kw))
         # teacher distributions from the hidden buffer, frozen head
         teacher_logits = L.lm_head(teacher_head, batch["teacher_hidden"],
                                    cfg)
@@ -158,8 +162,10 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
 
     total = LS.cdlm_total(l_distill, l_cons, l_dlm, w_distill=cdlm.w_distill,
                           w_cons=cdlm.w_cons, w_dlm=cdlm.w_dlm)
+    aux = out_y.aux_loss + out_ystar.aux_loss + out_dlm.aux_loss
+    total = total + cfg.router_aux_weight * aux
     return total, {"distill": l_distill.detach(), "cons": l_cons.detach(),
-                   "dlm": l_dlm.detach(), "aux": _zero(total)}
+                   "dlm": l_dlm.detach(), "aux": aux.detach()}
 
 
 # ---------------------------------------------------------------------------

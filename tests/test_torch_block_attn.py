@@ -77,6 +77,30 @@ def test_block_attention_plain_matches_jax(mode, L, G, prompt_len,
                                atol=TOL)
 
 
+@pytest.mark.parametrize("Kv,G,hd,mode,window,softcap", [
+    (2, 1, 256, "block_causal", None, None),   # gemma-7b's G and head_dim
+    (2, 2, 128, "bidirectional", 9, 50.0),     # gemma2's local slot, scaled
+    (2, 8, 112, "causal", None, None),         # kimi-k2's G and head_dim
+    (1, 8, 112, "block_causal", 9, 50.0),
+    (1, 1, 256, "bidirectional", 9, 50.0),
+])
+def test_block_attention_plain_matches_jax_at_new_head_dims(Kv, G, hd, mode,
+                                                            window, softcap):
+    """The plain version at the head dims the kernels gained, against the
+    JAX kernel (interpret mode) and oracle, fp32 at 1e-4."""
+    L, P, bs = 36, 12, 8
+    q, k, v = _inputs(2, L, Kv, G, hd, seed=hd + G)
+    kw = dict(mode=mode, prompt_len=P, block_size=bs, window=window,
+              scale=hd ** -0.5, softcap=softcap)
+    got = flash_block_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                torch.as_tensor(v), **kw).numpy()
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     block_q=16, block_k=16, interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, _oracle(q, k, v, **kw), rtol=TOL,
+                               atol=TOL)
+
+
 def test_block_attention_ragged_last_block_matches_oracle():
     """L ends inside a CDLM block. The JAX wrapper pads L to its tile with
     zero keys, and under block_causal the padded positions of that last

@@ -58,12 +58,19 @@ def _check_round_trip(params, tree):
         np.testing.assert_array_equal(g, leaf, key)
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "dream-7b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "dream-7b", "gemma-7b",
+                                  "gemma2-27b", "llama4-maverick-400b-a17b",
+                                  "kimi-k2-1t-a32b"])
 def test_round_trip_of_the_jax_tree(name):
+    """Every leaf, ``ATTN_LOCAL`` slots and ``moe`` leaves (the fp32
+    router, the (E, d, f) / (E, f, d) experts, the shared expert) too."""
     _, cfg, tree = _jax_tree(name)
     params = params_from_jax(tree, cfg, "cpu")
     _check_round_trip(params, tree)
     assert param_count(params) == sum(a.size for a in _flat(tree).values())
+    for key, leaf in _flat(tree).items():
+        assert _flat(params)[key].dtype == (
+            torch.float32 if leaf.dtype == np.float32 else torch.bfloat16)
 
 
 def test_npz_checkpoint_keys(tmp_path):
@@ -82,7 +89,8 @@ def test_shape_mismatch_is_refused():
         params_from_jax(tree, dataclasses.replace(cfg, d_ff=64), "cpu")
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "llada-8b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "llada-8b",
+                                  "gemma2-27b", "kimi-k2-1t-a32b"])
 def test_seeded_init_follows_the_jax_init(name):
     _, cfg, tree = _jax_tree(name)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -126,6 +134,38 @@ def test_training_and_serving_configs_match_the_jax_package(name):
 
 
 def test_unported_architectures_are_refused():
-    jax_get_config("gemma2-27b")
-    with pytest.raises(KeyError, match="not served by repro_torch"):
-        get_config("gemma2-27b")
+    """The registry holds every architecture; the port's stack refuses the
+    ones it does not run (Mamba, RWKV, the encoder-decoder) when params
+    are built, and an unknown name is refused by the registry."""
+    for name in ("jamba-v0.1-52b", "rwkv6-1.6b", "whisper-base"):
+        cfg = get_config(name).reduced()
+        with pytest.raises(ValueError, match="repro_torch runs"):
+            init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gemma3-1b")
+
+
+def test_large_leaves_are_drawn_in_chunks(monkeypatch):
+    """A leaf over ``DRAW_CHUNK`` elements is built in its own dtype from
+    fp32 draws of at most ``DRAW_CHUNK`` elements, with the init's
+    distribution."""
+    import repro_torch.bridge as bridge
+    monkeypatch.setattr(bridge, "DRAW_CHUNK", 1000)
+    real = torch.randn
+    sizes = []
+
+    def randn(*args, **kw):
+        out = real(*args, **kw)
+        sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch, "randn", randn)
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         dtype="bfloat16")
+    assert max(sizes) <= 1000
+    moe = params["slots"][0]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert moe["wi_gate"].dtype == torch.bfloat16
+    std = moe["wi_gate"].float().std().item()
+    assert abs(std * cfg.d_model ** 0.5 - 1) < 0.05

@@ -444,6 +444,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                      torch.zeros((10, 64), dtype=bf, device=cuda), ones)
 
 
+# the head layouts the kernels gained: gemma-7b (Kv 16, G 1, hd 256) and
+# kimi-k2 (Kv 8, G 8, hd 112: padded to 128 inside the kernels)
+NEW_HEADS = [(16, 1, 256), (8, 8, 112)]
+NEW_IDS = ["gemma-7b-hd256", "kimi-k2-hd112"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,G,hd", NEW_HEADS, ids=NEW_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (40, 50.0)])
+def test_decode_kernels_at_new_head_dims(cuda, Kv, G, hd, dtype, window,
+                                         softcap):
+    """Dense and paged decode attention at hd 256 and 112 against their
+    plain versions (1e-4: both sides read the same inputs and accumulate
+    in fp32), lengths 0, on a 64-key tile edge, past it and S; the paged
+    kernel equal to the dense one bit for bit, and two calls equal."""
+    gen = torch.Generator(device=cuda).manual_seed(Kv + G + hd)
+    dense, paged = _decode_pair(cuda, gen, b=4, Bq=32, Kv=Kv, G=G, hd=hd,
+                                S=200, lens=[0, 64, 129, 200], dtype=dtype,
+                                page=8)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=softcap)
+    got = decode_attention(*dense, **kw)
+    torch.testing.assert_close(got, dref.decode_attention(*dense, **kw),
+                               rtol=1e-4, atol=1e-4)
+    got_paged = paged_decode_attention(*paged, **kw)
+    torch.testing.assert_close(got_paged,
+                               dref.paged_decode_attention(*paged, **kw),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got_paged, got)
+    assert torch.equal(decode_attention(*dense, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,G,hd", NEW_HEADS, ids=NEW_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,L,P,bs,window,softcap", [
+    ("block_causal", 100, 40, 16, None, None),
+    ("bidirectional", 70, 0, 1, 20, 50.0),     # gemma2's softcap, a window
+    ("causal", 130, 0, 1, None, None),
+])
+def test_block_attention_at_new_head_dims(cuda, Kv, G, hd, dtype, mode, L,
+                                          P, bs, window, softcap):
+    """Block attention at hd 256 (64 rows a block, O split in column
+    halves) and 112 (K/V by 3-D TMA boxes zero-filled past 112) against
+    the plain version, L not a multiple of the key tile."""
+    gen = torch.Generator(device=cuda).manual_seed(L + hd)
+    q = _randn(gen, 2, L, Kv, G, hd).to(dtype)
+    k, v = (_randn(gen, 2, L, Kv, hd).to(dtype) for _ in range(2))
+    kw = dict(mode=mode, prompt_len=P, block_size=bs, window=window,
+              scale=hd ** -0.5, softcap=softcap)
+    got = flash_block_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, bref.block_attention(q, k, v, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 120, 192, 320])
+def test_wrappers_refuse_head_dims_they_do_not_take(cuda, hd):
+    """The kernels take head_dim 64, 112, 128 and 256; the wrappers raise on
+    any other, in both dtypes, rather than pad or fall back."""
+    from repro_torch.kernels.block_attn import ops as bops
+    from repro_torch.kernels.decode_attn import ops as dops
+    assert dops.HEAD_DIMS == bops.HEAD_DIMS == (64, 112, 128, 256)
+    lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 4, 1, 1, hd), dtype=dtype, device=cuda)
+        kv = torch.zeros((1, 8, 1, hd), dtype=dtype, device=cuda)
+        blk = torch.zeros((1, 4, 1, hd), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(q, kv, kv, blk, blk, lens)
+        with pytest.raises(ValueError, match="head_dim"):
+            paged_decode_attention(q, kv, kv, blk, blk, table, lens)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_block_attention(q, blk, blk)
+
+
 def _xent_case(cuda, T, d, V, dtype, seed, w_scale=0.3):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     h = _randn(gen, T, d).to(dtype)

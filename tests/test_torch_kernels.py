@@ -67,6 +67,28 @@ def test_decode_attention_plain_matches_jax(G, window, softcap, dtype):
                                    rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("Kv,G,hd,window,softcap", [
+    (4, 1, 256, None, None),       # gemma-7b's G and head_dim
+    (4, 1, 256, 20, 50.0),         # gemma2's softcap, a window scaled down
+    (2, 8, 112, None, None),       # kimi-k2's G and head_dim
+    (2, 8, 112, 20, 50.0),
+])
+def test_decode_attention_plain_matches_jax_at_new_head_dims(Kv, G, hd,
+                                                             window, softcap):
+    """The plain version at the head dims the kernels gained, against the
+    JAX kernel (interpret mode) and oracle, fp32 at 1e-4."""
+    q, kc, vc, kb, vb, lens = _attn_inputs(Kv=Kv, G=G, hd=hd, seed=hd)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    got = decode_attention(*(torch.as_tensor(a) for a in (q, kc, vc, kb, vb)),
+                           torch.as_tensor(lens), **kw).numpy()
+    for i, n in enumerate(lens):
+        lane = [jnp.asarray(a[i:i + 1]) for a in (q, kc, vc, kb, vb)]
+        for want in (jax_decode(*lane, n, interpret=True, **kw),
+                     decode_attention_ref(*lane, n, **kw)):
+            np.testing.assert_allclose(got[i:i + 1], np.asarray(want),
+                                       rtol=1e-4, atol=1e-4)
+
+
 def test_decode_attention_reads_strided_cache():
     """A period slice of the stacked cache (non-contiguous over lanes) gives
     the same result as a contiguous copy."""

@@ -113,7 +113,7 @@ def test_cached_lane_decode_matches_jax(attn, window):
         got, got_em = lane_block_forward(
             params, torch.as_tensor(tokens), starts, cache, cfg=cfg,
             spec=spec, return_hidden=hidden, decode_attention_fn=fn,
-            use_long_window=window is not None)
+            use_long_window=window is not None, moe_per_row=True)
         _close(got, want)
         for key in ("k", "v"):
             _close(got_em[0][key], want_em[0][key])

@@ -187,6 +187,38 @@ def test_paged_decode_plain_matches_jax(page, n_t, lens, window, softcap):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("Kv,Gq,hd,window,softcap", [
+    (4, 1, 256, None, None),       # gemma-7b's G and head_dim
+    (2, 2, 128, 20, 50.0),         # gemma2's local slot, window scaled down
+    (2, 8, 112, None, None),       # kimi-k2's G and head_dim
+    (2, 8, 112, 20, 50.0),
+])
+def test_paged_decode_plain_matches_jax_at_new_head_dims(Kv, Gq, hd, window,
+                                                         softcap):
+    """The plain paged version at the head dims the kernels gained, against
+    the JAX kernel (interpret mode) and oracle, fp32 at 1e-4."""
+    b, Bq, n_pages, page, n_t, lens = 3, 8, 20, 8, 5, (40, 17, 0)
+    q, kp, vp, kb, vb = _paged_inputs(b, Bq, Kv, Gq, hd, n_pages, page,
+                                      seed=hd + Gq)
+    perm = np.random.default_rng(2).permutation(n_pages)
+    table = np.full((b, n_t), C.FREE, np.int32)
+    for lane, ln in enumerate(lens):
+        for j in range(-(-ln // page)):
+            table[lane, j] = perm[lane * n_t + j]
+    lens = np.asarray(lens, np.int32)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    got = paged_decode_attention(
+        *(torch.as_tensor(a) for a in (q, kp, vp, kb, vb)),
+        torch.as_tensor(table), torch.as_tensor(lens), **kw).numpy()
+    j = [jnp.asarray(a) for a in (q, kp, vp, kb, vb)]
+    for want in (jax_paged_decode(*j, jnp.asarray(table), jnp.asarray(lens),
+                                  interpret=True, **kw),
+                 paged_decode_attention_ref(*j, jnp.asarray(table),
+                                            jnp.asarray(lens), **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_paged_decode_plain_equals_dense_on_identity_table():
     b, Bq, Kv, Gq, hd, page, n_t = 2, 8, 2, 4, 64, 16, 5
     q, kp, vp, kb, vb = (torch.as_tensor(a) for a in _paged_inputs(
