@@ -39,14 +39,17 @@ Phases, each timed, any failure raises and exits non-zero:
    mixer kind with its own scale, softcap and window: gemma-7b (Kv 16,
    G 1, hd 256), gemma2-27b's local and global slots (Kv 16, G 2, hd 128,
    scale 144^-1/2, softcap 50, the local slot's window 4096),
-   llama4-maverick (Kv 8, G 5, hd 128) and kimi-k2 (Kv 8, G 8, hd 112;
-   padded to 128 inside the kernels), decode (dense and paged, bit for
-   bit, split edges too) and prefill block attention (b=8, L=512), bf16
-   (the first mixer kind timed against masked SDPA, or where SDPA cannot
-   compute the case, a softcap or a window, against a compiled
-   ``flex_attention`` that must match the plain version within 1e-2) and
-   fp32, and the fused select at T=256 over each config's (V, d)
-   unembedding with gemma2's final softcap 30, timed;
+   llama4-maverick (Kv 8, G 5, hd 128), kimi-k2 (Kv 8, G 8, hd 112;
+   padded to 128 inside the kernels) and jamba's attention slot (Kv 8,
+   G 4, hd 128), decode (dense and paged, bit for bit, split edges too)
+   and prefill block attention (b=8, L=512), bf16 (the first mixer kind
+   timed against masked SDPA, or where SDPA cannot compute the case, a
+   softcap or a window, against a compiled ``flex_attention`` that must
+   match the plain version within 1e-2) and fp32, jamba's AR step too
+   (one query row a lane, caches of 192 rows, as phase 9's ``ar`` run
+   calls it), and the fused select at T=256 over each config's (V, d)
+   unembedding (rwkv6's too, which has no attention) with gemma2's final
+   softcap 30, timed;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -141,15 +144,27 @@ Phases, each timed, any failure raises and exits non-zero:
    at full width and depth (46 layers: local slots with window 4096 and
    both softcaps), llama4-maverick at full width and one period (2 layers:
    an MLP slot and a 128-expert MOE slot) and kimi-k2 at full width and one
-   layer (384 experts, top 8, hd 112): 8 requests of one or two 32-token
-   blocks after a 128-token prompt through 8 lanes, on the dense then the
-   paged layout, each through the engine's CUDA graphs (the MoE dispatch
-   inside them); launches equal to the call accounting, every token a
-   vocabulary id, paged tokens equal to dense, tokens/s and peak memory
-   beside the card's name and power limit; each config freed before the
-   next.
+   layer (384 experts, top 8, hd 112), jamba at full width and one period
+   (8 layers: 7 Mamba slots and an attention slot, 4 of them 16-expert
+   MOE slots) and rwkv6 at full width and depth (24 RWKV layers,
+   attention-free, layernorm): 8 requests of one or two 32-token blocks
+   after a 128-token prompt through 8 lanes, on the dense then the paged
+   layout (rwkv6: dense, the paged layout's refusal asserted), each
+   through the engine's CUDA graphs (the MoE dispatch and the Mamba and
+   RWKV loops over the state cache inside them); launches equal to the
+   call accounting (the attention kernels once per attention layer),
+   every token a vocabulary id, paged tokens equal to dense, tokens/s and
+   peak memory beside the card's name and power limit; a profiled block
+   of one-block requests through the dense engine's graphs per config
+   (device ms by group, the recurrences' fused multiply-adds and the MoE
+   dispatch as groups of their own, and the idle share); for jamba and
+   rwkv6 the static ``Engine`` with ``ar`` (8 lanes, P=128, G=64) through
+   its graphs against eager in turns, tokens, steps and calls equal and
+   launches equal to the accounting; each config freed before the next.
 
-The line before the last two is the kernels' JSON summary, then the card's
+The line before the last two is the kernels' JSON summary (phase 9's
+configs' entries keyed "<kernel> <config>", jamba's and rwkv6's with the
+checked shape too, ``arch_key``), then the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -206,11 +221,23 @@ INSTANCES = ([f"block_attn_tc<{hd}>" for hd in (64, 112, 128, 256)]
                 for lay in ("dense", "paged")])
 # phase 9's configs: (name, layers kept or None for full depth); phase 2
 # checks the kernels at each one's shapes (``arch_attention_cases``), and
-# the kernels' summary carries one entry per kernel and config
+# the kernels' summary carries one entry per kernel and config (the
+# recurrent-state configs' keyed by their shapes too, ``arch_key``)
 ARCH_RUNS = (("gemma-7b", None), ("gemma2-27b", None),
-             ("llama4-maverick-400b-a17b", 2), ("kimi-k2-1t-a32b", 1))
+             ("llama4-maverick-400b-a17b", 2), ("kimi-k2-1t-a32b", 1),
+             ("jamba-v0.1-52b", 8), ("rwkv6-1.6b", None))
 ARCH_KERNELS = ("decode_attention", "paged_decode_attention",
                 "block_attention", "fused_select")
+# configs whose summary entries name the checked shape: each entry's
+# launches, error, time and library time come from that one shape
+SHAPE_KEYED = ("jamba-v0.1-52b", "rwkv6-1.6b")
+# phase 9's static ``ar`` run: lanes, prompt and generation
+AR_RUN = (8, 128, 64)
+# phase 9's profile, by kernel name: the recurrences' fused multiply-adds
+# (the Mamba scan's and RWKV's state updates) and the MoE dispatch's sort,
+# ranks, scatter and gathers
+RECURRENCE_MARKS = ("addcmul",)
+MOE_MARKS = ("sort", "Sort", "scatter", "index", "gather", "cumsum", "Scan")
 XENT_FWD_KERNELS = ["xent_partial_tc", "xent_partial_kernel",
                     "xent_merge_kernel"]
 XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
@@ -1017,36 +1044,65 @@ def check_nan_residue(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
 
 def arch_attention_cases(cfg):
     """The attention of phase 9's config ``cfg`` as its forward calls the
-    kernels, one case per mixer kind of its layer period, in the period's
-    order: (slot kind, Kv, G, hd, scale / softcap / window keywords)."""
-    from repro_torch.configs.base import ATTN_LOCAL
+    kernels, one case per attention mixer kind of its layer period, in the
+    period's order (none for an attention-free config): (slot kind, Kv, G,
+    hd, scale / softcap / window keywords)."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL
     from repro_torch.models.layers import attn_scale
     out = []
     for kind in dict.fromkeys(slot[0] for slot in cfg.layer_period):
+        if kind not in (ATTN, ATTN_LOCAL):
+            continue
         kw = dict(scale=attn_scale(cfg), softcap=cfg.attn_logit_softcap,
                   window=cfg.sliding_window if kind == ATTN_LOCAL else None)
         out.append((kind, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim, kw))
     return out
 
 
+def attention_layers(cfg) -> int:
+    """Layers with an attention mixer: one launch of an attention kernel
+    each per forward."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL
+    return cfg.n_periods * sum(m in (ATTN, ATTN_LOCAL)
+                               for m, _ in cfg.layer_period)
+
+
+def arch_key(kernel, config, Bq=32):
+    """The kernels' summary key of ``kernel`` at phase 9's ``config``: the
+    kernel and config, and for ``SHAPE_KEYED`` configs the checked shape
+    (Kv, G, hd and the query rows a lane; d and V for select)."""
+    if config not in SHAPE_KEYED:
+        return f"{kernel} {config}"
+    from repro_torch.configs import get_config
+    cfg = get_config(config)
+    if kernel == "fused_select":
+        return f"{kernel} {config} d{cfg.d_model} V{cfg.vocab_size}"
+    shape = f"Kv{cfg.n_kv_heads} G{cfg.q_per_kv} hd{cfg.head_dim}"
+    if kernel == "block_attention":
+        return f"{kernel} {config} {shape} L512"
+    return f"{kernel} {config} {shape} Bq{Bq}"
+
+
 def check_architectures(torch, dev, lens):
     """The kernels at phase 9's shapes, config by config (``ARCH_RUNS``):
-    for each mixer kind, decode (dense and paged) at the main path's
-    lengths and the prefill of 8 prompts of 512 tokens, bf16 and fp32, and
-    decode at the split edges; the fused select at 8 lanes of a 32-token
-    block over the config's unembedding (its final softcap too). The first
-    mixer kind's bf16 cases and the select case are timed. Returns each
-    config's bf16 records by summary entry ("decode_attention gemma-7b",
-    ...); an entry whose config has two mixer kinds (gemma2-27b's local
-    and global slots, of one shape) keeps the timed kind's times and the
-    larger error of the two."""
+    for each attention mixer kind, decode (dense and paged) at the main
+    path's lengths and the prefill of 8 prompts of 512 tokens, bf16 and
+    fp32, and decode at the split edges; for a ``SHAPE_KEYED`` config with
+    attention also the AR step's decode (one query row a lane, as phase
+    9's static ``ar`` run calls it); the fused select at 8 lanes of a
+    32-token block over the config's unembedding (its final softcap too).
+    The first mixer kind's bf16 cases and the select case are timed.
+    Returns each config's bf16 records by summary key (``arch_key``); an
+    entry whose config has two mixer kinds (gemma2-27b's local and global
+    slots, of one shape) keeps the timed kind's times and the larger error
+    of the two."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import ref as dref
     main = {}
     for config, _ in ARCH_RUNS:
         cfg = get_config(config)
-        for i, (kind, kv, g, hd, extra) in enumerate(
-                arch_attention_cases(cfg)):
+        cases = arch_attention_cases(cfg)
+        for i, (kind, kv, g, hd, extra) in enumerate(cases):
             name = f"{config} {kind}"
             for dtype in ("bfloat16", "float32"):
                 main_case = dtype == "bfloat16"
@@ -1065,8 +1121,18 @@ def check_architectures(torch, dev, lens):
                         G=g, hd=hd, dtype=dtype, mode="block_causal",
                         prompt_len=512, block_size=32, timed=timed,
                         name=f"{name} prefill {dtype}", **extra)}
+                if config in SHAPE_KEYED:
+                    # phase 9's static ar run: caches of P + G rows
+                    b_ar, p_ar, g_ar = AR_RUN
+                    recs["decode_attention Bq1"] = check_decode(
+                        torch, dev, b=b_ar, Bq=1, Kv=kv, G=g, hd=hd,
+                        S=p_ar + g_ar, dtype=dtype, timed=timed,
+                        lens=[p_ar + (j * 9) % g_ar for j in range(b_ar)],
+                        name=f"{name} AR step Bq=1 {dtype}", **extra)
                 for kernel, rec in recs.items():
-                    key = f"{kernel} {config}"
+                    key = (arch_key("decode_attention", config, Bq=1)
+                           if kernel == "decode_attention Bq1"
+                           else arch_key(kernel, config))
                     if timed:
                         main[key] = dict(rec, cases=[rec["case"]])
                     elif main_case:
@@ -1081,11 +1147,12 @@ def check_architectures(torch, dev, lens):
                              name=f"{name} split edge {dtype}")
                 check_paged(torch, dev, **edges, dtype=dtype, page=8,
                             **extra, name=f"{name} split edge {dtype}")
-        _, kv, g, hd, _ = arch_attention_cases(cfg)[0]
-        check_block(torch, dev, b=2, L=130, Kv=kv, G=g, hd=hd,
-                    dtype="bfloat16", mode="causal", window=40,
-                    name=f"{config} causal window ragged")
-        main[f"fused_select {config}"] = check_select(
+        if cases:
+            _, kv, g, hd, _ = cases[0]
+            check_block(torch, dev, b=2, L=130, Kv=kv, G=g, hd=hd,
+                        dtype="bfloat16", mode="causal", window=40,
+                        name=f"{config} causal window ragged")
+        main[arch_key("fused_select", config)] = check_select(
             torch, dev, T=256, d=cfg.d_model, V=cfg.vocab_size,
             dtype="bfloat16", scale=0.02, softcap=cfg.final_logit_softcap,
             timed=True, name=f"{config} unembed")
@@ -1269,13 +1336,14 @@ def serve_counted(torch, dev, eng, reqs):
 def check_launches(cfg, calls, launches, layout):
     """Each kernel launched exactly as often as the engine's call accounting
     says: select once per refinement iteration, block attention once per
-    layer and admission, the layout's decode attention once per layer and
-    cached forward, the other layout's never."""
-    cached = cfg.n_layers * (calls["refine"] + calls["commit"])
+    attention layer and admission, the layout's decode attention once per
+    attention layer and cached forward, the other layout's never."""
+    n_attn = attention_layers(cfg)
+    cached = n_attn * (calls["refine"] + calls["commit"])
     want = {"decode_attention": cached if layout == "dense" else 0,
             "fused_select": calls["refine"],
             "paged_decode_attention": cached if layout == "paged" else 0,
-            "block_attention": cfg.n_layers * calls["admit"],
+            "block_attention": n_attn * calls["admit"],
             "xent_forward": 0, "xent_backward": 0}
     if launches != want:
         raise AssertionError(f"{layout}: launches {launches} != the call "
@@ -1283,13 +1351,19 @@ def check_launches(cfg, calls, launches, layout):
 
 
 def check_outputs(cfg, outs, caps, B):
+    """Every request completed; no mask token left in a block it decoded
+    (every block up to its cap, or, stopped by EOS, up to the block that
+    holds it: the engine decodes no block past that); steps and generation
+    length within their bounds."""
     if sorted(outs) != sorted(caps):
         raise AssertionError("not every request completed")
     for rid, o in outs.items():
         cap = caps[rid]
-        if np.any(o.tokens == cfg.mask_token_id):
-            raise AssertionError(f"request {rid}: mask token left")
         n_blocks = -(-cap // B)
+        decoded = (o.gen_length // B + 1 if o.finish_reason == "stop"
+                   else n_blocks)
+        if np.any(o.tokens[:decoded * B] == cfg.mask_token_id):
+            raise AssertionError(f"request {rid}: mask token left")
         if not (1 <= o.steps <= n_blocks * B and o.gen_length <= cap):
             raise AssertionError(f"request {rid}: steps {o.steps} / "
                                  f"gen_length {o.gen_length} out of bounds")
@@ -1471,9 +1545,11 @@ def phase_graph_vs_eager(torch, dev, ctx):
                         "profiled_block": profiles}))
 
 
-def device_groups(prof):
+def device_groups(prof, recurrent=False):
     """Device ms by kernel group from a profiler trace, and by kernel name
-    as (ms, count)."""
+    as (ms, count). ``recurrent`` (phase 9) also takes the recurrences'
+    fused multiply-adds (``RECURRENCE_MARKS``) and the MoE dispatch's
+    kernels (``MOE_MARKS``) out of "other" into groups of their own."""
     by_kernel = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
@@ -1494,6 +1570,10 @@ def device_groups(prof):
         elif any(s in key.lower() for s in ("gemm", "cutlass", "xmma",
                                             "nvjet", "sm90")):
             groups["matmul"] += ms
+        elif recurrent and any(m in key for m in RECURRENCE_MARKS):
+            groups["recurrence"] = groups.get("recurrence", 0.0) + ms
+        elif recurrent and any(m in key for m in MOE_MARKS):
+            groups["moe_dispatch"] = groups.get("moe_dispatch", 0.0) + ms
         else:
             groups["other"] += ms
     return groups, by_kernel
@@ -1516,7 +1596,8 @@ def elementwise_kinds(by_kernel):
     return out
 
 
-def profile_block(torch, dev, eng, prompts, B, sampling=None):
+def profile_block(torch, dev, eng, prompts, B, sampling=None,
+                  recurrent=False):
     """Where the time goes: one-block requests, one per prompt (one
     admission, 32 refinement iterations, one commit pass), once without
     and once under the profiler; device time by kernel, grouped, and the
@@ -1524,7 +1605,7 @@ def profile_block(torch, dev, eng, prompts, B, sampling=None):
     of the unprofiled one (the profiler slows the host, not the kernels).
     ``sampling(i)``, where given, is request i's ``SamplingParams``; the
     per-lane draw's kernels (DRAW_KERNEL_MARKS) then form a group of their
-    own, taken out of "other"."""
+    own, taken out of "other"; ``recurrent``: as ``device_groups``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
@@ -1538,7 +1619,7 @@ def profile_block(torch, dev, eng, prompts, B, sampling=None):
         eng.generate(reqs)
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    groups, by_kernel = device_groups(prof)
+    groups, by_kernel = device_groups(prof, recurrent)
     if sampling is not None:
         groups["draw"] = 0.0
         for key, (ms, _) in by_kernel.items():
@@ -1555,6 +1636,7 @@ def profile_block(torch, dev, eng, prompts, B, sampling=None):
             "idle_share_of_unprofiled_wall": 1 - busy / (plain_wall * 1e3),
             "trace_read_s": time.perf_counter() - t0 - wall,
             "device_ms_by_group": groups, "calls": eng.call_counts(),
+            "kernels_launched": sum(n for _, n in by_kernel.values()),
             "top_kernels": [{"name": k[:120], "ms": ms, "count": n}
                             for k, (ms, n) in top]}
 
@@ -3041,9 +3123,65 @@ def phase_tuning_and_benches(torch, dev, ctx):
 # ---------------------------------------------------------------------------
 # phase 9: other architectures on the main path
 # ---------------------------------------------------------------------------
+def static_ar(torch, dev, cfg, params, name):
+    """Phase 9's static ``ar`` run: ``AR_RUN``'s lanes of a prompt, through
+    the static ``Engine`` eagerly and through its CUDA graphs in turns
+    (eager, graph, graph, eager): tokens, steps, generation lengths and
+    calls equal, the launches equal on both paths and to the accounting
+    (per batch: the causal prefill's block attention and every step's
+    decode attention once per attention layer, no select). Returns
+    (record, the graph runs' decode launches)."""
+    import gc
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import Engine, Request
+    b, P, G = AR_RUN
+    serve = ServeConfig(max_batch=b, block_size=32, gen_length=G,
+                        scheduler="static", sampler="ar", fused_select=True)
+    prompts = np.random.default_rng(11).integers(0, cfg.mask_token_id,
+                                                 (b, P))
+    reqs = [Request(prompt=p, id=i) for i, p in enumerate(prompts)]
+    engines = {}
+    for graphs in (False, None):
+        engines[graphs] = Engine(params, cfg, serve, prompt_len=P,
+                                 device=dev, graphs=graphs)
+        engines[graphs].warmup()
+    n_attn = attention_layers(cfg)
+    want = {k: 0 for k in kernel_counters()}
+    want.update(decode_attention=n_attn * G, block_attention=n_attn)
+    runs, rec, graph_decode = [], {}, 0
+    for graphs in (False, None, None, False):
+        path = "graph" if graphs is None else "eager"
+        outs, wall, launches = serve_counted(torch, dev, engines[graphs],
+                                             reqs)
+        calls = engines[graphs].call_counts()
+        if launches != want or calls != {"batches": 1, "total": 1 + G}:
+            raise AssertionError(f"{name} ar ({path}): launches {launches}"
+                                 f" / calls {calls} != {want}")
+        runs.append({i: (o.tokens.tolist(), o.steps, o.gen_length)
+                     for i, o in outs.items()})
+        # every lane decodes G tokens (ar runs its whole grid, EOS or not)
+        rec.setdefault(f"{path}_decoded_tps", []).append(b * G / wall)
+        rec.setdefault(f"{path}_gen_tokens", []).append(
+            sum(o.gen_length for o in outs.values()))
+        if graphs is None:
+            graph_decode += launches["decode_attention"]
+    if any(r != runs[0] for r in runs[1:]):
+        raise AssertionError(f"{name}: ar through the graphs differs from "
+                             "eager")
+    rec.update(calls=1 + G, launches_per_run=want, graph_equals_eager=True)
+    del engines
+    gc.collect()
+    return rec, graph_decode
+
+
 def serve_architecture(torch, dev, name, depth, smi):
     """One config of ``ARCH_RUNS`` through ``ContinuousEngine``, dense then
-    paged; returns (record, launches summed over both runs)."""
+    paged (an attention-free config: dense, and the paged layout's refusal
+    asserted), a profiled block of one-block requests through the dense
+    engine's graphs, and for a ``SHAPE_KEYED`` config the static ``ar`` run
+    (``static_ar``); returns (record, launches by summary key summed over
+    the config's runs)."""
     import dataclasses
     import gc
 
@@ -3065,11 +3203,22 @@ def serve_architecture(torch, dev, name, depth, smi):
     n_params = param_count(params)
     prompts = np.random.default_rng(9).integers(0, cfg.mask_token_id,
                                                 (len(caps), P))
-    runs, total = {}, None
+    layouts = ("dense",) if cfg.is_attention_free else ("dense", "paged")
+    runs, total, profile = {}, None, None
     for layout in ("dense", "paged"):
         serve = ServeConfig(max_batch=8, block_size=B, gen_length=G,
                             conf_threshold=0.9, scheduler="continuous",
                             fused_select=True, cache_layout=layout)
+        if layout not in layouts:
+            try:
+                ContinuousEngine(params, cfg, serve, prompt_len=P,
+                                 device=dev)
+            except ValueError as e:
+                if "paged layout needs attention KV" not in str(e):
+                    raise
+                runs["paged_refused"] = str(e)
+                continue
+            raise AssertionError(f"{name}: the paged layout was not refused")
         eng = ContinuousEngine(params, cfg, serve, prompt_len=P, device=dev)
         t = time.perf_counter()
         eng.warmup()
@@ -3094,43 +3243,68 @@ def serve_architecture(torch, dev, name, depth, smi):
             "calls": calls, "launches": launches}}
         total = (launches if total is None else
                  {k: total[k] + launches[k] for k in total})
+        if layout == "dense":
+            # where the time goes: a block of one-block requests through
+            # the graphs (after the counted run: its launches are not the
+            # main path's)
+            profile = profile_block(torch, dev, eng, prompts, B,
+                                    recurrent=True)
+            iters = profile["calls"]["refine"]
+            profile["device_ms_per_iteration"] = (
+                profile["device_busy_ms"] / max(iters, 1))
+            log(json.dumps(dict(profile, config=name, card=smi)))
         del eng
         gc.collect()
-    dense, paged = runs["dense"]["outs"], runs["paged"]["outs"]
-    for rid, o in dense.items():
-        p = paged[rid]
-        if not (np.array_equal(o.tokens, p.tokens)
-                and (o.steps, o.gen_length) == (p.steps, p.gen_length)):
-            raise AssertionError(f"{name} request {rid}: paged tokens differ "
-                                 "from dense")
+    dense = runs["dense"]["outs"]
+    if "paged" in runs:
+        paged = runs["paged"]["outs"]
+        for rid, o in dense.items():
+            p = paged[rid]
+            if not (np.array_equal(o.tokens, p.tokens)
+                    and (o.steps, o.gen_length) == (p.steps, p.gen_length)):
+                raise AssertionError(f"{name} request {rid}: paged tokens "
+                                     "differ from dense")
+    launches = {arch_key(k, name): total[k] for k in ARCH_KERNELS}
+    ar = None
+    if name in SHAPE_KEYED:
+        ar, ar_decode = static_ar(torch, dev, cfg, params, name)
+        if attention_layers(cfg):
+            launches[arch_key("decode_attention", name, Bq=1)] = ar_decode
+    if cfg.is_attention_free:
+        launches = {k: v for k, v in launches.items()
+                    if k.startswith("fused_select")}
     rec = {"phase": "architecture serving", "config": name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "head_dim": cfg.head_dim, "params": n_params, "dtype": "bfloat16",
            "requests": len(caps), "max_batch": 8, "block": B, "gen": G,
            "prompt_len": P, "tau": 0.9, "init_s": init_s,
-           "dense": runs["dense"]["rec"], "paged": runs["paged"]["rec"],
-           "paged_equals_dense": True,
+           "dense": runs["dense"]["rec"],
+           "paged": runs["paged"]["rec"] if "paged" in runs else None,
+           "paged_refused": runs.get("paged_refused"),
+           "paged_equals_dense": "paged" in runs,
+           "profile_groups_ms": profile["device_ms_by_group"],
+           "profile_idle_share": profile["idle_share"],
+           "static_ar": ar,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
            "card": smi}
     log(json.dumps(rec))
-    del params, dense, paged, runs
+    del params, dense, runs
     gc.collect()
     torch.cuda.empty_cache()
-    return rec, total
+    return rec, launches
 
 
 def phase_architectures(torch, dev, smi):
     """Each config of ``ARCH_RUNS`` in turn; returns the launches of each
-    summary entry ("decode_attention gemma-7b", ...) over the config's
-    main-path runs."""
+    summary entry (``arch_key``: "decode_attention gemma-7b", ...) over
+    the config's main-path runs."""
     launches = {}
     for name, depth in ARCH_RUNS:
         t = time.perf_counter()
         _, got = serve_architecture(torch, dev, name, depth, smi)
-        for k in ARCH_KERNELS:
-            launches[f"{k} {name}"] = got[k]
-        if not all(got[k] > 0 for k in ARCH_KERNELS):
+        if not all(v > 0 for v in got.values()):
             raise AssertionError(f"{name}: a kernel never launched {got}")
+        launches.update(got)
         log(f"phase 9 ({name}): {time.perf_counter() - t:.1f} s")
     return launches
 
@@ -3233,6 +3407,9 @@ def main():
     for key, launches in arch_launches.items():
         rec = main_recs[key]
         name = key.split()[0]
+        if (key.split()[1] in SHAPE_KEYED
+                and len(rec.get("cases", [key])) != 1):
+            raise AssertionError(f"{key}: records of {rec['cases']}")
         src, tpu = sources[name]
         summary.append({
             "name": key, "route": "cuda", "source": src, "replaces": tpu,

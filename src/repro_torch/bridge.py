@@ -2,15 +2,17 @@
 package's param tree or its npz checkpoints.
 
 The port's params are the JAX tree's structure as nested dicts of tensors:
-``{"embed": {"tok", ["head"]}, "final_norm": {"w"}, "slots": (slot, ...)}``
-with every slot leaf stacked over ``cfg.n_periods``; a slot holds ``norm1``,
-``norm2``, ``attn`` (an ``ATTN`` or ``ATTN_LOCAL`` mixer alike) and ``mlp``
-or, for an ``MOE`` slot, ``moe`` (``router`` (d, E) fp32, ``wi_gate`` and
-``wi_up`` (E, d, f), ``wo`` (E, f, d), and a ``shared`` gated FFN where the
-config has one). Weights keep the JAX
-``(in, out)`` layout except the untied head, which is stored ``(V, d)``
-(the transpose of the JAX ``(d, V)``) so that ``lm_head`` and the fused
-select kernel read the same rows for tied and untied models.
+``{"embed": {"tok", ["head"]}, "final_norm": {"w"[, "b"]}, "slots": (slot,
+...)}`` with every slot leaf stacked over ``cfg.n_periods``; a slot holds
+``norm1`` and ``norm2`` (``w``, and ``b`` under layernorm), its mixer's
+leaves, ``attn`` (an ``ATTN`` or ``ATTN_LOCAL`` mixer alike), ``mamba`` or
+``rwkv_tm``, and its FFN's, ``mlp``, ``rwkv_cm`` or, for an ``MOE`` slot,
+``moe`` (``router`` (d, E) fp32, ``wi_gate`` and ``wi_up`` (E, d, f),
+``wo`` (E, f, d), and a ``shared`` gated FFN where the config has one).
+Weights keep the JAX ``(in, out)`` layout except the untied head, which is
+stored ``(V, d)`` (the transpose of the JAX ``(d, V)``) so that
+``lm_head`` and the fused select kernel read the same rows for tied and
+untied models.
 """
 from __future__ import annotations
 
@@ -21,7 +23,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MOE, ModelConfig, check_supported
+from repro_torch.configs.base import (
+    MAMBA,
+    MOE,
+    RWKV,
+    RWKV_CM,
+    ModelConfig,
+    check_supported,
+)
+from repro_torch.models import mamba as MB
+from repro_torch.models import rwkv6 as RW
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,13 +51,59 @@ def _ffn(n: int, d: int, f: int, lead=()):
             "wo": ((n, *lead, f, d), 1 / math.sqrt(f))}
 
 
+def _mamba(cfg: ModelConfig, n: int):
+    """A Mamba mixer's leaves (``models/mamba.py``), as the reference's
+    ``init_mamba`` draws them."""
+    d, N, dc = cfg.d_model, cfg.mamba_d_state, cfg.mamba_d_conv
+    e, r = MB.d_inner(cfg), MB.dt_rank(cfg)
+    return {"in_proj": ((n, d, 2 * e), 1 / math.sqrt(d)),
+            "conv_w": ((n, dc, e), 1 / math.sqrt(dc)),
+            "conv_b": ((n, e), "zeros"),
+            "x_proj": ((n, e, r + 2 * N), 1 / math.sqrt(e)),
+            "dt_proj_w": ((n, r, e), 1 / math.sqrt(r)),
+            # softplus^-1(0.01)
+            "dt_proj_b": ((n, e), ("full", math.log(math.expm1(0.01)))),
+            "A_log": ((n, e, N), "log_arange", torch.float32),
+            "D": ((n, e), "ones", torch.float32),
+            "out_proj": ((n, e, d), 1 / math.sqrt(e))}
+
+
+def _rwkv_time_mix(cfg: ModelConfig, n: int):
+    """An RWKV time mix's leaves (``models/rwkv6.py``), as the reference's
+    ``init_time_mix`` draws them; the decay's and the group norm's fp32."""
+    d, hs = cfg.d_model, cfg.rwkv_head_size
+    H, lora = RW.n_rwkv_heads(cfg), max(32, cfg.d_model // 16)
+    half = ((n, d), ("full", 0.5))
+    return {"mu_r": half, "mu_k": half, "mu_v": half, "mu_w": half,
+            "mu_g": half,
+            **{w: ((n, d, d), 1 / math.sqrt(d))
+               for w in ("wr", "wk", "wv", "wg", "wo")},
+            "w0": ((n, d), ("full", -6.0), torch.float32),
+            "wa": ((n, d, lora), 1 / math.sqrt(d)),
+            "wb": ((n, lora, d), 0.1 / math.sqrt(lora)),
+            "u": ((n, d), 0.1, torch.float32),
+            "ln_w": ((n, H, hs), "ones", torch.float32),
+            "ln_b": ((n, H, hs), "zeros", torch.float32)}
+
+
+def _rwkv_channel_mix(cfg: ModelConfig, n: int):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"mu_k": ((n, d), ("full", 0.5)), "mu_r": ((n, d), ("full", 0.5)),
+            "wk": ((n, d, f), 1 / math.sqrt(d)),
+            "wv": ((n, f, d), 1 / math.sqrt(f)),
+            "wr": ((n, d, d), 1 / math.sqrt(d))}
+
+
 def _specs(cfg: ModelConfig):
     """Nested dict of leaf -> (shape, init[, dtype]) with init one of
-    "ones", "zeros" or a normal's standard deviation; the distributions of
-    the JAX package's ``init_model`` (dense_init: std = 1/sqrt(fan_in); an
-    expert's matrices 1/sqrt(d) in and 1/sqrt(moe_d_ff) out). A third
-    element pins the leaf's dtype: the MoE router is fp32 whatever the
-    model's dtype, as in the reference."""
+    "ones", "zeros", ``("full", value)``, "log_arange" (Mamba's ``A_log``:
+    ``log(1..N)`` along the last axis) or a normal's standard deviation;
+    the distributions of the JAX package's ``init_model`` (dense_init:
+    std = 1/sqrt(fan_in); an expert's matrices 1/sqrt(d) in and
+    1/sqrt(moe_d_ff) out). A third element pins the leaf's dtype whatever
+    the model's dtype, as in the reference: the MoE router, Mamba's
+    ``A_log`` and ``D``, RWKV's ``w0``, ``u``, ``ln_w`` and ``ln_b`` are
+    fp32."""
     check_supported(cfg)
     d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_periods
     nq, nkv, V = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_size
@@ -58,10 +115,20 @@ def _specs(cfg: ModelConfig):
         attn.update(bq=((n, nq), "zeros"), bk=((n, nkv), "zeros"),
                     bv=((n, nkv), "zeros"))
 
-    def slot(ffn):
-        s = {"norm1": {"w": ((n, d), "ones")},
-             "norm2": {"w": ((n, d), "ones")},
-             "attn": attn}
+    def norm(lead):
+        spec = {"w": ((*lead, d), "ones")}
+        if cfg.norm_type == "layernorm":
+            spec["b"] = ((*lead, d), "zeros")
+        return spec
+
+    def slot(mixer, ffn):
+        s = {"norm1": norm((n,)), "norm2": norm((n,))}
+        if mixer == MAMBA:
+            s["mamba"] = _mamba(cfg, n)
+        elif mixer == RWKV:
+            s["rwkv_tm"] = _rwkv_time_mix(cfg, n)
+        else:
+            s["attn"] = attn
         if ffn == MOE:
             f, E = cfg.moe_d_ff, cfg.n_experts
             s["moe"] = {"router": ((n, d, E), 1 / math.sqrt(d),
@@ -69,6 +136,8 @@ def _specs(cfg: ModelConfig):
                         **_ffn(n, d, f, (E,))}
             if cfg.n_shared_experts:
                 s["moe"]["shared"] = _ffn(n, d, f * cfg.n_shared_experts)
+        elif ffn == RWKV_CM:
+            s["rwkv_cm"] = _rwkv_channel_mix(cfg, n)
         else:
             s["mlp"] = _ffn(n, d, cfg.d_ff)
         return s
@@ -76,8 +145,8 @@ def _specs(cfg: ModelConfig):
     embed = {"tok": ((V, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["head"] = ((V, d), 1 / math.sqrt(d))
-    return {"embed": embed, "final_norm": {"w": ((d,), "ones")},
-            "slots": tuple(slot(ffn) for _, ffn in cfg.layer_period)}
+    return {"embed": embed, "final_norm": norm(()),
+            "slots": tuple(slot(*kinds) for kinds in cfg.layer_period)}
 
 
 def _leaf_dtype(spec, dt):
@@ -121,6 +190,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.ones(shape, dtype=leaf_dt, device=dev)
         if init == "zeros":
             return torch.zeros(shape, dtype=leaf_dt, device=dev)
+        if isinstance(init, tuple):                 # ("full", value)
+            return torch.full(shape, init[1], dtype=leaf_dt, device=dev)
+        if init == "log_arange":
+            col = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                               device=dev).log()
+            return col.expand(shape).to(leaf_dt).contiguous()
         n = math.prod(shape)
         if n <= DRAW_CHUNK:
             return (randn(shape) * init).to(device=dev, dtype=leaf_dt)

@@ -206,27 +206,36 @@ class ModelConfig:
 
 
 # what the port's model stack runs (``check_supported``)
-MIXERS = (ATTN, ATTN_LOCAL)
-FFNS = (MLP, MOE)
-ACTIVATIONS = ("silu", "gelu")   # the gated FFN's
+MIXERS = (ATTN, ATTN_LOCAL, MAMBA, RWKV)
+FFNS = (MLP, MOE, RWKV_CM)
+POS_EMBEDS = ("rope", "none")    # "none": positions from the recurrence
+NORMS = ("rmsnorm", "layernorm")
+# the gated FFN's silu or gelu; "relu_sq" names rwkv6's channel mix, whose
+# squared ReLU is fixed in models/rwkv6.py::channel_mix
+ACTIVATIONS = ("silu", "gelu", "relu_sq")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises for a config the port's stack does not run: a slot other than
-    ``ATTN``/``ATTN_LOCAL`` mixers with ``MLP``/``MOE`` FFNs (Mamba, RWKV),
-    an encoder, positions other than RoPE, a norm other than rmsnorm, an
-    activation other than the gated silu or gelu."""
+    """Raises for a config the port's stack does not run: a mixer other
+    than ``ATTN``/``ATTN_LOCAL``/``MAMBA``/``RWKV`` or an FFN other than
+    ``MLP``/``MOE``/``RWKV_CM``, an encoder, positions other than RoPE (or
+    none, for an attention-free stack), a norm other than rmsnorm or
+    layernorm, an activation other than the gated silu or gelu or rwkv6's
+    squared ReLU (whisper-base: an encoder, sinusoidal positions and a
+    plain gelu)."""
     bad = [slot for slot in cfg.layer_period
            if slot[0] not in MIXERS or slot[1] not in FFNS]
     if bad:
         raise ValueError(f"{cfg.name}: repro_torch runs {MIXERS} mixers "
                          f"with {FFNS} FFNs only, got slots {bad}")
-    if cfg.is_encoder_decoder or cfg.pos_embed != "rope":
-        raise ValueError(f"{cfg.name}: repro_torch runs decoder-only RoPE "
-                         "models only")
-    if cfg.norm_type != "rmsnorm" or cfg.activation not in ACTIVATIONS:
-        raise ValueError(f"{cfg.name}: norm {cfg.norm_type!r} or activation "
-                         f"{cfg.activation!r} is not ported")
+    if (cfg.is_encoder_decoder or cfg.pos_embed not in POS_EMBEDS
+            or (cfg.pos_embed == "none" and not cfg.is_attention_free)):
+        raise ValueError(f"{cfg.name}: repro_torch runs decoder-only models "
+                         "with RoPE (or, attention-free, no positions) only")
+    if cfg.norm_type not in NORMS or cfg.activation not in ACTIVATIONS:
+        raise ValueError(f"{cfg.name}: repro_torch runs {NORMS} norms and "
+                         f"{ACTIVATIONS} activations only, got norm "
+                         f"{cfg.norm_type!r}, activation {cfg.activation!r}")
 
 
 @dataclass(frozen=True)

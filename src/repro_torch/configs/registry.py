@@ -1,11 +1,12 @@
 """Architecture registry of the port: ``--config <id>`` resolution.
 
 The registry holds every architecture of the JAX package. The port's model
-stack runs the configs made of ``ATTN``, ``ATTN_LOCAL``, ``MLP`` and
-``MOE`` slots with rmsnorm and a gated silu or gelu FFN
-(``configs/base.py::check_supported``); building params for, or
-running, any other (jamba's Mamba, rwkv6, whisper, internvl2's prefix
-embeddings) raises.
+stack runs the decoder-only configs made of ``ATTN``, ``ATTN_LOCAL``,
+``MAMBA`` and ``RWKV`` mixers with ``MLP``, ``MOE`` and ``RWKV_CM`` FFNs,
+rmsnorm or layernorm, RoPE or no positions
+(``configs/base.py::check_supported``); building params for, or running,
+whisper-base (an encoder, sinusoidal positions, a plain gelu) raises.
+internvl2-1b's text path runs; its prefix embeddings are not ported.
 """
 from __future__ import annotations
 

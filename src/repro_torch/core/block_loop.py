@@ -233,7 +233,8 @@ class DecodeState:
             key=torch.zeros((b, 2), dtype=torch.int64, device=dev))
 
     def cache_buffers(self):
-        """The cache's K/V buffers (a paged cache's pools)."""
+        """The cache's buffers: K/V (a paged cache's pools) and recurrent
+        state leaves alike."""
         if self.cache is None:
             return []
         slots = (self.cache.slots if isinstance(self.cache, C.PagedCache)
@@ -625,7 +626,9 @@ def _refresh_cache(params, tokens, kv_cache, *, cfg: ModelConfig,
                    spec: SamplerSpec, fns: AttentionFns) -> None:
     """The approx policies' refresh: a bidirectional forward over the whole
     canvases through ``fns.prefill``, every row's KV committed at offset 0
-    (in place). Only the emissions are read, so the lm_head is skipped."""
+    (in place), and a recurrent state replaced by the state after the whole
+    canvas, its stale future blocks included, as the reference's refresh
+    does. Only the emissions are read, so the lm_head is skipped."""
     out = forward(params, tokens, cfg=cfg, device=tokens.device,
                   mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
                   block_size=spec.block_size, return_logits=False,
@@ -801,7 +804,8 @@ def _ar_step(params, st: DecodeState, *, cfg: ModelConfig,
     static engine captures it as one CUDA graph and replays it G times):
     the argmax of ``st.last`` (EOS once a lane is done) into the canvas,
     ``steps`` and ``done``, the cached forward of that token through
-    ``fns.decode``, its KV committed at ``st.pos``, its logits into
+    ``fns.decode``, its KV committed at ``st.pos`` and its recurrent state
+    in place of the old (``core.cache.commit_at``), its logits into
     ``st.last``, and ``st.pos`` advanced."""
     tokens, b = st.tokens, st.tokens.shape[0]
     eos = torch.full((b,), cfg.eos_token_id, dtype=tokens.dtype,

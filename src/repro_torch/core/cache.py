@@ -1,15 +1,21 @@
-"""Exact block-wise KV cache (paper §4.3), ported from the JAX package's
-``core/cache.py``, in its two memory layouts:
+"""Exact block-wise KV and state cache (paper §4.3), ported from the JAX
+package's ``core/cache.py``, in its two memory layouts:
 
 - **dense** (:func:`init_cache`): a tuple over period slots of dicts whose
-  leaves are stacked over periods, ``{"k": (n_periods, b, max_len, Kv,
-  hd), "v": ...}``; every lane preallocates ``max_len`` rows.
+  leaves are stacked over periods: ``{"k": (n_periods, b, max_len, Kv,
+  hd), "v": ...}`` for an attention slot, every lane preallocating
+  ``max_len`` rows; the recurrent state of a Mamba slot (``conv``,
+  ``ssm``) or an RWKV slot (``S``, ``tm_shift``, ``cm_shift``), O(1) per
+  lane (:func:`_slots`).
 - **paged** (:func:`init_paged_cache`): the K/V leaves are pools
   ``(n_periods, n_pages, page, Kv, hd)`` shared by all lanes, plus a
   per-lane page table mapping sequence-block index -> pool page. Page ``j``
   of a lane holds positions ``[j*page, (j+1)*page)``; entries are ``FREE``
   (-1) until :func:`alloc` assigns a page, so a lane holds pages only for
-  the positions it commits.
+  the positions it commits. State leaves stay dense.
+
+A commit writes K/V rows at an offset and replaces a state wholesale with
+the emitted one (the state after the committed block's last token).
 
 Unlike the JAX package, whose functions return new buffers, ``reset``,
 ``commit`` and ``commit_rows`` update the cache **in place** and return
@@ -32,43 +38,101 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.bridge import torch_dtype
-from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.configs.base import (
+    MAMBA,
+    RWKV,
+    RWKV_CM,
+    ModelConfig,
+    check_supported,
+)
 
 DENSE = "dense"
 PAGED = "paged"
 CACHE_LAYOUTS = (DENSE, PAGED)
 
 FREE = -1  # unallocated page-table entry / unowned pool page
+KV = ("k", "v")   # the leaves written at an offset; every other is a state
 
 
-def _kv_slots(cfg: ModelConfig, rows: int, lead: int, dt, dev) -> tuple:
-    """Zeroed ``{"k", "v"}`` buffers ``(n_periods, lead, rows, Kv, hd)``
-    for every period slot: ``ATTN`` and ``ATTN_LOCAL`` mixers alike (a
-    local slot keeps every row; its window is applied when it is read),
-    the only mixers of a config the port's stack runs."""
+def _slots(cfg: ModelConfig, kv_lead: int, kv_rows: int, batch: int, dt,
+           dev) -> tuple:
+    """Zeroed buffers for every period slot, each stacked over periods:
+    ``{"k", "v"}`` ``(n_periods, kv_lead, kv_rows, Kv, hd)`` for an
+    attention slot (``ATTN`` and ``ATTN_LOCAL`` alike: a local slot keeps
+    every row; its window is applied when it is read), ``conv``
+    ``(n_periods, batch, d_conv - 1, e)`` and ``ssm`` ``(n_periods, batch,
+    e, N)`` (fp32) for a Mamba slot, ``S`` ``(n_periods, batch, H, hs,
+    hs)`` (fp32) and ``tm_shift`` ``(n_periods, batch, d)`` for an RWKV
+    slot, and ``cm_shift`` ``(n_periods, batch, d)`` where the FFN is
+    ``RWKV_CM``; ``dt`` elsewhere."""
     check_supported(cfg)
-    shape = (cfg.n_periods, lead, rows, cfg.n_kv_heads, cfg.head_dim)
-    return tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
-                  "v": torch.zeros(shape, dtype=dt, device=dev)}
-                 for _ in cfg.layer_period)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros((cfg.n_periods, *shape), dtype=dtype, device=dev)
+
+    out = []
+    for mixer, ffn in cfg.layer_period:
+        slot = {}
+        if mixer == MAMBA:
+            e = cfg.mamba_expand * cfg.d_model
+            slot["conv"] = zeros(batch, cfg.mamba_d_conv - 1, e)
+            slot["ssm"] = zeros(batch, e, cfg.mamba_d_state,
+                                dtype=torch.float32)
+        elif mixer == RWKV:
+            hs = cfg.rwkv_head_size
+            slot["S"] = zeros(batch, cfg.d_model // hs, hs, hs,
+                              dtype=torch.float32)
+            slot["tm_shift"] = zeros(batch, cfg.d_model)
+        else:
+            for key in KV:
+                slot[key] = zeros(kv_lead, kv_rows, cfg.n_kv_heads,
+                                  cfg.head_dim)
+        if ffn == RWKV_CM:
+            slot["cm_shift"] = zeros(batch, cfg.d_model)
+        out.append(slot)
+    return tuple(out)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> tuple:
     """Zeroed cache buffers for every period slot."""
-    return _kv_slots(cfg, max_len, batch, torch_dtype(dtype or cfg.dtype),
-                     resolve_device(device))
+    return _slots(cfg, batch, max_len, batch,
+                  torch_dtype(dtype or cfg.dtype), resolve_device(device))
 
 
 def cache_bytes(cache) -> int:
-    """Bytes of every buffer of a dense cache, or of a paged cache's pools
-    and its int32 page table and owners (the JAX ``cache_bytes`` counts
-    every leaf of the ``PagedCache``)."""
+    """Bytes of every buffer of a dense cache, or of a paged cache's pools,
+    state leaves and its int32 page table and owners (the JAX
+    ``cache_bytes`` counts every leaf of the ``PagedCache``)."""
     if isinstance(cache, PagedCache):
         return (cache_bytes(cache.slots) + cache.page_table.nbytes
                 + cache.page_owner.nbytes)
     return sum(buf.numel() * buf.element_size()
                for slot in cache for buf in slot.values())
+
+
+def _any_leaf(slots) -> torch.Tensor:
+    return next(iter(slots[0].values()))
+
+
+def _kv_len(emissions) -> int:
+    """Rows of the first attention slot's K emission (0 without one)."""
+    for slot in emissions:
+        if "k" in slot:
+            return slot["k"].shape[2]
+    return 0
+
+
+def _write_states(cslot: dict, eslot: dict, lanes=None) -> None:
+    """Replace a slot's state leaves with its emissions', every lane or
+    the lanes of the index tensor ``lanes``, in place."""
+    for key, buf in cslot.items():
+        if key in KV:
+            continue
+        if lanes is None:
+            buf.copy_(eslot[key])
+        else:
+            buf[:, lanes] = eslot[key][:, lanes].to(buf.dtype)
 
 
 def _lanes(rows, batch: int) -> np.ndarray:
@@ -84,12 +148,12 @@ def _lanes(rows, batch: int) -> np.ndarray:
 
 def reset(cache, rows):
     """Zero the selected lanes of every buffer, in place. A
-    :class:`PagedCache` returns the lanes' pages to the pool instead
-    (:func:`free`)."""
+    :class:`PagedCache` returns the lanes' pages to the pool instead and
+    zeroes their state leaves (:func:`free`)."""
     if isinstance(cache, PagedCache):
         return free(cache, rows)
-    batch = cache[0]["k"].shape[1]
-    lanes = torch.as_tensor(_lanes(rows, batch), device=cache[0]["k"].device)
+    leaf = _any_leaf(cache)
+    lanes = torch.as_tensor(_lanes(rows, leaf.shape[1]), device=leaf.device)
     if lanes.numel():
         for slot in cache:
             for buf in slot.values():
@@ -98,49 +162,66 @@ def reset(cache, rows):
 
 
 def commit(cache: tuple, emissions: tuple, offset: int) -> tuple:
-    """Write a block's KV emissions ``(n_periods, b, L, Kv, hd)`` into
-    every lane of a dense cache at the shared sequence ``offset``, in
-    place (the JAX package's whole-batch ``commit``)."""
-    max_len = cache[0]["k"].shape[2]
+    """Write a block's emissions into every lane of a dense cache, in
+    place (the JAX package's whole-batch ``commit``): K/V emissions
+    ``(n_periods, b, L, Kv, hd)`` at the shared sequence ``offset``, state
+    emissions in place of the old state."""
     for cslot, eslot in zip(cache, emissions):
-        for key, buf in cslot.items():
-            val = eslot[key]
+        for key in KV:
+            if key not in cslot:
+                continue
+            val, max_len = eslot[key], cslot[key].shape[2]
             if offset < 0 or offset + val.shape[2] > max_len:
                 raise ValueError(f"rows [{offset}, {offset + val.shape[2]})"
                                  f" outside a cache of {max_len}")
-            buf[:, :, offset:offset + val.shape[2]] = val.to(buf.dtype)
+            cslot[key][:, :, offset:offset + val.shape[2]] = val.to(
+                cslot[key].dtype)
+        _write_states(cslot, eslot)
     return cache
 
 
 def commit_at(cache: tuple, emissions: tuple, offset: torch.Tensor) -> tuple:
     """:func:`commit` at a device offset, a 0-dim int64 tensor: no host
     read (a CUDA graph captures it), and no bounds check on the host."""
-    idx = offset + torch.arange(emissions[0]["k"].shape[2],
-                                device=offset.device)
+    n = _kv_len(emissions)
+    idx = offset + torch.arange(n, device=offset.device) if n else None
     for cslot, eslot in zip(cache, emissions):
-        for key, buf in cslot.items():
-            buf.index_copy_(2, idx, eslot[key].to(buf.dtype))
+        for key in KV:
+            if key in cslot:
+                cslot[key].index_copy_(2, idx,
+                                       eslot[key].to(cslot[key].dtype))
+        _write_states(cslot, eslot)
     return cache
 
 
 def commit_rows(cache, emissions: tuple, offsets, rows):
-    """Write the selected lanes' KV emissions ``(n_periods, b, L, Kv, hd)``
-    into their cache rows, each lane at its own sequence offset, in place.
+    """Write the selected lanes' emissions into their cache rows, in
+    place: K/V emissions ``(n_periods, b, L, Kv, hd)`` each lane at its own
+    sequence offset, state emissions in place of the lane's old state.
     Lanes outside ``rows`` keep their contents bit for bit. A
-    :class:`PagedCache` writes through each lane's page table."""
+    :class:`PagedCache` writes K/V through each lane's page table."""
     if isinstance(cache, PagedCache):
         return _commit_rows_paged(cache, emissions, offsets, rows)
-    batch, max_len = cache[0]["k"].shape[1:3]
+    leaf = _any_leaf(cache)
+    batch = leaf.shape[1]
     offsets = np.broadcast_to(np.asarray(offsets, np.int64), (batch,))
-    for lane in _lanes(rows, batch):
+    lanes = _lanes(rows, batch)
+    for lane in lanes:
         off = int(offsets[lane])
         for cslot, eslot in zip(cache, emissions):
-            for key, buf in cslot.items():
-                val = eslot[key][:, lane]
+            for key in KV:
+                if key not in cslot:
+                    continue
+                val, max_len = eslot[key][:, lane], cslot[key].shape[2]
                 if off < 0 or off + val.shape[1] > max_len:
                     raise ValueError(f"rows [{off}, {off + val.shape[1]}) "
                                      f"outside a cache of {max_len}")
-                buf[:, lane, off:off + val.shape[1]] = val.to(buf.dtype)
+                cslot[key][:, lane, off:off + val.shape[1]] = val.to(
+                    cslot[key].dtype)
+    if len(lanes):
+        idx = torch.as_tensor(lanes, device=leaf.device)
+        for cslot, eslot in zip(cache, emissions):
+            _write_states(cslot, eslot, idx)
     return cache
 
 
@@ -151,7 +232,9 @@ class PagedCache:
     """Block-paged KV cache: device page pools plus host page tables.
 
     ``slots``: per period slot ``{"k", "v"}`` pools ``(n_periods, n_pages,
-    page, Kv, hd)``. ``page_table`` (b, n_tables) int32 maps a lane's
+    page, Kv, hd)`` of an attention slot, and the dense state leaves
+    ``(n_periods, b, ...)`` of a Mamba or RWKV slot, which are O(1) per
+    lane. ``page_table`` (b, n_tables) int32 maps a lane's
     sequence-block index to a pool page (``FREE`` = unallocated);
     ``page_owner`` (n_pages,) int32 records the lane holding each page
     (``FREE`` = available). Both are numpy arrays, changed in place by
@@ -171,7 +254,10 @@ class PagedCache:
 
     @property
     def page_size(self) -> int:
-        return self.slots[0]["k"].shape[2]
+        for slot in self.slots:
+            if "k" in slot:
+                return slot["k"].shape[2]
+        raise ValueError("paged cache has no attention slots")
 
     @property
     def n_pages(self) -> int:
@@ -183,7 +269,7 @@ class PagedCache:
 
     @property
     def device(self) -> torch.device:
-        return self.slots[0]["k"].device
+        return _any_leaf(self.slots).device
 
     def touch(self) -> None:
         """Mark the host table changed: the next :meth:`device_table`
@@ -204,10 +290,18 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      n_pages: int, page_size: int, dtype=None,
                      device="cuda") -> PagedCache:
     """A zeroed pool of ``n_pages`` pages, sized independently of
-    ``batch * max_len``; ``max_len`` only sets the table width."""
+    ``batch * max_len``; ``max_len`` only sets the table width. The state
+    leaves stay dense, one per lane. Refuses an attention-free config and
+    an encoder-decoder, as the reference does."""
+    if cfg.is_attention_free:
+        raise ValueError("paged layout needs attention KV; "
+                         f"{cfg.name} carries only O(1) recurrent state")
+    if cfg.is_encoder_decoder:
+        raise ValueError("paged layout does not support encoder-decoder "
+                         "cross-attention caches yet")
     n_tables = -(-max_len // page_size)
-    slots = _kv_slots(cfg, page_size, n_pages,
-                      torch_dtype(dtype or cfg.dtype), resolve_device(device))
+    slots = _slots(cfg, n_pages, page_size, batch,
+                   torch_dtype(dtype or cfg.dtype), resolve_device(device))
     return PagedCache(slots, np.full((batch, n_tables), FREE, np.int32),
                       np.full((n_pages,), FREE, np.int32))
 
@@ -254,30 +348,37 @@ def alloc(paged: PagedCache, rows, starts, stops):
 
 
 def free(paged: PagedCache, rows) -> PagedCache:
-    """Return the selected lanes' pages to the pool, in place. Page contents
-    are left as they are: a page is read only below its new owner's
-    ``cache_len``, and every such position is committed again first."""
+    """Return the selected lanes' pages to the pool and zero their state
+    leaves, in place. Page contents are left as they are: a page is read
+    only below its new owner's ``cache_len``, and every such position is
+    committed again first."""
     lanes = _lanes(rows, paged.n_lanes)
     if len(lanes):
         paged.page_owner[np.isin(paged.page_owner, lanes)] = FREE
         paged.page_table[lanes] = FREE
         paged.touch()
+        idx = torch.as_tensor(lanes, device=paged.device)
+        for slot in paged.slots:
+            for key, buf in slot.items():
+                if key not in KV:
+                    buf[:, idx] = 0
     return paged
 
 
 def _commit_rows_paged(paged: PagedCache, emissions: tuple, offsets,
                        rows) -> PagedCache:
-    """Paged :func:`commit_rows`: the KV emissions of the selected lanes are
-    written through their page tables, one indexed write per slot and key.
-    Positions on unallocated pages are dropped, as in the JAX package (the
-    engine allocates before it commits)."""
+    """Paged :func:`commit_rows`: the K/V emissions of the selected lanes
+    are written through their page tables, one indexed write per slot and
+    key, and their state emissions replace the lanes' states. Positions
+    on unallocated pages are dropped, as in the JAX package (the engine
+    allocates before it commits)."""
     b, n_t = paged.page_table.shape
     page = paged.page_size
     lanes = _lanes(rows, b)
     if not len(lanes):
         return paged
     offsets = np.broadcast_to(np.asarray(offsets, np.int64), (b,))
-    Lb = emissions[0]["k"].shape[2]
+    Lb = _kv_len(emissions)
     pos = offsets[lanes, None] + np.arange(Lb)[None, :]     # (n, Lb)
     if pos.min() < 0 or pos.max() >= n_t * page:
         raise ValueError(f"rows [{pos.min()}, {pos.max() + 1}) outside a "
@@ -287,16 +388,20 @@ def _commit_rows_paged(paged: PagedCache, emissions: tuple, offsets,
     dev = paged.device
     idx = [torch.as_tensor(a, device=dev) for a in
            (pid[li, ji], pos[li, ji] % page, lanes[li], ji)]
+    lanes_t = torch.as_tensor(lanes, device=dev)
     for cslot, eslot in zip(paged.slots, emissions):
-        for key, pool in cslot.items():
-            pool[:, idx[0], idx[1]] = eslot[key][:, idx[2], idx[3]].to(
-                pool.dtype)
+        for key in KV:
+            if key in cslot:
+                cslot[key][:, idx[0], idx[1]] = eslot[key][
+                    :, idx[2], idx[3]].to(cslot[key].dtype)
+        _write_states(cslot, eslot, lanes_t)
     return paged
 
 
 def gather_dense(paged: PagedCache) -> tuple:
     """The dense-layout view of a paged cache: pools gathered through the
-    page tables into ``(n_periods, b, n_tables*page, Kv, hd)`` buffers.
+    page tables into ``(n_periods, b, n_tables*page, Kv, hd)`` buffers,
+    state leaves as they are.
     Positions on unallocated pages hold another page's bytes; they are
     only read below ``cache_len``. A test and debugging helper: the decode
     reads the pools through the tables."""
@@ -308,7 +413,7 @@ def gather_dense(paged: PagedCache) -> tuple:
         g = pool[:, table]                    # (np, b, n_t, page, Kv, hd)
         return g.reshape(g.shape[0], b, n_t * paged.page_size, *g.shape[4:])
 
-    return tuple({k: view(v) for k, v in slot.items()}
+    return tuple({k: view(v) if k in KV else v for k, v in slot.items()}
                  for slot in paged.slots)
 
 

@@ -8,9 +8,11 @@ and flags plus ``--device``:
 
 Stages: ``teacher`` (Eq. 6 DLM SFT), ``ar`` (AR baseline), ``cdlm`` (the
 full teacher -> trajectories (τ = 0) -> student pipeline). As in the JAX
-CLI, the configs are always the ``reduced()`` variants in fp32 and the data
-is the synthetic task. Without ``--device cpu`` it raises when there is no
-CUDA device.
+CLI, the configs are always the ``reduced()`` variants in fp32, the data
+is the synthetic task, an ``ssm`` config (rwkv6, no bidirectional teacher)
+trains ``ar`` whatever the stage, and the ``cdlm`` stage's teacher of a
+``hybrid`` config (jamba) trains block-causally. Without ``--device cpu``
+it raises when there is no CUDA device.
 """
 import argparse
 import dataclasses
@@ -36,6 +38,7 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch.checkpoint import save
     from repro_torch.configs import CDLMConfig, TrainConfig, get_config
+    from repro_torch.core import masks
     from repro_torch.data import Corpus, TaskSpec
     from repro_torch.training import trainer
 
@@ -50,14 +53,16 @@ def main(argv=None):
                        batch_size=args.batch_size, remat=False,
                        use_lora=args.lora)
 
-    if args.stage == "ar":
+    if args.stage == "ar" or cfg.family == "ssm":
         params = trainer.train_ar(cfg, corpus, tcfg, device=dev)
     elif args.stage == "teacher":
         params = trainer.train_teacher(cfg, corpus, tcfg, device=dev)
     else:
         cdlm_cfg = CDLMConfig(block_size=args.block_size, gen_length=10,
                               prompt_length=15, temperatures=(0.0,))
-        teacher = trainer.train_teacher(cfg, corpus, tcfg,
+        mode = (masks.BLOCK_CAUSAL if cfg.family == "hybrid"
+                 else masks.BIDIRECTIONAL)
+        teacher = trainer.train_teacher(cfg, corpus, tcfg, mode=mode,
                                         block_size=args.block_size,
                                         device=dev)
         ds = trainer.collect_dataset(teacher, cfg, cdlm_cfg, corpus,

@@ -25,10 +25,17 @@ from repro_torch.configs.base import ModelConfig
 
 
 def apply_norm(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to the input dtype."""
+    """RMSNorm, or layernorm with a bias (``cfg.norm_type``), in fp32, cast
+    back to the input dtype. Layernorm's variance is the population one
+    (``jnp.var``; torch's default divides by n - 1)."""
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * params["w"].float() + params["b"].float()).to(x.dtype)
     if cfg.norm_type != "rmsnorm":
         raise ValueError(f"norm {cfg.norm_type!r} is not ported")
-    xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + cfg.norm_eps)
     return (y * params["w"].float()).to(x.dtype)
 

@@ -1,6 +1,9 @@
 """The decoder stack, ported from the JAX package's
-``models/transformer.py`` for ``ATTN``, ``ATTN_LOCAL`` (a sliding window of
-``cfg.sliding_window``), ``MLP`` and ``MOE`` slots.
+``models/transformer.py``: each slot a mixer, ``ATTN``, ``ATTN_LOCAL`` (a
+sliding window of ``cfg.sliding_window``), ``MAMBA`` (``models/mamba.py``)
+or ``RWKV`` (``models/rwkv6.py``'s time mix), then an FFN, ``MLP``,
+``MOE`` or ``RWKV_CM`` (the channel mix); rmsnorm or layernorm, RoPE or
+(attention-free) no positions.
 
 A model is ``cfg.n_periods`` repeats of ``cfg.layer_period``; each slot's
 params are stacked over periods and the stack runs as a Python loop over
@@ -9,13 +12,17 @@ forward. ``forward`` covers:
 
 - the full-sequence forward (prefill), in any mask mode;
 - the cached block decode: a block of queries per lane against that lane's
-  KV cache rows, with a per-lane ``cache_len`` and per-lane positions, so
-  lanes of one batch may decode at different block offsets; the cache is
-  dense or block-paged (``core.cache.PagedCache``).
+  KV cache rows and recurrent state, with a per-lane ``cache_len`` and
+  per-lane positions, so lanes of one batch may decode at different block
+  offsets; the KV cache is dense or block-paged
+  (``core.cache.PagedCache``; its state leaves are dense either way).
 
-Per-slot emissions ``{"k", "v"}`` come back stacked over periods,
-``(n_periods, b, L, Kv, hd)``, ready for ``core.cache.commit_rows``; the
-MoE slots' load-balance losses come back summed as ``aux_loss``.
+Per-slot emissions come back stacked over periods, ready for
+``core.cache.commit_rows``: ``{"k", "v"}`` ``(n_periods, b, L, Kv, hd)``
+of an attention slot, the state after the forward's last token of a
+Mamba slot (``conv``, ``ssm``) or an RWKV slot (``S``, ``tm_shift``,
+``cm_shift``); the MoE slots' load-balance losses come back summed as
+``aux_loss``.
 """
 from __future__ import annotations
 
@@ -26,22 +33,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (
+    ATTN,
     ATTN_LOCAL,
+    MAMBA,
     MOE,
+    RWKV_CM,
     ModelConfig,
     check_supported,
 )
 from repro_torch.core import masks
 from repro_torch.kernels.decode_attn.ref import gather_pages
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MO
+from repro_torch.models import rwkv6 as R
 
 
 
 class ModelOutput(NamedTuple):
     logits: Optional[torch.Tensor]  # (b, Lq, V) fp32; None without logits
     hidden: torch.Tensor            # (b, Lq, d) last hidden (post final norm)
-    emissions: tuple                # per slot {"k", "v"} stacked over periods
+    emissions: tuple                # per slot its K/V or state, stacked over
+    #                                 periods
     aux_loss: torch.Tensor          # MoE load-balance aux (fp32 scalar; 0
     #                                 without an MOE slot)
 
@@ -70,8 +83,9 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
     h = L.apply_norm(slot["norm1"], x, cfg)
     q = L.project_q(slot["attn"], h, cfg)
     k, v = L.project_kv(slot["attn"], h, cfg)
-    q = L.rope(q, ctx["q_pos"], cfg.rope_theta)
-    k = L.rope(k, ctx["q_pos"], cfg.rope_theta)
+    if cfg.pos_embed == "rope":
+        q = L.rope(q, ctx["q_pos"], cfg.rope_theta)
+        k = L.rope(k, ctx["q_pos"], cfg.rope_theta)
     window = None
     if mixer == ATTN_LOCAL:
         window = cfg.sliding_window
@@ -140,6 +154,44 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
                                kv_valid=kv_valid, bias_fn=bias_with_valid,
                                scale=scale, cap=cap)
     return x + L.out_proj(slot["attn"], out, cfg), {"k": k, "v": v}
+
+
+def _apply_slot(slot, x, *, cfg: ModelConfig, mixer: str, ffn: str, ctx,
+                moe_per_row: bool):
+    """One slot: its mixer (attention, Mamba or the RWKV time mix, each
+    reading its own leaves of the cache slot, zeros without a cache), then
+    its FFN (MLP, MOE or the RWKV channel mix, which reads the *input*
+    state's ``cm_shift``). Returns (x, emission, the MOE FFN's aux loss or
+    None)."""
+    cache = ctx["cache_slot"]
+    aux = rwkv_in = None
+    if mixer in (ATTN, ATTN_LOCAL):
+        x, em = _self_attention_slot(slot, x, cfg=cfg, mixer=mixer, ctx=ctx)
+    elif mixer == MAMBA:
+        state = (None if cache is None
+                 else {"conv": cache["conv"], "ssm": cache["ssm"]})
+        y, em = MB.mamba_forward(slot["mamba"],
+                                 L.apply_norm(slot["norm1"], x, cfg), cfg,
+                                 state=state)
+        x = x + y
+    else:   # RWKV
+        rwkv_in = (R.init_rwkv_state(cfg, x.shape[0], dtype=x.dtype,
+                                     device=x.device) if cache is None
+                   else {"S": cache["S"], "tm_shift": cache["tm_shift"],
+                         "cm_shift": cache["cm_shift"]})
+        y, em = R.time_mix(slot["rwkv_tm"],
+                           L.apply_norm(slot["norm1"], x, cfg), cfg, rwkv_in)
+        x = x + y
+    h = L.apply_norm(slot["norm2"], x, cfg)
+    if ffn == MOE:
+        y, aux = MO.apply_moe(slot["moe"], h, cfg, dropless=cache is not None,
+                              moe_per_row=moe_per_row)
+    elif ffn == RWKV_CM:      # after an RWKV mixer, as in every config
+        y, cm_em = R.channel_mix(slot["rwkv_cm"], h, cfg, rwkv_in)
+        em.update(cm_em)
+    else:
+        y = L.apply_mlp(slot["mlp"], h, cfg)
+    return x + y, em, aux
 
 
 def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
@@ -229,19 +281,12 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     def period_body(x, aux, p: int):
         ems = []
         for i, (mixer, ffn) in enumerate(cfg.layer_period):
-            slot = slots[i][p]
             c = dict(ctx, cache_slot=None if cache is None
                      else cache_slots[i][p])
-            x, em = _self_attention_slot(slot, x, cfg=cfg, mixer=mixer,
-                                         ctx=c)
-            h = L.apply_norm(slot["norm2"], x, cfg)
-            if ffn == MOE:
-                y, a = MO.apply_moe(slot["moe"], h, cfg,
-                                    dropless=cache is not None,
-                                    moe_per_row=moe_per_row)
-                x, aux = x + y, aux + a
-            else:
-                x = x + L.apply_mlp(slot["mlp"], h, cfg)
+            x, em, a = _apply_slot(slots[i][p], x, cfg=cfg, mixer=mixer,
+                                   ffn=ffn, ctx=c, moe_per_row=moe_per_row)
+            if a is not None:
+                aux = aux + a
             ems.append(em)
         return x, aux, ems
 
@@ -257,7 +302,7 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
         for i, em in enumerate(ems):
             emitted[i].append(em)
     emissions = tuple({key: torch.stack([em[key] for em in ems])
-                       for key in ("k", "v")} for ems in emitted)
+                       for key in ems[0]} for ems in emitted)
 
     hidden = L.apply_norm(params["final_norm"], x, cfg)
     if not return_logits:

@@ -10,7 +10,12 @@ of a reduced config: gemma-7b at head_dim 256, kimi-k2 at 112. Logits,
 hidden states and the MoE aux loss within 1e-5 (fp32: the same arithmetic
 in another order), full-sequence and cached, the cached forward through
 the decode attention wrappers (on the CPU their plain versions) on the
-dense and the paged layout. Also the small pieces these configs read:
+dense and the paged layout. And the recurrent-state configs, jamba
+(Mamba, attention and MoE slots) and rwkv6 (attention-free, layernorm):
+the forward, every slot's emissions (K/V and end states) and two cached
+blocks after a committed prompt, within 1e-4 (``REC_TOL``: depth
+compounds the summation order), cached == recompute within 1e-5. Also the
+small pieces these configs read:
 gelu as JAX computes it, the embedding scale in bf16 bit for bit, the
 cache's layout and bytes, the parameter counts, the diffusion timesteps
 and transition probabilities."""
@@ -59,11 +64,11 @@ CASES = [(a, {}) for a in ARCHS] + [
 IDS = [n + "".join(f"-{k}{v}" for k, v in kw.items()) for n, kw in CASES]
 
 
-def _cfgs(name, **kw):
-    """(JAX config, port config): ``reduced()`` in fp32, then ``kw``
-    through ``dataclasses.replace``."""
-    jcfg = jax_get_config(name).reduced(dtype="float32")
-    cfg = get_config(name).reduced(dtype="float32")
+def _cfgs(name, dtype="float32", **kw):
+    """(JAX config, port config): ``reduced()`` in ``dtype`` (fp32), then
+    ``kw`` through ``dataclasses.replace``."""
+    jcfg = jax_get_config(name).reduced(dtype=dtype)
+    cfg = get_config(name).reduced(dtype=dtype)
     return dataclasses.replace(jcfg, **kw), dataclasses.replace(cfg, **kw)
 
 
@@ -213,29 +218,138 @@ def test_parameter_counts_and_backbone_predicates(name):
 
 
 @pytest.mark.parametrize("name", ["gemma2-27b", "kimi-k2-1t-a32b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "rwkv6-1.6b"])
 def test_cache_layout_and_bytes_match_jax(name):
     """``ATTN_LOCAL`` slots hold K/V as ``ATTN`` slots do, in both layouts;
-    ``cache_bytes`` counts what the reference's counts. The port refuses
-    a cache for a config with a Mamba slot, which its stack does not
-    run."""
-    jcfg, cfg = _cfgs(name)
-    if name == "jamba-v0.1-52b":
-        with pytest.raises(ValueError, match="repro_torch runs"):
-            C.init_cache(cfg, 2, 16, device="cpu")
-        return
-    jc = jax_cache.init_cache(jcfg, 2, 16)
-    tc = C.init_cache(cfg, 2, 16, device="cpu")
-    for g, w in zip(tc, jc):
+    a Mamba slot holds ``conv`` (the model's dtype) and ``ssm`` (fp32), an
+    RWKV slot ``S`` (fp32) and ``tm_shift``, its channel mix
+    ``cm_shift``, dense in both layouts; ``cache_bytes`` counts what the
+    reference's counts. An attention-free config has no paged layout, as
+    in the reference."""
+    for dtype in ("float32", "bfloat16"):
+        jcfg, cfg = _cfgs(name, dtype=dtype)
+        jc = jax_cache.init_cache(jcfg, 2, 16)
+        tc = C.init_cache(cfg, 2, 16, device="cpu")
+        for g, w in zip(tc, jc):
+            assert sorted(g) == sorted(w)
+            assert all(tuple(g[k].shape) == w[k].shape for k in g)
+            assert all(str(g[k].dtype) == f"torch.{w[k].dtype}" for k in g)
+        assert C.cache_bytes(tc) == jax_cache.cache_bytes(jc)
+        if cfg.is_attention_free:
+            for init in (jax_cache.init_paged_cache, C.init_paged_cache):
+                kw = {} if init is jax_cache.init_paged_cache else \
+                    {"device": "cpu"}
+                with pytest.raises(ValueError, match="paged layout needs "
+                                   "attention KV"):
+                    init(cfg, 2, 16, n_pages=6, page_size=4, **kw)
+            continue
+        jp = jax_cache.init_paged_cache(jcfg, 2, 16, n_pages=6, page_size=4)
+        tp = C.init_paged_cache(cfg, 2, 16, n_pages=6, page_size=4,
+                                device="cpu")
+        for g, w in zip(tp.slots, jp.slots):
+            assert sorted(g) == sorted(w)
+            assert all(tuple(g[k].shape) == w[k].shape for k in g)
+        assert tp.page_size == jp.page_size == 4
+        assert C.cache_bytes(tp) == jax_cache.cache_bytes(jp)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent-state configs: jamba (Mamba, attention, MoE) and rwkv6
+# ---------------------------------------------------------------------------
+# The whole stack within 1e-4: jamba's 16 reduced layers compound the
+# matmuls' and recurrences' summation order (layer 0's in-projection
+# differs from JAX's by 1.7e-6 at magnitude 3.8, the last layer's by 2e-5;
+# each module alone agrees within 1e-5, tests/test_torch_ssm.py), the
+# JAX tests' own limit for these modules (tests/test_rwkv_mamba.py).
+REC_TOL = 1e-4
+RECURRENT = [("jamba-v0.1-52b", jmasks.BLOCK_CAUSAL),
+             ("rwkv6-1.6b", jmasks.CAUSAL)]
+
+
+def _all_emissions_close(got, want, tol=REC_TOL):
+    for g, w in zip(got.emissions, want.emissions):
         assert sorted(g) == sorted(w)
-        assert all(tuple(g[k].shape) == w[k].shape for k in g)
-    assert C.cache_bytes(tc) == jax_cache.cache_bytes(jc)
-    jp = jax_cache.init_paged_cache(jcfg, 2, 16, n_pages=6, page_size=4)
-    tp = C.init_paged_cache(cfg, 2, 16, n_pages=6, page_size=4,
-                            device="cpu")
-    for g, w in zip(tp.slots, jp.slots):
-        assert all(tuple(g[k].shape) == w[k].shape for k in g)
-    assert C.cache_bytes(tp) == jax_cache.cache_bytes(jp)
+        for key in w:
+            _close(g[key], w[key], tol)
+
+
+@pytest.mark.parametrize("name,mode", RECURRENT,
+                         ids=[n for n, _ in RECURRENT])
+def test_recurrent_forward_matches_jax(name, mode):
+    """Block-causal for jamba, causal for attention-free rwkv6, as the
+    reference's ``tests/test_arch_smoke.py`` runs them: logits, hidden,
+    the MoE aux loss and every slot's emission (K/V and end states)."""
+    jcfg, cfg = _cfgs(name)
+    tree = _tree(jcfg)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (2, P + G))
+    want = jax_forward(_jax(tree), jnp.asarray(tokens), cfg=jcfg, mode=mode,
+                       prompt_len=P, block_size=B)
+    got = forward(params_from_jax(tree, cfg, "cpu"), torch.as_tensor(tokens),
+                  cfg=cfg, device="cpu", mode=mode, prompt_len=P,
+                  block_size=B, prefill_attention_fn=flash_block_attention)
+    _close(got.logits, want.logits, REC_TOL)
+    _close(got.hidden, want.hidden, REC_TOL)
+    _close(got.aux_loss, want.aux_loss, REC_TOL)
+    _all_emissions_close(got, want)
+    assert (got.aux_loss.item() > 0) == bool(cfg.n_experts)
+
+
+@pytest.mark.parametrize("name,mode", RECURRENT,
+                         ids=[n for n, _ in RECURRENT])
+def test_recurrent_cached_blocks_match_jax_and_recompute(name, mode):
+    """The prompt's emissions committed (K/V rows and end states), then
+    block 0 against that cache: equal to the reference's cached block, and
+    to the port's full recompute within 1e-5 (the same loop from the same
+    state, the reference's own test allowing 5e-4); its emissions
+    committed at P, block 1 equal to the recompute too (the reference's
+    second-block exactness). jamba on the dense cache and on a paged pool
+    (equal to the dense one bit for bit), rwkv6 dense."""
+    jcfg, cfg = _cfgs(name)
+    tree = _tree(jcfg)
+    jp, params = _jax(tree), params_from_jax(tree, cfg, "cpu")
+    b, T = 2, P + 2 * B
+    canvas = np.random.default_rng(2).integers(0, cfg.vocab_size, (b, T))
+    kwf = dict(mode=mode, prompt_len=P, block_size=B)
+    full = forward(params, torch.as_tensor(canvas), cfg=cfg, device="cpu",
+                   moe_per_row=False, **kwf)
+    jout = jax_forward(jp, jnp.asarray(canvas[:, :P]), cfg=jcfg, **kwf)
+    jc = jax_cache.commit(jax_cache.init_cache(jcfg, b, T), jout.emissions,
+                          0)
+    want = jax_forward(jp, jnp.asarray(canvas[:, P:P + B]), cfg=jcfg, **kwf,
+                       cache=jc, cache_len=P)
+    tout = forward(params, torch.as_tensor(canvas[:, :P]), cfg=cfg,
+                   device="cpu", **kwf)
+    dense = C.commit(C.init_cache(cfg, b, T, device="cpu"), tout.emissions,
+                     0)
+    caches = [("dense", dense, {"decode_attention_fn": decode_attention})]
+    if not cfg.is_attention_free:
+        paged = C.init_paged_cache(cfg, b, T, n_pages=b * T // B,
+                                   page_size=B, device="cpu")
+        C.alloc(paged, np.ones(b, bool), 0, T)
+        C.commit_rows(paged, tout.emissions, 0, np.ones(b, bool))
+        caches.append(("paged", paged,
+                       {"paged_decode_attention_fn": paged_decode_attention}))
+    first = {}
+    for layout, cache, fns in caches:
+        blocks = []
+        for blk in range(2):
+            s0 = P + blk * B
+            out = forward(params, torch.as_tensor(canvas[:, s0:s0 + B]),
+                          cfg=cfg, device="cpu", **kwf, cache=cache,
+                          cache_len=s0, **fns)
+            _close(out.logits, full.logits[:, s0:s0 + B])
+            C.commit_rows(cache, out.emissions, s0, np.ones(b, bool))
+            blocks.append(out)
+        first[layout] = blocks[0]
+        _close(blocks[0].logits, want.logits, REC_TOL)
+        _all_emissions_close(blocks[0], want)
+    if "paged" in first:
+        assert torch.equal(first["paged"].logits, first["dense"].logits)
+        for g, w in zip(C.gather_dense(caches[1][1]), dense):
+            for key in w:
+                if key not in ("k", "v"):      # states: one per lane
+                    assert torch.equal(g[key], w[key]), key
 
 
 def test_timesteps_and_transition_probs_match_jax():

@@ -60,10 +60,12 @@ def _check_round_trip(params, tree):
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "dream-7b", "gemma-7b",
                                   "gemma2-27b", "llama4-maverick-400b-a17b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "jamba-v0.1-52b",
+                                  "rwkv6-1.6b"])
 def test_round_trip_of_the_jax_tree(name):
     """Every leaf, ``ATTN_LOCAL`` slots and ``moe`` leaves (the fp32
-    router, the (E, d, f) / (E, f, d) experts, the shared expert) too."""
+    router, the (E, d, f) / (E, f, d) experts, the shared expert), Mamba
+    and RWKV leaves and layernorm's biases too."""
     _, cfg, tree = _jax_tree(name)
     params = params_from_jax(tree, cfg, "cpu")
     _check_round_trip(params, tree)
@@ -90,7 +92,8 @@ def test_shape_mismatch_is_refused():
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "llada-8b",
-                                  "gemma2-27b", "kimi-k2-1t-a32b"])
+                                  "gemma2-27b", "kimi-k2-1t-a32b",
+                                  "jamba-v0.1-52b", "rwkv6-1.6b"])
 def test_seeded_init_follows_the_jax_init(name):
     _, cfg, tree = _jax_tree(name)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -135,12 +138,15 @@ def test_training_and_serving_configs_match_the_jax_package(name):
 
 def test_unported_architectures_are_refused():
     """The registry holds every architecture; the port's stack refuses the
-    ones it does not run (Mamba, RWKV, the encoder-decoder) when params
-    are built, and an unknown name is refused by the registry."""
-    for name in ("jamba-v0.1-52b", "rwkv6-1.6b", "whisper-base"):
-        cfg = get_config(name).reduced()
-        with pytest.raises(ValueError, match="repro_torch runs"):
-            init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    one it does not run (whisper-base: an encoder, sinusoidal positions, a
+    plain gelu) when params are built, and builds jamba's and rwkv6's;
+    an unknown name is refused by the registry."""
+    cfg = get_config("whisper-base").reduced()
+    with pytest.raises(ValueError, match="repro_torch runs"):
+        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for name in ("jamba-v0.1-52b", "rwkv6-1.6b"):
+        init_params(get_config(name).reduced(),
+                    torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(KeyError, match="unknown architecture"):
         get_config("gemma3-1b")
 

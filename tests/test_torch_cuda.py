@@ -62,8 +62,8 @@ def test_decode_attention_kernel_matches_plain(cuda, G, hd, window, softcap,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Kv,G,hd", [(2, 7, 64), (4, 7, 128)],
-                         ids=["qwen2-0.5b", "dream-7b"])
+@pytest.mark.parametrize("Kv,G,hd", [(2, 7, 64), (4, 7, 128), (8, 4, 128)],
+                         ids=["qwen2-0.5b", "dream-7b", "jamba"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_at_one_query_row_matches_plain(cuda, Kv, G, hd,
                                                          dtype):
@@ -444,10 +444,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                      torch.zeros((10, 64), dtype=bf, device=cuda), ones)
 
 
-# the head layouts the kernels gained: gemma-7b (Kv 16, G 1, hd 256) and
-# kimi-k2 (Kv 8, G 8, hd 112: padded to 128 inside the kernels)
-NEW_HEADS = [(16, 1, 256), (8, 8, 112)]
-NEW_IDS = ["gemma-7b-hd256", "kimi-k2-hd112"]
+# the head layouts the kernels gained: gemma-7b (Kv 16, G 1, hd 256),
+# kimi-k2 (Kv 8, G 8, hd 112: padded to 128 inside the kernels) and
+# jamba's attention slot (Kv 8, G 4, hd 128)
+NEW_HEADS = [(16, 1, 256), (8, 8, 112), (8, 4, 128)]
+NEW_IDS = ["gemma-7b-hd256", "kimi-k2-hd112", "jamba-hd128"]
 
 
 @pytest.mark.cuda
@@ -972,6 +973,103 @@ def test_static_graph_equals_eager(cuda, name, layout, case):
     assert (counts[2] > 0) == (name != "vanilla" or case == "greedy-fused")
     assert (counts[3] > 0) == (case == "greedy-fused" and name != "ar")
     assert counts[4:] == [0, 0]
+
+
+# the recurrent-state configs: jamba (Mamba, attention, MoE) and rwkv6
+# (attention-free) with their state caches inside the engines' graphs
+RECURRENT_CASES = [("jamba-v0.1-52b", "dense"), ("jamba-v0.1-52b", "paged"),
+                   ("rwkv6-1.6b", "dense")]
+
+
+def _recurrent_params(cuda, name):
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    cfg = get_config(name).reduced(dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    with torch.no_grad():
+        params["embed"]["head"] *= 40.0   # a sharp head
+        params["embed"]["head"][cfg.mask_token_id] = 0
+    return cfg, params
+
+
+def _attention_layers(cfg):
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL
+    return cfg.n_periods * sum(m in (ATTN, ATTN_LOCAL)
+                               for m, _ in cfg.layer_period)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layout", RECURRENT_CASES,
+                         ids=[f"{n}-{lay}" for n, lay in RECURRENT_CASES])
+def test_recurrent_graph_serving_equals_eager(cuda, name, layout):
+    """The continuous engine through its CUDA graphs and eagerly on one
+    trace, with the Mamba or RWKV state carried in the cache: tokens,
+    steps, call counts and launches equal, the attention kernels launched
+    once per attention layer and cached forward (never for rwkv6), select
+    once per iteration."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg, params = _recurrent_params(cuda, name)
+    P, G, B = 8, 16, 4
+    serve = ServeConfig(max_batch=2, block_size=B, gen_length=G,
+                        conf_threshold=0.5, scheduler="continuous",
+                        fused_select=True, cache_layout=layout)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
+                                                (5, P))
+    caps = [None, B, None, 2 * B, None]
+    runs = {}
+    for graphs in (False, None):
+        eng = ContinuousEngine(params, cfg, serve, prompt_len=P,
+                               device=cuda, graphs=graphs)
+        eng.warmup()
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i, max_tokens=c)
+             for i, (p, c) in enumerate(zip(prompts, caps))]))
+        calls = eng.call_counts()
+        n_attn = _attention_layers(cfg)
+        cached = n_attn * (calls["refine"] + calls["commit"])
+        assert counts == [cached if layout == "dense" else 0,
+                          cached if layout == "paged" else 0,
+                          n_attn * calls["admit"], calls["refine"], 0, 0]
+        runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
+                                o.finish_reason) for o in outs},
+                        calls, counts)
+    assert runs[None] == runs[False]
+    assert sorted(runs[None][0]) == list(range(5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("sampler", ["ar", "cdlm", "dual_cache"])
+def test_recurrent_static_graph_equals_eager(cuda, name, sampler):
+    """The static engine's graphs against its eager path with the state
+    cache: ``ar`` commits the state at every step inside its graph,
+    ``cdlm`` at each commit pass, ``dual_cache`` at each refresh."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import Engine, Request
+    cfg, params = _recurrent_params(cuda, name)
+    serve = ServeConfig(max_batch=2, block_size=4, gen_length=16,
+                        conf_threshold=0.5, cache_refresh_interval=2,
+                        scheduler="static", sampler=sampler,
+                        fused_select=True)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
+                                                (3, 8))
+    runs = {}
+    for graphs in (False, None):
+        eng = Engine(params, cfg, serve, prompt_len=8, device=cuda,
+                     graphs=graphs)
+        eng.warmup()
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i) for i, p in enumerate(prompts)]))
+        runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length)
+                         for o in outs}, eng.call_counts(), counts)
+        assert (eng._graphs is not None) == (graphs is None)
+    assert runs[None] == runs[False]
 
 
 # the tuning registry's candidates (kernels/tuning.py): every knob the
