@@ -49,7 +49,17 @@ Phases, each timed, any failure raises and exits non-zero:
    (one query row a lane, caches of 192 rows, as phase 9's ``ar`` run
    calls it), and the fused select at T=256 over each config's (V, d)
    unembedding (rwkv6's too, which has no attention) with gemma2's final
-   softcap 30, timed;
+   softcap 30, timed; phase 10's shapes, bf16, each timed against its
+   plain version and one library call with its bound
+   (``check_extras_kernels``): whisper-base's decoder self attention
+   (Kv 8, G 1, hd 64 at 8 lanes of a 192-row cache), its encoder's
+   bidirectional block attention over 1,500 ragged frames (8 lanes) and
+   its decoder prefill, the select over its (51,865, 512) head and the
+   cross-entropy at 128 rows of it; internvl2-1b's decode and paged
+   decode (8 lanes, 832 rows), prefill (L 768) and select over its
+   (151,655, 896) head; the long window's decode (window 8,192, 4 lanes
+   of 8,512 rows) and prefill at L 8,448 (one lane) without and with the
+   window;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -162,9 +172,32 @@ Phases, each timed, any failure raises and exits non-zero:
    its graphs against eager in turns, tokens, steps and calls equal and
    launches equal to the accounting; each config freed before the next.
 
+10. request extras and the long window (``phase_extras``), bf16, seeded
+   random init, frames and patches 0.1 N(0, 1) rounded to bf16: (a)
+   whisper-base at full depth (6 encoder and 6 decoder layers, 1,500
+   frames) through the static ``Engine``, 8 lanes, P=128, G=64, block
+   32, greedy fused: the six decoders, each eagerly and through its
+   graphs in turns (eager, graph, graph, eager: tokens, steps, calls and
+   launches equal and held to each decoder's accounting, the encoder's
+   layers in every full-sequence forward), tokens/s of each, ``cdlm``'s
+   profiled block and the encoder's and cross attention's device ms in
+   an eager block under profiler ranges, the continuous engine's and the
+   paged layout's refusals; (b) internvl2-1b at full depth with 256
+   prefix rows, 8 lanes, P=512, G=64, ``cdlm`` on the dense then the
+   paged layout, each eager and graph in turns, paged tokens equal to
+   dense; (c) the long window: 4 lanes of P=8,192 after the 256 prefix
+   rows, ``use_long_window``, the static engine eager and graph in turns,
+   then ``ContinuousEngine`` on the same prompts without the prefix,
+   graph and eager, tokens equal; (d) one ``cdlm_loss`` value and
+   gradient with whisper's frames (2 lanes, P=128, G=64), its DLM term
+   with the kernel and with the plain cross-entropy within phase 5's
+   limits.
+
 The line before the last two is the kernels' JSON summary (phase 9's
 configs' entries keyed "<kernel> <config>", jamba's and rwkv6's with the
-checked shape too, ``arch_key``), then the card's
+checked shape too, ``arch_key``; phase 10's keyed by ``EXTRAS_KEYS``,
+e.g. "decode_attention whisper-base", "block_attention internvl2-1b
+L8448"), then the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -501,10 +534,18 @@ def check_decode(torch, dev, *, b, Bq, Kv, G, hd, S, lens, dtype,
         slot = torch.arange(Lk, device=dev)
         mask = ((slot[None, :] < cl[:, None]) | (slot[None, :] >= S))
         mask = mask[:, None, None, :].expand(b, 1, Bq, Lk)
-        # SDPA has no softcap, and its mask here no window: flex_attention
+        if window is not None:
+            # the plain version's window: cache row j of query i if
+            # (cache_len + i) - j < window, block key j if |i - j| < window
+            i = torch.arange(Bq, device=dev)[:, None]
+            near = torch.where(slot[None, :] < S,
+                               cl[:, None, None] + i - slot < window,
+                               (i - (slot - S)).abs() < window)
+            mask = mask & near[:, None]
+        # SDPA has no softcap: flex_attention
         library = lambda: F.scaled_dot_product_attention(  # noqa
             qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True)
-        if softcap or window:
+        if softcap:
             library, rec["library_max_abs_err"] = flex_library(
                 torch, qs, ks, vs, want, scale=scale, softcap=softcap,
                 mask_mod=decode_mask_mod(cl, S, window), name=name)
@@ -1250,6 +1291,7 @@ def phase_kernels(torch, dev):
         check_block(torch, dev, b=2, L=L, Kv=2, G=7, hd=64, dtype="float32",
                     mode=mode, name=f"{mode} L={L} float32")
     main.update(check_architectures(torch, dev, lens8))
+    main.update(check_extras_kernels(torch, dev))
     main["fused_select"] = check_select(
         torch, dev, T=256, d=896, V=151_936, dtype="bfloat16", scale=0.02,
         timed=True, name="qwen2-0.5b tied")
@@ -1597,7 +1639,7 @@ def elementwise_kinds(by_kernel):
 
 
 def profile_block(torch, dev, eng, prompts, B, sampling=None,
-                  recurrent=False):
+                  recurrent=False, extras=None):
     """Where the time goes: one-block requests, one per prompt (one
     admission, 32 refinement iterations, one commit pass), once without
     and once under the profiler; device time by kernel, grouped, and the
@@ -1605,12 +1647,14 @@ def profile_block(torch, dev, eng, prompts, B, sampling=None,
     of the unprofiled one (the profiler slows the host, not the kernels).
     ``sampling(i)``, where given, is request i's ``SamplingParams``; the
     per-lane draw's kernels (DRAW_KERNEL_MARKS) then form a group of their
-    own, taken out of "other"; ``recurrent``: as ``device_groups``."""
+    own, taken out of "other"; ``recurrent``: as ``device_groups``;
+    ``extras[i]``, where given, request i's extras."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
     reqs = [Request(prompt=p, id=1000 + i, max_tokens=B,
-                    params=None if sampling is None else sampling(i))
+                    params=None if sampling is None else sampling(i),
+                    extras=None if extras is None else extras[i])
             for i, p in enumerate(prompts)]
     _, plain_wall = _timed(torch, dev, lambda: eng.generate(reqs))
     torch.cuda.synchronize(dev)
@@ -2313,7 +2357,8 @@ def check_sampled_serving(torch, dev, ctx):
     return rec, engines, first
 
 
-def static_ab(torch, dev, ctx, name, serve, reqs, profile=False):
+def static_ab(torch, dev, ctx, name, serve, reqs, profile=False,
+              outputs=None):
     """Decoder ``name`` through the static engine eagerly
     (``graphs=False``) and through its CUDA graphs (captured at warmup,
     once per engine), in turns: eager, graph, graph, eager. Every run
@@ -2322,10 +2367,14 @@ def static_ab(torch, dev, ctx, name, serve, reqs, profile=False):
     (``decoder_launches``); the eager engine captures nothing. Prints
     each path's tokens/s and ms per call; ``profile``: a profiled batch of
     each engine too (``profile_block``). Returns (record, the first graph
-    run's launches)."""
+    run's launches). ``ctx`` may also name the engines' ``pos_offset``,
+    ``use_long_window`` and the profiled batch's ``extras`` (one dict a
+    prompt); ``outputs``, a list, receives the first run's outputs."""
     from repro_torch.serving import Engine
     cfg, P = ctx["cfg"], ctx["P"]
     engines = {path: Engine(ctx["params"], cfg, serve, prompt_len=P,
+                            pos_offset=ctx.get("pos_offset", 0),
+                            use_long_window=ctx.get("use_long_window", False),
                             device=dev, graphs=graphs)
                for path, graphs in (("eager", False), ("graph", None))}
     engines["graph"].warmup()
@@ -2374,11 +2423,11 @@ def static_ab(torch, dev, ctx, name, serve, reqs, profile=False):
     if profile:
         for path, eng in engines.items():
             prof = profile_block(torch, dev, eng, ctx["prompts"][:8],
-                                 ctx["B"])
+                                 ctx["B"], extras=ctx.get("extras"))
             profiles[path] = {k: prof[k] for k in (
                 "wall_ms", "device_busy_ms", "idle_share",
                 "unprofiled_wall_ms", "idle_share_of_unprofiled_wall",
-                "device_ms_by_group", "calls")}
+                "device_ms_by_group", "calls", "top_kernels")}
     del engines
     torch.cuda.empty_cache()
     log(f"{name}: " + "; ".join(
@@ -2390,6 +2439,8 @@ def static_ab(torch, dev, ctx, name, serve, reqs, profile=False):
            "tokens": sum(v[2] for v in ref[0].values()), "runs": runs}
     if profiles:
         rec["profiled_batch"] = profiles
+    if outputs is not None:
+        outputs.append(ref[0])
     return rec, first
 
 
@@ -2585,14 +2636,17 @@ def decoder_launches(cfg, name, counts, calls, spec):
     ``ar``'s steps). interval_cache's in-loop refreshes are known exactly
     when every block ran B iterations (else only that there was the
     first). Returns (want launches or None per kernel, want calls,
-    iterations)."""
+    iterations). An encoder-decoder's full-sequence forwards run the
+    encoder too (its layers' block attention with the decoder's); a paged
+    ``cdlm`` reads its cache through the paged decode kernel."""
     Lyr, B, R, nb, G = (cfg.n_layers, spec.block_size,
                         spec.cache_refresh_interval, spec.n_blocks,
                         spec.gen_len)
+    Lfull = Lyr + (cfg.n_encoder_layers if cfg.is_encoder_decoder else 0)
     fused = spec.fused_select and spec.temperature <= 0
     if name == "ar":
         return ({"decode_attention": Lyr * G, "fused_select": 0,
-                 "block_attention": Lyr, "paged_decode_attention": 0,
+                 "block_attention": Lfull, "paged_decode_attention": 0,
                  "xent_forward": 0, "xent_backward": 0}, 1 + G, G)
     other = {"vanilla": 0, "fast_dllm": 0, "dual_cache": nb,
              "interval_cache": 1, "cdlm": 1 + nb}[name]
@@ -2604,11 +2658,13 @@ def decoder_launches(cfg, name, counts, calls, spec):
             "interval_cache": (1 + nb * (B // R) if iters == nb * B
                                else None),
             "cdlm": 1}[name]
-    return ({"decode_attention": Lyr * (iters + nb) if name == "cdlm" else 0,
+    cached = Lyr * (iters + nb) if name == "cdlm" else 0
+    paged = spec.cache_layout == "paged"
+    return ({"decode_attention": 0 if paged else cached,
              "fused_select": iters if fused else 0,
-             "block_attention": None if full is None else Lyr * full,
-             "paged_decode_attention": 0, "xent_forward": 0,
-             "xent_backward": 0}, iters + other, iters)
+             "block_attention": None if full is None else Lfull * full,
+             "paged_decode_attention": cached if paged else 0,
+             "xent_forward": 0, "xent_backward": 0}, iters + other, iters)
 
 
 def check_baseline_serving(torch, dev, ctx):
@@ -3309,6 +3365,462 @@ def phase_architectures(torch, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: request extras (whisper-base, internvl2-1b) and the long window
+# ---------------------------------------------------------------------------
+EXTRAS_WHISPER = (8, 128, 64, 32)      # lanes, prompt, generation, block
+EXTRAS_VLM = (8, 512, 64, 32)
+EXTRAS_WINDOW = (4, 8192, 64, 32)
+EXTRAS_LOSS = (2, 128, 64, 32)
+WHISPER, VLM = "whisper-base", "internvl2-1b"
+# phase 10's summary entries: the key of each, and the kernel it names
+EXTRAS_KEYS = {
+    f"decode_attention {WHISPER}": "decode_attention",
+    f"block_attention {WHISPER}": "block_attention",
+    f"fused_select {WHISPER}": "fused_select",
+    f"xent_forward {WHISPER}": "xent_forward",
+    f"xent_backward {WHISPER}": "xent_backward",
+    f"decode_attention {VLM}": "decode_attention",
+    f"paged_decode_attention {VLM}": "paged_decode_attention",
+    f"block_attention {VLM}": "block_attention",
+    f"fused_select {VLM}": "fused_select",
+    f"decode_attention {VLM} window8192": "decode_attention",
+    f"block_attention {VLM} L8448": "block_attention",
+}
+
+
+def check_extras_kernels(torch, dev):
+    """Phase 2's cases at phase 10's shapes, bf16, each timed against its
+    plain version and one library call, with its bound; returns the
+    records by ``EXTRAS_KEYS``. whisper-base: the decoder's self attention
+    (Kv 8, G 1, hd 64: 32 folded rows) at 8 lanes of a 192-row cache, the
+    encoder's bidirectional block attention at 8 lanes of its 1,500 ragged
+    frames (and the decoder's 128-token prefill, checked), the select over
+    its (51,865, 512) head, the cross-entropy at phase 10d's 128 rows;
+    internvl2-1b (qwen2's attention layout): decode and paged decode at 8
+    lanes of an 832-row cache (256 prefix rows + P 512 + G 64), the
+    prefill at L 768, the select over its untied (151,655, 896) head; the
+    long window: decode with window 8,192 at 4 lanes of an 8,512-row cache
+    (blocks at 8,448 and 8,480) and the prefill at L 8,448 (one lane: the
+    plain version's fp32 scores at four would take 16 GB a tensor), the
+    main path's (no window: the reference's prefill takes none) timed and
+    the windowed one checked and timed too."""
+    main = {}
+    kw = dict(dtype="bfloat16", timed=True)
+    _, P, G, _ = EXTRAS_WHISPER
+    main[f"decode_attention {WHISPER}"] = check_decode(
+        torch, dev, b=8, Bq=32, Kv=8, G=1, hd=64, S=P + G,
+        lens=[P, P + 32] * 4, name=f"{WHISPER} decode", **kw)
+    main[f"block_attention {WHISPER}"] = check_block(
+        torch, dev, b=8, L=1500, Kv=8, G=1, hd=64, mode="bidirectional",
+        name=f"{WHISPER} encoder L=1500", **kw)
+    check_block(torch, dev, b=8, L=P, Kv=8, G=1, hd=64, dtype="bfloat16",
+                mode="block_causal", prompt_len=P, block_size=32,
+                name=f"{WHISPER} decoder prefill")
+    main[f"fused_select {WHISPER}"] = check_select(
+        torch, dev, T=256, d=512, V=51_865, scale=0.02,
+        name=f"{WHISPER} unembed", **kw)
+    b, P, G, _ = EXTRAS_LOSS
+    xent = check_xent(torch, dev, T=b * G, d=512, V=51_865,
+                      name=f"{WHISPER} DLM term", **kw)
+    main[f"xent_forward {WHISPER}"] = dict(xent["forward"],
+                                           max_abs_err=xent["max_abs_err"])
+    main[f"xent_backward {WHISPER}"] = dict(
+        xent["backward"], max_abs_err=max(xent["dh_max_abs_err"],
+                                          xent["dw_max_abs_err"]))
+    _, P, G, _ = EXTRAS_VLM
+    S = 256 + P + G
+    lens = [256 + P, 256 + P + 32] * 4
+    main[f"decode_attention {VLM}"] = check_decode(
+        torch, dev, b=8, Bq=32, Kv=2, G=7, hd=64, S=S, lens=lens,
+        name=f"{VLM} decode", **kw)
+    main[f"paged_decode_attention {VLM}"] = check_paged(
+        torch, dev, b=8, Bq=32, Kv=2, G=7, hd=64, S=S, lens=lens,
+        name=f"{VLM} decode", **kw)
+    main[f"block_attention {VLM}"] = check_block(
+        torch, dev, b=8, L=256 + P, Kv=2, G=7, hd=64, mode="block_causal",
+        prompt_len=256 + P, block_size=32, name=f"{VLM} prefill L=768", **kw)
+    main[f"fused_select {VLM}"] = check_select(
+        torch, dev, T=256, d=896, V=151_655, scale=0.02,
+        name=f"{VLM} unembed", **kw)
+    b, P, G, _ = EXTRAS_WINDOW
+    L = 256 + P
+    main[f"decode_attention {VLM} window8192"] = check_decode(
+        torch, dev, b=b, Bq=32, Kv=2, G=7, hd=64, S=L + G,
+        lens=[L, L + 32] * (b // 2), window=8192,
+        name=f"{VLM} decode window 8192", **kw)
+    main[f"block_attention {VLM} L8448"] = check_block(
+        torch, dev, b=1, L=L, Kv=2, G=7, hd=64, mode="block_causal",
+        prompt_len=L, block_size=32, name=f"{VLM} prefill L=8448", **kw)
+    rec = check_block(torch, dev, b=1, L=L, Kv=2, G=7, hd=64,
+                      mode="block_causal", prompt_len=P, block_size=32,
+                      window=8192, name=f"{VLM} window 8192 L=8448", **kw)
+    main[f"block_attention {VLM} L8448"]["windowed_case"] = {
+        k: rec.get(k) for k in ("max_abs_err", "kernel_ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by",
+                                "kernel_device_ms")}
+    return main
+
+
+def extras_rows(torch, cfg, n, seed, prefix=0):
+    """``n`` requests' extras, 0.1 N(0, 1) from ``seed`` rounded to bf16
+    (held as fp32, which the engine's buffers keep): whisper's frames
+    (encoder_seq_len, d), or ``prefix`` rows of patch embeddings."""
+    rng = np.random.default_rng(seed)
+    key, rows = (("encoder_embeds", cfg.encoder_seq_len)
+                 if cfg.is_encoder_decoder else ("prefix_embeds", prefix))
+    x = 0.1 * rng.standard_normal((n, rows, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(x).bfloat16().float().numpy()
+    return [{key: x[i]} for i in range(n)]
+
+
+def _add(total, counts, key_of):
+    for kernel, n in counts.items():
+        key = key_of.get(kernel)
+        if key is not None:
+            total[key] = total.get(key, 0) + n
+
+
+def attribute_encoder(torch, dev, eng, reqs):
+    """Device ms of whisper's encoder and of its cross-attention sublayers
+    in one eager ``cdlm`` batch of ``reqs``: ``models.transformer.encode``
+    and ``_cross_attention_slot`` wrapped in profiler ranges for that
+    batch (restored after), each range's device time the kernels launched
+    inside it (the CPU range's ``FunctionEvent.device_time_total``; the
+    range's device-side annotation, a span, is not counted). A graph
+    replay has no ranges, so this reads the eager engine; the kernels'
+    time does not depend on the path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import transformer as TT
+    real = {"encode": TT.encode,
+            "_cross_attention_slot": TT._cross_attention_slot}
+
+    def ranged(label, fn):
+        def wrapper(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapper
+
+    TT.encode = ranged("phase10.encoder", real["encode"])
+    TT._cross_attention_slot = ranged("phase10.cross_attention",
+                                      real["_cross_attention_slot"])
+    try:
+        eng.generate(reqs)           # warm
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.generate(reqs)
+            torch.cuda.synchronize(dev)
+    finally:
+        TT.encode = real["encode"]
+        TT._cross_attention_slot = real["_cross_attention_slot"]
+    out = {"encoder_ms": 0.0, "cross_attention_ms": 0.0,
+           "encoder_calls": 0, "cross_attention_calls": 0}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        for label, key in (("phase10.encoder", "encoder"),
+                           ("phase10.cross_attention", "cross_attention")):
+            if ev.name == label:
+                out[f"{key}_ms"] += ev.device_time_total / 1e3
+                out[f"{key}_calls"] += 1
+    out["calls"] = eng.call_counts()
+    return out
+
+
+def phase_extras_whisper(torch, dev, smi):
+    """(a) whisper-base at full depth through the static ``Engine``: the
+    six decoders (``cdlm`` first), each eagerly and through its graphs in
+    turns (``static_ab``: tokens, steps, calls and launches equal, the
+    launches held to each decoder's accounting, the encoder's layers in
+    every full-sequence forward), tokens/s of each; ``cdlm``'s profiled
+    batch (graph and eager), the encoder's and the cross attention's
+    device ms from an eager batch under ranges; the continuous engine's
+    and the paged layout's refusals. Returns the launches by summary
+    key."""
+    import gc
+
+    from repro_torch.bridge import param_count
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.core import cache as C
+    from repro_torch.serving import ContinuousEngine, Engine, Request
+    cfg = get_config(WHISPER)
+    b, P, G, B = EXTRAS_WHISPER
+    params = _random_params(torch, cfg, dev, "bfloat16")
+    prompts = np.random.default_rng(21).integers(0, cfg.mask_token_id,
+                                                 (b, P))
+    ex = extras_rows(torch, cfg, b, 22)
+    ctx = {"cfg": cfg, "params": params, "P": P, "B": B, "prompts": prompts,
+           "extras": ex}
+    reqs = [Request(prompt=prompts[i], id=i, extras=ex[i]) for i in range(b)]
+    key_of = {k: f"{k} {WHISPER}" for k in ("decode_attention",
+                                            "block_attention",
+                                            "fused_select")}
+    total, recs = {}, []
+    for name in ("cdlm",) + tuple(d for d in DECODERS if d != "cdlm"):
+        serve = ServeConfig(max_batch=b, block_size=B, gen_length=G,
+                            conf_threshold=0.9, scheduler="static",
+                            sampler=name, fused_select=True)
+        rec, counts = static_ab(torch, dev, ctx, name, serve, reqs,
+                                profile=name == "cdlm")
+        recs.append(rec)
+        _add(total, counts, key_of)
+    serve = ServeConfig(max_batch=b, block_size=B, gen_length=G,
+                        conf_threshold=0.9, scheduler="static",
+                        sampler="cdlm", fused_select=True)
+    eng = Engine(params, cfg, serve, prompt_len=P, device=dev, graphs=False)
+    # the profiled batch's requests (one block each, profile_block's)
+    shares = attribute_encoder(torch, dev, eng, [
+        Request(prompt=prompts[i], id=1000 + i, max_tokens=B, extras=ex[i])
+        for i in range(b)])
+    del eng
+    refusals = {}
+    try:
+        ContinuousEngine(params, cfg, serve, prompt_len=P, device=dev)
+        raise AssertionError("whisper: the continuous engine was not "
+                             "refused")
+    except ValueError as e:
+        if "does not support encoder-decoder models yet" not in str(e):
+            raise
+        refusals["continuous"] = str(e)
+    try:
+        C.init_paged_cache(cfg, b, P + G, n_pages=8, page_size=B,
+                           device=dev)
+        raise AssertionError("whisper: the paged layout was not refused")
+    except ValueError as e:
+        if "paged layout does not support encoder-decoder" not in str(e):
+            raise
+        refusals["paged"] = str(e)
+    log(json.dumps({"phase": "extras serving", "config": WHISPER,
+                    "params": param_count(params), "dtype": "bfloat16",
+                    "engine": "static, eager and graphs", "requests": b,
+                    "prompt_len": P, "gen": G, "block": B, "tau": 0.9,
+                    "encoder_frames": cfg.encoder_seq_len,
+                    "decoders": recs, "cdlm_eager_attribution": shares,
+                    "refusals": refusals, "card": smi}))
+    del params, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_extras_vlm(torch, dev, smi):
+    """(b) internvl2-1b at full depth with 256 prefix rows through the
+    static ``Engine``: ``cdlm`` greedy fused on the dense then the paged
+    layout, each eagerly and through its graphs in turns (``static_ab``),
+    paged tokens equal to dense. (c) the long window: 4 lanes of P 8,192
+    after the 256 prefix rows, ``use_long_window`` (every block past the
+    8,192-token window), through the static engine eagerly and through
+    its graphs in turns, then ``ContinuousEngine`` on the same prompts
+    without the prefix through its graphs and eagerly, tokens equal, its
+    launches held to its call accounting. Returns the launches by summary
+    key."""
+    import gc
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg = get_config(VLM)
+    off = cfg.n_prefix_embeds
+    params = _random_params(torch, cfg, dev, "bfloat16")
+    total, recs = {}, {}
+    b, P, G, B = EXTRAS_VLM
+    prompts = np.random.default_rng(31).integers(0, cfg.mask_token_id,
+                                                 (b, P))
+    ex = extras_rows(torch, cfg, b, 32, prefix=off)
+    ctx = {"cfg": cfg, "params": params, "P": P, "B": B, "prompts": prompts,
+           "extras": ex, "pos_offset": off}
+    reqs = [Request(prompt=prompts[i], id=i, extras=ex[i]) for i in range(b)]
+    outs = {}
+    for layout in ("dense", "paged"):
+        serve = ServeConfig(max_batch=b, block_size=B, gen_length=G,
+                            conf_threshold=0.9, scheduler="static",
+                            sampler="cdlm", fused_select=True,
+                            cache_layout=layout)
+        got = []
+        recs[layout], counts = static_ab(torch, dev, ctx, "cdlm", serve,
+                                         reqs, outputs=got)
+        outs[layout] = got[0]
+        _add(total, counts, {
+            "decode_attention": f"decode_attention {VLM}",
+            "paged_decode_attention": f"paged_decode_attention {VLM}",
+            "block_attention": f"block_attention {VLM}",
+            "fused_select": f"fused_select {VLM}"})
+    if outs["paged"] != outs["dense"]:
+        raise AssertionError(f"{VLM}: paged tokens differ from dense")
+
+    b, P, G, B = EXTRAS_WINDOW
+    prompts = np.random.default_rng(33).integers(0, cfg.mask_token_id,
+                                                 (b, P))
+    ex = extras_rows(torch, cfg, b, 34, prefix=off)
+    ctx = {"cfg": cfg, "params": params, "P": P, "B": B, "prompts": prompts,
+           "extras": ex, "pos_offset": off, "use_long_window": True}
+    reqs = [Request(prompt=prompts[i], id=i, extras=ex[i]) for i in range(b)]
+    serve = ServeConfig(max_batch=b, block_size=B, gen_length=G,
+                        conf_threshold=0.9, scheduler="static",
+                        sampler="cdlm", fused_select=True)
+    recs["window static"], counts = static_ab(torch, dev, ctx, "cdlm",
+                                              serve, reqs)
+    _add(total, counts, {
+        "decode_attention": f"decode_attention {VLM} window8192",
+        "block_attention": f"block_attention {VLM} L8448",
+        "fused_select": f"fused_select {VLM}"})
+    serve = ServeConfig(max_batch=b, block_size=B, gen_length=G,
+                        conf_threshold=0.9, scheduler="continuous",
+                        fused_select=True)
+    creqs = [Request(prompt=prompts[i], id=i) for i in range(b)]
+    cont = {}
+    for path, graphs in (("graph", None), ("eager", False)):
+        eng = ContinuousEngine(params, cfg, serve, prompt_len=P,
+                               use_long_window=True, device=dev,
+                               graphs=graphs)
+        eng.warmup()
+        got, wall, launches = serve_counted(torch, dev, eng, creqs)
+        calls = eng.call_counts()
+        check_launches(cfg, calls, launches, "dense")
+        check_outputs(cfg, got, {i: G for i in range(b)}, B)
+        cont[path] = ({rid: (o.tokens.tolist(), o.steps, o.gen_length)
+                       for rid, o in got.items()},
+                      {"wall_s": wall, "tps": sum(
+                          o.gen_length for o in got.values()) / wall,
+                       "calls": calls, "launches": launches})
+        if path == "graph":
+            # the continuous engine's window decode: the same kernel and
+            # window at a cache of P + G rows
+            total[f"decode_attention {VLM} window8192"] += launches[
+                "decode_attention"]
+            total[f"fused_select {VLM}"] += launches["fused_select"]
+        del eng
+    if cont["graph"][0] != cont["eager"][0]:
+        raise AssertionError(f"{VLM} long window: the continuous engine's "
+                             "graph tokens differ from eager")
+    recs["window continuous"] = {path: v[1] for path, v in cont.items()}
+    log(json.dumps({"phase": "extras serving", "config": VLM,
+                    "dtype": "bfloat16", "prefix_rows": off,
+                    "runs": {"prefix": EXTRAS_VLM, "window": EXTRAS_WINDOW},
+                    "paged_equals_dense": True, "records": recs,
+                    "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated(dev),
+                    "card": smi}))
+    del params, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_extras_loss(torch, dev):
+    """(d) one ``cdlm_loss`` evaluation with whisper's frames at full
+    width (2 lanes, P 128, G 64, bf16): value and gradients (the encoder's
+    three runs and the DLM term's fused cross-entropy forward and
+    backward, launches counted), then that DLM term with the kernel and
+    with the plain cross-entropy within phase 5's limits (losses rel 1e-4,
+    ``grad_limit``). Returns the launches by summary key."""
+    from repro_torch.configs import CDLMConfig, get_config
+    from repro_torch.core import diffusion as D
+    from repro_torch.core import losses as LS
+    from repro_torch.kernels.xent import fused_xent
+    from repro_torch.kernels.xent import ref as xref
+    from repro_torch.models import forward
+    from repro_torch.training import steps as S
+    cfg = get_config(WHISPER)
+    b, P, G, B = EXTRAS_LOSS
+    params = _random_params(torch, cfg, dev, "bfloat16")
+    rng = np.random.default_rng(41)
+
+    def tok(*shape):
+        return torch.as_tensor(rng.integers(2, cfg.mask_token_id, shape),
+                               device=dev)
+
+    u = np.zeros((b, P + G), bool)
+    u[:, P + 3:P + 9] = True
+    sm = np.zeros((b, P + G), bool)
+    sm[:, P + 20:P + 40] = True
+    batch = {"y": tok(b, P + G), "y_star": tok(b, P + G),
+             "u_mask": torch.as_tensor(u, device=dev),
+             "s_mask": torch.as_tensor(sm, device=dev),
+             "teacher_hidden": 0.1 * torch.randn(
+                 (b, G, cfg.d_model), device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(42)),
+             "gt": tok(b, G), "prompt": tok(b, P)}
+    ex = {"encoder_embeds": torch.as_tensor(np.stack([
+        r["encoder_embeds"] for r in extras_rows(torch, cfg, b, 43)]),
+        device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(44)
+    draws = S.dlm_draws(gen, b, G, dev)
+    cdlm = CDLMConfig(block_size=B, gen_length=G, prompt_length=P)
+    head = {k: v.detach() for k, v in params["embed"].items()}
+    zero_counts()
+    (total, metrics), grads = S.value_and_grad(
+        lambda p: S.cdlm_loss(p, None, batch, draws, cfg=cfg, cdlm=cdlm,
+                              teacher_head=head, use_lora=False,
+                              extras=ex), params)
+    torch.cuda.synchronize(dev)
+    launches = read_counts()
+    _finite(torch, {"total": total, **metrics}, "whisper cdlm_loss")
+    if not (launches["xent_forward"] >= 1 and launches["xent_backward"] >= 1):
+        raise AssertionError(f"whisper cdlm_loss: launches {launches}")
+    enc_g = grads["encoder"]["slots"][0]["attn"]["wq"].float().abs().max()
+    if not enc_g > 0:
+        raise AssertionError("whisper cdlm_loss: no gradient reached the "
+                             "encoder")
+    masked_gt, m = D.mask_tokens_from(draws["u"], batch["gt"], draws["t"],
+                                      cfg.mask_token_id)
+    with torch.no_grad():
+        hid = forward(params, torch.cat([batch["prompt"], masked_gt], 1),
+                      cfg=cfg, device=dev, mode="block_causal", prompt_len=P,
+                      block_size=B, return_logits=False,
+                      **ex).hidden[:, P:]
+    plain_xent = lambda h, w, y: xref.xent_streaming(h, w, y)[0]  # noqa
+    out = {}
+    for name, fn in (("kernel", fused_xent), ("plain", plain_xent)):
+        h = hid.clone().requires_grad_()
+        w = params["embed"]["head"].clone().requires_grad_()
+        loss = LS.dlm_loss_from_hidden(h, w, batch["gt"], m, draws["t"], fn)
+        out[name] = (float(loss.detach()),
+                     *torch.autograd.grad(loss, (h, w)))
+    ok_h, err_h = grad_limit(torch, out["kernel"][1], out["plain"][1],
+                             "bfloat16")
+    ok_w, err_w = grad_limit(torch, out["kernel"][2], out["plain"][2],
+                             "bfloat16")
+    rel = {"dlm": abs(out["kernel"][0] - out["plain"][0])
+           / abs(out["plain"][0]),
+           "dlm_in_loss_vs_alone": abs(float(metrics["dlm"])
+                                       - out["kernel"][0])
+           / abs(out["kernel"][0])}
+    if not (ok_h and ok_w and all(v <= 1e-4 for v in rel.values())):
+        raise AssertionError(f"whisper DLM term: rel {rel}, dh {err_h} "
+                             f"({ok_h}), dW {err_w} ({ok_w})")
+    log(json.dumps({"phase": "extras loss", "config": WHISPER,
+                    "dtype": "bfloat16", "batch": b, "prompt_len": P,
+                    "gen": G, "loss": float(total),
+                    "terms": {k: float(v) for k, v in metrics.items()},
+                    "launches": launches, "kernel_vs_plain_rel": rel,
+                    "dlm_dh_max_abs_err": err_h,
+                    "dlm_dw_max_abs_err": err_w}))
+    del params, grads
+    torch.cuda.empty_cache()
+    return {f"xent_forward {WHISPER}": launches["xent_forward"],
+            f"xent_backward {WHISPER}": launches["xent_backward"]}
+
+
+def phase_extras(torch, dev, smi):
+    """Phase 10 (a)-(d); returns the launches of each ``EXTRAS_KEYS``
+    entry over its runs, every one of them > 0."""
+    launches = {}
+    for label, run in (("a", lambda: phase_extras_whisper(torch, dev, smi)),
+                       ("b, c", lambda: phase_extras_vlm(torch, dev, smi)),
+                       ("d", lambda: phase_extras_loss(torch, dev))):
+        t = time.perf_counter()
+        launches.update(run())
+        log(f"phase 10 ({label}): {time.perf_counter() - t:.1f} s")
+    missing = {k: launches.get(k, 0) for k in EXTRAS_KEYS
+               if not launches.get(k, 0) > 0}
+    if missing:
+        raise AssertionError(f"phase 10: kernels never launched {missing}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3369,6 +3881,11 @@ def main():
     t = time.perf_counter()
     arch_launches = phase_architectures(torch, dev, smi)
     log(f"phase 9 (other architectures): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    extras_launches = phase_extras(torch, dev, smi)
+    log(f"phase 10 (request extras, long window): "
+        f"{time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     # launches: summed over the main-path runs (phase 3, both runs of phase
@@ -3417,6 +3934,17 @@ def main():
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+    # the kernels at phase 10's configs and shapes: times and errors from
+    # phase 2's bf16 cases (check_extras_kernels), launches from phase 10
+    for key, name in EXTRAS_KEYS.items():
+        rec = main_recs[key]
+        src, tpu = sources[name]
+        summary.append({
+            "name": key, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": extras_launches[key],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     log(json.dumps({"kernels": summary}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,17 @@ The port's params are the JAX tree's structure as nested dicts of tensors:
 ...)}`` with every slot leaf stacked over ``cfg.n_periods``; a slot holds
 ``norm1`` and ``norm2`` (``w``, and ``b`` under layernorm), its mixer's
 leaves, ``attn`` (an ``ATTN`` or ``ATTN_LOCAL`` mixer alike), ``mamba`` or
-``rwkv_tm``, and its FFN's, ``mlp``, ``rwkv_cm`` or, for an ``MOE`` slot,
+``rwkv_tm``, an encoder-decoder's ``cross`` attention (no bias) and
+``norm_cross``, and its FFN's, ``mlp`` (``wi_gate``, ``wi_up``, ``wo``;
+whisper's plain ``wi``, ``wo``), ``rwkv_cm`` or, for an ``MOE`` slot,
 ``moe`` (``router`` (d, E) fp32, ``wi_gate`` and ``wi_up`` (E, d, f),
 ``wo`` (E, f, d), and a ``shared`` gated FFN where the config has one).
 Weights keep the JAX ``(in, out)`` layout except the untied head, which is
 stored ``(V, d)`` (the transpose of the JAX ``(d, V)``) so that
 ``lm_head`` and the fused select kernel read the same rows for tied and
-untied models.
+untied models. An encoder-decoder (whisper) also holds ``"encoder":
+{"slots": (slot,), "final_norm"}``, one ``(ATTN, MLP)`` slot stacked over
+``cfg.n_encoder_layers``.
 """
 from __future__ import annotations
 
@@ -107,19 +111,28 @@ def _specs(cfg: ModelConfig):
     check_supported(cfg)
     d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_periods
     nq, nkv, V = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_size
-    attn = {"wq": ((n, d, nq), 1 / math.sqrt(d)),
-            "wk": ((n, d, nkv), 1 / math.sqrt(d)),
-            "wv": ((n, d, nkv), 1 / math.sqrt(d)),
-            "wo": ((n, nq, d), 1 / math.sqrt(nq))}
-    if cfg.qkv_bias:
-        attn.update(bq=((n, nq), "zeros"), bk=((n, nkv), "zeros"),
-                    bv=((n, nkv), "zeros"))
 
     def norm(lead):
         spec = {"w": ((*lead, d), "ones")}
         if cfg.norm_type == "layernorm":
             spec["b"] = ((*lead, d), "zeros")
         return spec
+
+    def mlp(n):
+        if cfg.activation == "gelu_plain":     # whisper: not gated
+            return {"wi": ((n, d, cfg.d_ff), 1 / math.sqrt(d)),
+                    "wo": ((n, cfg.d_ff, d), 1 / math.sqrt(cfg.d_ff))}
+        return _ffn(n, d, cfg.d_ff)
+
+    def attention(n, bias: bool):
+        a = {"wq": ((n, d, nq), 1 / math.sqrt(d)),
+             "wk": ((n, d, nkv), 1 / math.sqrt(d)),
+             "wv": ((n, d, nkv), 1 / math.sqrt(d)),
+             "wo": ((n, nq, d), 1 / math.sqrt(nq))}
+        if bias:
+            a.update(bq=((n, nq), "zeros"), bk=((n, nkv), "zeros"),
+                     bv=((n, nkv), "zeros"))
+        return a
 
     def slot(mixer, ffn):
         s = {"norm1": norm((n,)), "norm2": norm((n,))}
@@ -128,7 +141,11 @@ def _specs(cfg: ModelConfig):
         elif mixer == RWKV:
             s["rwkv_tm"] = _rwkv_time_mix(cfg, n)
         else:
-            s["attn"] = attn
+            s["attn"] = attention(n, cfg.qkv_bias)
+        if cfg.is_encoder_decoder:
+            # cross attention: no q/k/v bias, as the reference's
+            s["cross"] = attention(n, False)
+            s["norm_cross"] = norm((n,))
         if ffn == MOE:
             f, E = cfg.moe_d_ff, cfg.n_experts
             s["moe"] = {"router": ((n, d, E), 1 / math.sqrt(d),
@@ -139,14 +156,23 @@ def _specs(cfg: ModelConfig):
         elif ffn == RWKV_CM:
             s["rwkv_cm"] = _rwkv_channel_mix(cfg, n)
         else:
-            s["mlp"] = _ffn(n, d, cfg.d_ff)
+            s["mlp"] = mlp(n)
         return s
 
     embed = {"tok": ((V, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["head"] = ((V, d), 1 / math.sqrt(d))
-    return {"embed": embed, "final_norm": norm(()),
-            "slots": tuple(slot(*kinds) for kinds in cfg.layer_period)}
+    specs = {"embed": embed, "final_norm": norm(()),
+             "slots": tuple(slot(*kinds) for kinds in cfg.layer_period)}
+    if cfg.is_encoder_decoder:
+        # whisper's encoder: one (ATTN, MLP) slot over its own layers
+        ne = cfg.n_encoder_layers
+        specs["encoder"] = {
+            "slots": ({"norm1": norm((ne,)), "norm2": norm((ne,)),
+                       "attn": attention(ne, cfg.qkv_bias),
+                       "mlp": mlp(ne)},),
+            "final_norm": norm(())}
+    return specs
 
 
 def _leaf_dtype(spec, dt):
@@ -218,9 +244,15 @@ def _nest(flat: Mapping[str, np.ndarray]):
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = val
-    if "slots" in tree:
-        tree["slots"] = tuple(tree["slots"][str(i)]
-                              for i in range(len(tree["slots"])))
+
+    def tuples(node):
+        if "slots" in node:
+            node["slots"] = tuple(node["slots"][str(i)]
+                                  for i in range(len(node["slots"])))
+
+    tuples(tree)
+    if "encoder" in tree:
+        tuples(tree["encoder"])
     return tree
 
 

@@ -208,30 +208,34 @@ class ModelConfig:
 # what the port's model stack runs (``check_supported``)
 MIXERS = (ATTN, ATTN_LOCAL, MAMBA, RWKV)
 FFNS = (MLP, MOE, RWKV_CM)
-POS_EMBEDS = ("rope", "none")    # "none": positions from the recurrence
+# "none": positions from the recurrence; "sinusoidal": whisper's table,
+# added to the embeddings
+POS_EMBEDS = ("rope", "sinusoidal", "none")
 NORMS = ("rmsnorm", "layernorm")
-# the gated FFN's silu or gelu; "relu_sq" names rwkv6's channel mix, whose
-# squared ReLU is fixed in models/rwkv6.py::channel_mix
-ACTIVATIONS = ("silu", "gelu", "relu_sq")
+# the gated FFN's silu or gelu, whisper's non-gated gelu ("gelu_plain");
+# "relu_sq" names rwkv6's channel mix, whose squared ReLU is fixed in
+# models/rwkv6.py::channel_mix
+ACTIVATIONS = ("silu", "gelu", "gelu_plain", "relu_sq")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raises for a config the port's stack does not run: a mixer other
     than ``ATTN``/``ATTN_LOCAL``/``MAMBA``/``RWKV`` or an FFN other than
-    ``MLP``/``MOE``/``RWKV_CM``, an encoder, positions other than RoPE (or
-    none, for an attention-free stack), a norm other than rmsnorm or
-    layernorm, an activation other than the gated silu or gelu or rwkv6's
-    squared ReLU (whisper-base: an encoder, sinusoidal positions and a
-    plain gelu)."""
+    ``MLP``/``MOE``/``RWKV_CM``, positions other than RoPE or sinusoidal
+    (or none, for an attention-free stack), a norm other than rmsnorm or
+    layernorm, an activation other than silu, gelu, whisper's plain gelu
+    or rwkv6's squared ReLU. An encoder-decoder (whisper-base) runs: its
+    encoder is one ``(ATTN, MLP)`` slot over ``n_encoder_layers``."""
     bad = [slot for slot in cfg.layer_period
            if slot[0] not in MIXERS or slot[1] not in FFNS]
     if bad:
         raise ValueError(f"{cfg.name}: repro_torch runs {MIXERS} mixers "
                          f"with {FFNS} FFNs only, got slots {bad}")
-    if (cfg.is_encoder_decoder or cfg.pos_embed not in POS_EMBEDS
+    if (cfg.pos_embed not in POS_EMBEDS
             or (cfg.pos_embed == "none" and not cfg.is_attention_free)):
-        raise ValueError(f"{cfg.name}: repro_torch runs decoder-only models "
-                         "with RoPE (or, attention-free, no positions) only")
+        raise ValueError(f"{cfg.name}: repro_torch runs RoPE or sinusoidal "
+                         "positions (or, attention-free, none) only, got "
+                         f"{cfg.pos_embed!r}")
     if cfg.norm_type not in NORMS or cfg.activation not in ACTIVATIONS:
         raise ValueError(f"{cfg.name}: repro_torch runs {NORMS} norms and "
                          f"{ACTIVATIONS} activations only, got norm "

@@ -80,10 +80,17 @@ class SamplerSpec:
     # full-canvas forwards through the block attention kernel. Sampled
     # decoding takes dense logits either way (its draw is logits-shaped).
     fused_select: bool = False
+    # prefix embeds (internvl2's patches) before the canvas: canvas
+    # coordinate c sits at absolute sequence position c + pos_offset
+    pos_offset: int = 0
 
     @property
     def n_blocks(self) -> int:
         return self.gen_len // self.block_size
+
+    @property
+    def full_prompt_len(self) -> int:
+        return self.prompt_len + self.pos_offset
 
 
 class SampleResult(NamedTuple):
@@ -189,11 +196,16 @@ class DecodeState:
     canvases ``tokens`` (b, P+G), the ``cache`` its policy needs (none for
     ``none``; the dense whole-canvas cache for the approx policies and
     ``ar``; the exact cache in ``spec.cache_layout`` for
-    ``exact-commit``), the scalar stream's ``key``, the per-lane
-    ``done``, ``steps`` and ``active`` vectors, the per-lane sampling
-    params ``lanes`` (:class:`LaneParams`), the active block's ``start``
-    and the AR step's position ``pos`` (0-dim int64), and the AR step's
-    ``last`` logits.
+    ``exact-commit``; each of ``spec.pos_offset + P + G`` rows), the
+    scalar stream's ``key``, the per-lane ``done``, ``steps`` and
+    ``active`` vectors, the per-lane sampling params ``lanes``
+    (:class:`LaneParams`), the active block's ``start`` and its absolute
+    start ``astart`` (``start + spec.pos_offset``) and the AR step's
+    position ``pos`` (0-dim int64), the AR step's ``last`` logits, and
+    the request extras ``extras`` (:func:`extras_shapes`: whisper's
+    ``encoder_embeds``, internvl2's ``prefix_embeds``; fp32, as the
+    reference takes them), which every forward that reads them reads
+    from these buffers.
 
     :func:`run_block_loop` makes one per call unless it is given one. The
     static engine allocates one for its life and loads each batch into it
@@ -205,6 +217,7 @@ class DecodeState:
                  dtype=torch.int64):
         dev = torch.device(device)
         T = spec.prompt_len + spec.gen_len
+        S = T + spec.pos_offset
         policy = strategy.cache_policy
         self.mask_id = cfg.mask_token_id
         self.block_size = spec.block_size
@@ -212,17 +225,21 @@ class DecodeState:
                                  device=dev)
         self.cache = None
         if policy == "exact-commit":
-            self.cache = _init_exact_cache(cfg, b, T, spec, dev)
+            self.cache = _init_exact_cache(cfg, b, S, spec, dev)
             if isinstance(self.cache, C.PagedCache):
                 self.cache.device_table()   # its one upload, before any step
         elif policy != "none":
-            self.cache = C.init_cache(cfg, b, T, device=dev)
+            self.cache = C.init_cache(cfg, b, S, device=dev)
         self.key = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.steps = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.start = torch.zeros((), dtype=torch.int64, device=dev)
+        self.astart = torch.zeros((), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self.extras = {k: torch.zeros((b, *shape), dtype=torch.float32,
+                                      device=dev)
+                       for k, shape in extras_shapes(cfg, spec).items()}
         self.last = (torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
                                  device=dev) if policy == "ar" else None)
         self.lanes = LaneParams(
@@ -241,20 +258,32 @@ class DecodeState:
                  else self.cache)
         return [buf for slot in slots for buf in slot.values()]
 
-    def load(self, prompt_tokens, key, lanes: Optional[LaneParams] = None):
+    def load(self, prompt_tokens, key, lanes: Optional[LaneParams] = None,
+             extras: Optional[dict] = None):
         """A fresh decode of ``prompt_tokens`` (b, P) on the device, in
         place: the canvases, a zeroed cache (a paged one keeps its pages),
-        ``done``, ``steps``, ``active``, the offsets, the scalar ``key``
-        and, where given, the per-lane params."""
+        ``done``, ``steps``, ``active``, the offsets, the scalar ``key``,
+        where given the per-lane params, and the request ``extras`` (b,
+        ...) into their buffers, whose keys and shapes they must match."""
         b, P = prompt_tokens.shape
         if b != self.tokens.shape[0]:
             raise ValueError(f"{b} prompts for a decode state of "
                              f"{self.tokens.shape[0]} lanes")
+        extras = extras or {}
+        if set(extras) != set(self.extras):
+            raise ValueError(f"request extras {sorted(extras)}; this "
+                             f"decode takes {sorted(self.extras)}")
+        for k, buf in self.extras.items():
+            value = torch.as_tensor(extras[k], device=buf.device)
+            if value.shape != buf.shape:
+                raise ValueError(f"{k} of shape {tuple(value.shape)}, "
+                                 f"expected {tuple(buf.shape)}")
+            buf.copy_(value)
         self.tokens[:, :P].copy_(prompt_tokens)
         self.tokens[:, P:].fill_(self.mask_id)
         for buf in self.cache_buffers() + [self.done, self.steps,
                                            self.active, self.start,
-                                           self.pos]:
+                                           self.astart, self.pos]:
             buf.zero_()
         self.key.copy_(key)
         if lanes is not None:
@@ -276,6 +305,19 @@ class DecodeState:
                           & ~self.done)
 
 
+def extras_shapes(cfg: ModelConfig, spec: SamplerSpec) -> dict:
+    """The request extras a decode of ``cfg`` under ``spec`` takes, each
+    key's shape a lane: whisper's frames ``encoder_embeds``
+    (encoder_seq_len, d), and, with ``spec.pos_offset``, the prefix
+    ``prefix_embeds`` (pos_offset, d)."""
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["encoder_embeds"] = (cfg.encoder_seq_len, cfg.d_model)
+    if spec.pos_offset:
+        out["prefix_embeds"] = (spec.pos_offset, cfg.d_model)
+    return out
+
+
 def _block_positions(start, B: int, b: int, device) -> torch.Tensor:
     """(b, B) positions of the block at ``start`` (an int or a 0-dim
     device tensor) in every lane."""
@@ -291,8 +333,10 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
     """Block-causal cached forward where each lane decodes its own block.
 
     tokens: (b, T) canvases; starts: (b,) canvas coordinate of each lane's
-    active block, which is also the lane's valid cache length; kv_cache: a
-    dense ``core.cache.init_cache`` tuple or a ``core.cache.PagedCache``.
+    active block, which at ``spec.pos_offset`` past it is the block's
+    absolute position and the lane's valid cache length; kv_cache: a
+    dense ``core.cache.init_cache`` tuple or a ``core.cache.PagedCache``
+    (an encoder-decoder's cross attention reads the cache's ``ck``/``cv``).
     Returns ``(logits (b, B, V), emissions)``, or the post-norm hidden
     ``(b, B, d)`` in place of the logits with ``return_hidden`` (the
     lm_head is then skipped).
@@ -313,13 +357,14 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
     the static engine's block loop, which the reference runs as one
     batched forward, passes False. Every caller states its choice.
     """
-    B = spec.block_size
+    B, off = spec.block_size, spec.pos_offset
     starts = torch.as_tensor(starts, dtype=torch.int64, device=tokens.device)
     pos = starts[:, None] + torch.arange(B, device=tokens.device)
     out = forward(params, tokens.gather(1, pos), cfg=cfg,
                   device=tokens.device, mode=masks.BLOCK_CAUSAL,
-                  prompt_len=spec.prompt_len, block_size=B, positions=pos,
-                  cache=kv_cache, cache_len=starts,
+                  prompt_len=spec.full_prompt_len, block_size=B,
+                  positions=pos + off, cache=kv_cache,
+                  cache_len=starts + off,
                   decode_attention_fn=decode_attention_fn,
                   paged_decode_attention_fn=paged_decode_attention_fn,
                   use_long_window=use_long_window,
@@ -351,7 +396,7 @@ def _canvas_draw(logits, tokens, start, T: int, temperature: float,
 
 def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
               spec: SamplerSpec, w=None, key=None,
-              prefill_fn=flash_block_attention):
+              prefill_fn=flash_block_attention, extras=None):
     """One step of the top-1 loop before its selection: a bidirectional
     forward over the whole canvases ``tokens`` (b, P+G), then the
     candidates, their confidences and the post-norm hidden states of the
@@ -359,25 +404,27 @@ def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
     ``spec.fused_select`` the forward runs through ``prefill_fn`` (the
     block attention kernel); otherwise through the generic attention, as
     the JAX collector does. ``w`` (default the model's): the (V, d)
-    unembedding. Selection as :func:`_top1_pick`. Call it under
-    ``torch.no_grad()``."""
+    unembedding; ``extras`` the request extras. Selection as
+    :func:`_top1_pick`. Call it under ``torch.no_grad()``."""
     hidden = _canvas_hidden(params, tokens, cfg=cfg, spec=spec,
                             prefill_fn=(prefill_fn if spec.fused_select
-                                        else None))
+                                        else None), extras=extras)
     return _top1_pick(hidden, tokens, start, cfg=cfg, spec=spec,
                       w=unembed_matrix(params, cfg) if w is None else w,
                       key=key)
 
 
 def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec,
-                   prefill_fn=flash_block_attention):
+                   prefill_fn=flash_block_attention, extras=None):
     """The top-1 step's forward: post-norm hidden states (b, P+G, d) of
-    the whole canvases, bidirectional, through ``prefill_fn`` (the block
-    attention kernel; None: the generic attention)."""
+    the whole canvases (after ``extras``' prefix, whose rows are dropped),
+    bidirectional, through ``prefill_fn`` (the block attention kernel;
+    None: the generic attention)."""
     return forward(params, tokens, cfg=cfg, device=tokens.device,
-                   mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
+                   mode=masks.BIDIRECTIONAL, prompt_len=spec.full_prompt_len,
                    block_size=spec.block_size, return_logits=False,
-                   prefill_attention_fn=prefill_fn).hidden
+                   prefill_attention_fn=prefill_fn,
+                   **(extras or {})).hidden[:, spec.pos_offset:]
 
 
 def _top1_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
@@ -408,20 +455,22 @@ def _top1_pick(hidden, tokens, start: int, *, cfg: ModelConfig,
 
 def _loaded(state: Optional[DecodeState], prompt_tokens, *,
             cfg: ModelConfig, spec: SamplerSpec, strategy: DecodeStrategy,
-            key, lanes: Optional[LaneParams] = None) -> DecodeState:
+            key, lanes: Optional[LaneParams] = None,
+            extras: Optional[dict] = None) -> DecodeState:
     """``state`` (a fresh one when None) loaded with the decode of
-    ``prompt_tokens``."""
+    ``prompt_tokens`` and its ``extras``."""
     if state is None:
         state = DecodeState(cfg, spec, strategy, prompt_tokens.shape[0],
                             prompt_tokens.device, dtype=prompt_tokens.dtype)
-    state.load(prompt_tokens, key, lanes)
+    state.load(prompt_tokens, key, lanes, extras)
     return state
 
 
 def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
                record_hidden: bool, key=None, graphs: Optional[bool] = None,
                fns: AttentionFns = KERNELS,
-               state: Optional[DecodeState] = None, replay=None):
+               state: Optional[DecodeState] = None, replay=None,
+               extras: Optional[dict] = None):
     """N = G steps, one most-confident token finalized per step, each step a
     bidirectional forward over the whole canvas (the ``vanilla`` strategy,
     :func:`top1_step`). Runs under ``torch.no_grad()``. ``key`` (default
@@ -433,13 +482,14 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
     exact encoding), and the fp32 hidden buffer (b, G, d): the teacher's
     last hidden state at each position's finalization.
 
-    The canvas forward goes through ``replay`` (the step ``"canvas"``; the
-    selection after it runs eagerly); ``state`` and ``replay`` as in
-    :func:`run_block_loop`. Without ``replay``, ``graphs``: None (the
-    default) runs the fused step's forward as a CUDA graph captured once
-    per call (its warm-up run serving as the first step's forward) on CUDA
-    with ``spec.fused_select``, and eagerly otherwise; False runs it
-    eagerly; True where it cannot apply raises.
+    The canvas forward (``extras`` with it: whisper's encoder runs in
+    every step, as in the reference) goes through ``replay`` (the step
+    ``"canvas"``; the selection after it runs eagerly); ``state`` and
+    ``replay`` as in :func:`run_block_loop`. Without ``replay``,
+    ``graphs``: None (the default) runs the fused step's forward as a CUDA
+    graph captured once per call (its warm-up run serving as the first
+    step's forward) on CUDA with ``spec.fused_select``, and eagerly
+    otherwise; False runs it eagerly; True where it cannot apply raises.
     """
     graphable = spec.fused_select and prompt_tokens.device.type == "cuda"
     if graphs and not graphable:
@@ -453,7 +503,7 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
     key = prng.key(0, dev) if key is None else key.to(dev)
     with torch.no_grad():
         st = _loaded(state, prompt_tokens, cfg=cfg, spec=spec,
-                     strategy=STRATEGIES["vanilla"], key=key)
+                     strategy=STRATEGIES["vanilla"], key=key, extras=extras)
         tokens = st.tokens
         b = tokens.shape[0]
         P, B, G = spec.prompt_len, spec.block_size, spec.gen_len
@@ -468,7 +518,7 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
             # the canvas is written in place below: a graph reads it at
             # its fixed address
             return _canvas_hidden(params, tokens, cfg=cfg, spec=spec,
-                                  prefill_fn=prefill_fn)
+                                  prefill_fn=prefill_fn, extras=st.extras)
 
         step = 0
         for blk in range(spec.n_blocks):
@@ -558,13 +608,15 @@ def _variant(spec: SamplerSpec, lane_params, lane_sampled: bool) -> str:
 
 def _threshold_iteration(params, st: DecodeState, *, cfg: ModelConfig,
                          spec: SamplerSpec, strategy: DecodeStrategy,
-                         fns: AttentionFns, variant: str) -> None:
+                         fns: AttentionFns, variant: str,
+                         use_long_window: bool = False) -> None:
     """One refinement iteration of the active lanes on ``st`` alone (the
     static engine captures it as a CUDA graph per variant): the key split
     (every iteration of the scalar stream; each active lane's key on the
     per-lane path), the block forward, the selection, the threshold rule,
     the scatter into the canvases, ``steps += active`` and the next
-    iteration's ``active``."""
+    iteration's ``active``. ``use_long_window`` caps the cached forwards'
+    attention at ``cfg.long_context_window``."""
     per_lane = variant.startswith("lanes")
     if per_lane:
         keys, sub = D.split_lane_keys(st.lanes.key, st.active)
@@ -576,7 +628,9 @@ def _threshold_iteration(params, st: DecodeState, *, cfg: ModelConfig,
     fused = spec.fused_select and variant in ("greedy", "lanes")
     net, _ = _block_forward(params, st.tokens, st.start, st.cache, cfg=cfg,
                             spec=spec, strategy=strategy, fns=fns,
-                            return_hidden=fused)
+                            return_hidden=fused, astart=st.astart,
+                            extras=st.extras,
+                            use_long_window=use_long_window)
     pos = st.positions()
     bt = st.tokens.gather(1, pos)
     if per_lane:
@@ -623,16 +677,19 @@ def _init_exact_cache(cfg: ModelConfig, b: int, S: int, spec: SamplerSpec,
 
 
 def _refresh_cache(params, tokens, kv_cache, *, cfg: ModelConfig,
-                   spec: SamplerSpec, fns: AttentionFns) -> None:
+                   spec: SamplerSpec, fns: AttentionFns,
+                   extras: Optional[dict] = None) -> None:
     """The approx policies' refresh: a bidirectional forward over the whole
-    canvases through ``fns.prefill``, every row's KV committed at offset 0
-    (in place), and a recurrent state replaced by the state after the whole
-    canvas, its stale future blocks included, as the reference's refresh
-    does. Only the emissions are read, so the lm_head is skipped."""
+    canvases (after ``extras``' prefix; whisper's encoder runs here)
+    through ``fns.prefill``, every row's KV committed at offset 0 (in
+    place), and a recurrent state (and the cross attention's ``ck``/
+    ``cv``) replaced by the state after the whole canvas, its stale future
+    blocks included, as the reference's refresh does. Only the emissions
+    are read, so the lm_head is skipped."""
     out = forward(params, tokens, cfg=cfg, device=tokens.device,
-                  mode=masks.BIDIRECTIONAL, prompt_len=spec.prompt_len,
+                  mode=masks.BIDIRECTIONAL, prompt_len=spec.full_prompt_len,
                   block_size=spec.block_size, return_logits=False,
-                  prefill_attention_fn=fns.prefill)
+                  prefill_attention_fn=fns.prefill, **(extras or {}))
     C.commit(kv_cache, out.emissions, 0)
 
 
@@ -644,17 +701,24 @@ def _block_pos_mask(T: int, start, size: int, device) -> torch.Tensor:
 def _block_forward(params, tokens, start, kv_cache, *,
                    cfg: ModelConfig, spec: SamplerSpec,
                    strategy: DecodeStrategy, fns: AttentionFns,
-                   return_hidden: bool):
+                   return_hidden: bool, astart=None,
+                   extras: Optional[dict] = None,
+                   use_long_window: bool = False):
     """The forward of one threshold iteration for the block at canvas
     coordinate ``start`` (an int, or a 0-dim int64 tensor on the device:
-    then no host read) under ``strategy.cache_policy``: ``(the block's
-    post-norm hidden (b, B, d) with return_hidden, else its logits (b, B,
-    V); emissions)``. ``none``: the whole canvases through
+    then no host read; ``astart``, default ``start + spec.pos_offset``,
+    its absolute position) under ``strategy.cache_policy``: ``(the
+    block's post-norm hidden (b, B, d) with return_hidden, else its
+    logits (b, B, V); emissions)``. ``none``: the whole canvases (after
+    ``extras``' prefix, whisper's encoder run again) through
     ``fns.prefill``, the lm_head over the block only; the approx
     policies: the block against the stale cache with the block's own rows
     invalid (``cache_valid``, the generic attention); ``exact-commit``:
     the block against the exact cache through the layout's decode
-    attention."""
+    attention. The cached forwards take no extras (the cache holds the
+    cross attention's K/V and the prefix's rows) and attend within
+    ``cfg.long_context_window`` when ``use_long_window``, as the
+    reference's block forward does."""
     policy, B, dev = strategy.cache_policy, spec.block_size, tokens.device
     b, T = tokens.shape
     start = torch.as_tensor(start, dtype=torch.int64, device=dev)
@@ -666,24 +730,31 @@ def _block_forward(params, tokens, start, kv_cache, *,
                                   return_hidden=return_hidden,
                                   decode_attention_fn=fns.decode,
                                   paged_decode_attention_fn=fns.paged_decode,
+                                  use_long_window=use_long_window,
                                   moe_per_row=False)
     pos = _block_positions(start, B, b, dev)
     if policy == "none":
         out = forward(params, tokens, cfg=cfg, device=dev,
-                      mode=strategy.attn_mode, prompt_len=spec.prompt_len,
-                      block_size=B, prefill_attention_fn=fns.prefill,
-                      return_logits=False)
+                      mode=strategy.attn_mode,
+                      prompt_len=spec.full_prompt_len, block_size=B,
+                      prefill_attention_fn=fns.prefill, return_logits=False,
+                      **(extras or {}))
         hidden = out.hidden.gather(
-            1, pos[..., None].expand(b, B, out.hidden.shape[-1]))
+            1, (pos + spec.pos_offset)[..., None].expand(
+                b, B, out.hidden.shape[-1]))
         if return_hidden:
             return hidden, out.emissions
         return (D.dense_logits(hidden, unembed_matrix(params, cfg),
                                cfg.final_logit_softcap), out.emissions)
+    if astart is None:
+        astart = start + spec.pos_offset
     out = forward(params, tokens.gather(1, pos), cfg=cfg, device=dev,
-                  mode=strategy.attn_mode, prompt_len=spec.prompt_len,
-                  block_size=B, positions=start + torch.arange(B, device=dev),
-                  cache=kv_cache, cache_len=start,
-                  cache_valid=~_block_pos_mask(T, start, B, dev),
+                  mode=strategy.attn_mode, prompt_len=spec.full_prompt_len,
+                  block_size=B, positions=astart + torch.arange(B, device=dev),
+                  cache=kv_cache, cache_len=astart,
+                  cache_valid=~_block_pos_mask(T + spec.pos_offset, astart,
+                                               B, dev),
+                  use_long_window=use_long_window,
                   return_logits=not return_hidden)
     return out.hidden if return_hidden else out.logits, out.emissions
 
@@ -691,7 +762,8 @@ def _block_forward(params, tokens, start, kv_cache, *,
 def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
                     spec: SamplerSpec, strategy: DecodeStrategy,
                     variant: str, fns: AttentionFns = KERNELS,
-                    replay=GR.eager) -> SampleResult:
+                    replay=GR.eager,
+                    use_long_window: bool = False) -> SampleResult:
     """The threshold loop on the loaded state ``st``: per block the
     refinement iterations (:func:`_threshold_iteration`, of the
     ``variant`` :func:`_variant` names) while a running lane holds a mask token in the
@@ -718,30 +790,42 @@ def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
     variant), ``"prefill"``, ``"refresh"`` and the commit pass's forward
     ``"commit"``. The cache writes at host offsets (the exact prefill's
     and the commit pass's, :func:`_commit_any`) and the block's start and
-    first ``active`` run eagerly between them."""
+    first ``active`` run eagerly between them.
+
+    With request extras (``st.extras``) the full-sequence forwards (the
+    prefill, the refreshes, ``none``'s canvas) take them and the cached
+    block forwards read the cache, as in the reference: whisper's encoder
+    runs in each full-sequence forward, whose commit writes the cross
+    attention's ``ck``/``cv``; internvl2's prefix rows lie before the
+    canvas, every block at ``start + spec.pos_offset``. ``use_long_window``
+    applies to the cached block forwards only (the reference's)."""
     policy = strategy.cache_policy
     P, B, R = spec.prompt_len, spec.block_size, spec.cache_refresh_interval
+    off = spec.pos_offset
     b = st.tokens.shape[0]
     per_lane = variant.startswith("lanes")
 
     def refresh():
         _refresh_cache(params, st.tokens, st.cache, cfg=cfg, spec=spec,
-                       fns=fns)
+                       fns=fns, extras=st.extras)
 
     def prompt_emissions():
         return forward(params, st.tokens[:, :P], cfg=cfg,
                        device=st.tokens.device, mode=strategy.attn_mode,
-                       prompt_len=P, block_size=B, return_logits=False,
-                       prefill_attention_fn=fns.prefill).emissions
+                       prompt_len=spec.full_prompt_len, block_size=B,
+                       return_logits=False, prefill_attention_fn=fns.prefill,
+                       **st.extras).emissions
 
     def iteration():
         _threshold_iteration(params, st, cfg=cfg, spec=spec,
-                             strategy=strategy, fns=fns, variant=variant)
+                             strategy=strategy, fns=fns, variant=variant,
+                             use_long_window=use_long_window)
 
     def commit_emissions():
         return _block_forward(params, st.tokens, st.start, st.cache, cfg=cfg,
                               spec=spec, strategy=strategy, fns=fns,
-                              return_hidden=True)[1]
+                              return_hidden=True, astart=st.astart,
+                              use_long_window=use_long_window)[1]
 
     with torch.no_grad():
         calls = 0
@@ -755,6 +839,7 @@ def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
         for blk in range(spec.n_blocks):
             start = P + blk * B
             st.start.fill_(start)
+            st.astart.fill_(start + off)
             if policy == "approx-dual" and blk > 0:
                 replay("refresh", refresh)
                 calls += 1
@@ -769,7 +854,7 @@ def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
             if policy == "exact-commit":
                 # commit pass: recompute the finalized block's KV exactly
                 _commit_any(st.cache, replay("commit", commit_emissions),
-                            start, b)
+                            start + off, b)
                 calls += 1
             if spec.early_stop:
                 eos = st.lanes.eos_id[:, None] if per_lane \
@@ -787,26 +872,30 @@ def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
 def _ar_prefill(params, st: DecodeState, *, cfg: ModelConfig,
                 spec: SamplerSpec, strategy: DecodeStrategy,
                 fns: AttentionFns) -> None:
-    """The AR prefill: the prompts under ``strategy.attn_mode`` through
+    """The AR prefill: the prompts (after ``st.extras``' prefix; whisper's
+    encoder runs here) under ``strategy.attn_mode`` through
     ``fns.prefill``, committed at 0, the logits of the last row into
     ``st.last``."""
-    P = spec.prompt_len
-    out = forward(params, st.tokens[:, :P], cfg=cfg, device=st.tokens.device,
-                  mode=strategy.attn_mode, prefill_attention_fn=fns.prefill,
-                  logits_slice=(P - 1, P))
+    P = spec.full_prompt_len
+    out = forward(params, st.tokens[:, :spec.prompt_len], cfg=cfg,
+                  device=st.tokens.device, mode=strategy.attn_mode,
+                  prefill_attention_fn=fns.prefill, logits_slice=(P - 1, P),
+                  **st.extras)
     C.commit(st.cache, out.emissions, 0)
     st.last.copy_(out.logits[:, -1])
 
 
 def _ar_step(params, st: DecodeState, *, cfg: ModelConfig,
-             strategy: DecodeStrategy, fns: AttentionFns) -> None:
+             strategy: DecodeStrategy, fns: AttentionFns,
+             off: int = 0) -> None:
     """One AR step at the canvas position ``st.pos``, on ``st`` alone (the
     static engine captures it as one CUDA graph and replays it G times):
     the argmax of ``st.last`` (EOS once a lane is done) into the canvas,
-    ``steps`` and ``done``, the cached forward of that token through
-    ``fns.decode``, its KV committed at ``st.pos`` and its recurrent state
-    in place of the old (``core.cache.commit_at``), its logits into
-    ``st.last``, and ``st.pos`` advanced."""
+    ``steps`` and ``done``, the cached forward of that token at the
+    absolute position ``st.pos + off`` through ``fns.decode``, its KV
+    committed there and its recurrent state in place of the old
+    (``core.cache.commit_at``), its logits into ``st.last``, and
+    ``st.pos`` advanced."""
     tokens, b = st.tokens, st.tokens.shape[0]
     eos = torch.full((b,), cfg.eos_token_id, dtype=tokens.dtype,
                      device=tokens.device)
@@ -815,10 +904,11 @@ def _ar_step(params, st: DecodeState, *, cfg: ModelConfig,
     tokens.scatter_(1, st.pos.expand(b, 1), nxt[:, None])
     st.steps += (~st.done).to(torch.int32)
     st.done |= nxt == eos
+    apos = st.pos + off
     out = forward(params, nxt[:, None], cfg=cfg, device=tokens.device,
-                  mode=strategy.attn_mode, cache=st.cache, cache_len=st.pos,
+                  mode=strategy.attn_mode, cache=st.cache, cache_len=apos,
                   decode_attention_fn=fns.decode)
-    C.commit_at(st.cache, out.emissions, st.pos)
+    C.commit_at(st.cache, out.emissions, apos)
     st.last.copy_(out.logits[:, -1])
     st.pos += 1
 
@@ -844,7 +934,8 @@ def _greedy_next_loop(params, st: DecodeState, *, cfg: ModelConfig,
         st.pos.fill_(spec.prompt_len)
         for _ in range(spec.gen_len):
             replay("step", lambda: _ar_step(params, st, cfg=cfg,
-                                            strategy=strategy, fns=fns))
+                                            strategy=strategy, fns=fns,
+                                            off=spec.pos_offset))
     return SampleResult(st.tokens, st.steps, 1 + spec.gen_len,
                         _gen_lengths(st.tokens, spec, cfg))
 
@@ -856,7 +947,9 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
                    lane_sampled: bool = False,
                    graphs: Optional[bool] = None,
                    attention_fns: AttentionFns = KERNELS,
-                   state: Optional[DecodeState] = None, replay=None):
+                   state: Optional[DecodeState] = None, replay=None,
+                   extras: Optional[dict] = None,
+                   use_long_window: bool = False):
     """Decode ``prompt_tokens`` (b, P) with ``strategy`` over the block
     grid; returns :class:`SampleResult`, with ``record_hidden`` (top-1
     only) also the trajectory encoding ``(finalized_at, hidden)``.
@@ -873,7 +966,13 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
     decode in, loaded here (default: a fresh one); the result's tokens and
     steps are then its buffers, which its next decode rewrites.
     ``replay``: the hook every step goes through (``repro_torch.graphs``;
-    default :func:`repro_torch.graphs.eager`, and the top-1 loop's own)."""
+    default :func:`repro_torch.graphs.eager`, and the top-1 loop's own).
+
+    ``extras``: the request extras ``(b, ...)`` a config takes
+    (:func:`extras_shapes`: whisper's ``encoder_embeds``, and with
+    ``spec.pos_offset`` internvl2's ``prefix_embeds``), loaded into the
+    state. ``use_long_window`` caps the threshold loop's cached block
+    forwards at ``cfg.long_context_window``, as in the reference."""
     if lane_params is not None and strategy.finalize != "threshold":
         raise ValueError(
             "per-request sampling params (lane_params) require a "
@@ -900,17 +999,19 @@ def run_block_loop(params, prompt_tokens, *, cfg: ModelConfig,
         return _top1_loop(params, prompt_tokens, cfg=cfg, spec=spec,
                           record_hidden=record_hidden, key=key,
                           graphs=graphs, fns=attention_fns, state=state,
-                          replay=replay)
+                          replay=replay, extras=extras)
     replay = GR.eager if replay is None else replay
     with torch.no_grad():
         st = _loaded(state, prompt_tokens, cfg=cfg, spec=spec,
-                     strategy=strategy, key=key, lanes=lane_params)
+                     strategy=strategy, key=key, lanes=lane_params,
+                     extras=extras)
     if strategy.finalize == "threshold":
         return _threshold_loop(params, st, cfg=cfg, spec=spec,
                                strategy=strategy,
                                variant=_variant(spec, lane_params,
                                                 lane_sampled),
-                               fns=attention_fns, replay=replay)
+                               fns=attention_fns, replay=replay,
+                               use_long_window=use_long_window)
     return _greedy_next_loop(params, st, cfg=cfg, spec=spec,
                              strategy=strategy, fns=attention_fns,
                              replay=replay)

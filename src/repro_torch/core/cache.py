@@ -4,9 +4,10 @@ package's ``core/cache.py``, in its two memory layouts:
 - **dense** (:func:`init_cache`): a tuple over period slots of dicts whose
   leaves are stacked over periods: ``{"k": (n_periods, b, max_len, Kv,
   hd), "v": ...}`` for an attention slot, every lane preallocating
-  ``max_len`` rows; the recurrent state of a Mamba slot (``conv``,
-  ``ssm``) or an RWKV slot (``S``, ``tm_shift``, ``cm_shift``), O(1) per
-  lane (:func:`_slots`).
+  ``max_len`` rows, and in an encoder-decoder the cross attention's
+  ``{"ck", "cv"}`` ``(n_periods, b, encoder_seq_len, Kv, hd)``; the
+  recurrent state of a Mamba slot (``conv``, ``ssm``) or an RWKV slot
+  (``S``, ``tm_shift``, ``cm_shift``), O(1) per lane (:func:`_slots`).
 - **paged** (:func:`init_paged_cache`): the K/V leaves are pools
   ``(n_periods, n_pages, page, Kv, hd)`` shared by all lanes, plus a
   per-lane page table mapping sequence-block index -> pool page. Page ``j``
@@ -15,7 +16,8 @@ package's ``core/cache.py``, in its two memory layouts:
   the positions it commits. State leaves stay dense.
 
 A commit writes K/V rows at an offset and replaces a state wholesale with
-the emitted one (the state after the committed block's last token).
+the emitted one (the state after the committed block's last token; the
+prefill's ``ck``/``cv``); a state the emission lacks is left as it is.
 
 Unlike the JAX package, whose functions return new buffers, ``reset``,
 ``commit`` and ``commit_rows`` update the cache **in place** and return
@@ -52,6 +54,7 @@ CACHE_LAYOUTS = (DENSE, PAGED)
 
 FREE = -1  # unallocated page-table entry / unowned pool page
 KV = ("k", "v")   # the leaves written at an offset; every other is a state
+CROSS = ("ck", "cv")   # an encoder-decoder's cross-attention K/V
 
 
 def _slots(cfg: ModelConfig, kv_lead: int, kv_rows: int, batch: int, dt,
@@ -63,8 +66,9 @@ def _slots(cfg: ModelConfig, kv_lead: int, kv_rows: int, batch: int, dt,
     ``(n_periods, batch, d_conv - 1, e)`` and ``ssm`` ``(n_periods, batch,
     e, N)`` (fp32) for a Mamba slot, ``S`` ``(n_periods, batch, H, hs,
     hs)`` (fp32) and ``tm_shift`` ``(n_periods, batch, d)`` for an RWKV
-    slot, and ``cm_shift`` ``(n_periods, batch, d)`` where the FFN is
-    ``RWKV_CM``; ``dt`` elsewhere."""
+    slot, ``cm_shift`` ``(n_periods, batch, d)`` where the FFN is
+    ``RWKV_CM``, and ``ck``/``cv`` ``(n_periods, batch, encoder_seq_len,
+    Kv, hd)`` beside an encoder-decoder's K/V; ``dt`` elsewhere."""
     check_supported(cfg)
 
     def zeros(*shape, dtype=dt):
@@ -87,6 +91,12 @@ def _slots(cfg: ModelConfig, kv_lead: int, kv_rows: int, batch: int, dt,
             for key in KV:
                 slot[key] = zeros(kv_lead, kv_rows, cfg.n_kv_heads,
                                   cfg.head_dim)
+            if cfg.is_encoder_decoder:
+                # the cross attention's K/V over the encoder's rows: a
+                # state, written whole by the prefill's commit
+                for key in CROSS:
+                    slot[key] = zeros(batch, cfg.encoder_seq_len,
+                                      cfg.n_kv_heads, cfg.head_dim)
         if ffn == RWKV_CM:
             slot["cm_shift"] = zeros(batch, cfg.d_model)
         out.append(slot)
@@ -125,14 +135,18 @@ def _kv_len(emissions) -> int:
 
 def _write_states(cslot: dict, eslot: dict, lanes=None) -> None:
     """Replace a slot's state leaves with its emissions', every lane or
-    the lanes of the index tensor ``lanes``, in place."""
-    for key, buf in cslot.items():
-        if key in KV:
+    the lanes of the index tensor ``lanes``, in place. The emission's keys
+    are walked, as the reference's commit walks them: a state leaf the
+    emission lacks keeps its contents (a cached block forward reads
+    ``ck``/``cv`` and emits neither)."""
+    for key, val in eslot.items():
+        if key in KV or key not in cslot:
             continue
+        buf = cslot[key]
         if lanes is None:
-            buf.copy_(eslot[key])
+            buf.copy_(val)
         else:
-            buf[:, lanes] = eslot[key][:, lanes].to(buf.dtype)
+            buf[:, lanes] = val[:, lanes].to(buf.dtype)
 
 
 def _lanes(rows, batch: int) -> np.ndarray:

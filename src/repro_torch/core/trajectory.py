@@ -50,12 +50,16 @@ def position_sets(finalized_at, t_start, t_end):
 
 
 def collect(params, prompts, gt_answers, *, cfg: ModelConfig,
-            cdlm: CDLMConfig, key=None, fused_select: bool = False,
+            cdlm: CDLMConfig, key=None, extras=None,
+            fused_select: bool = False,
             graphs=None) -> Dict[str, torch.Tensor]:
     """Alg. 1 over one batch of prompts for every temperature of
     ``cdlm.temperatures``. Returns tensors stacked over temperatures.
 
-    prompts: (b, P) int; gt_answers: (b, G) int. ``key`` (default
+    prompts: (b, P) int; gt_answers: (b, G) int; ``extras``: the request
+    extras of the batch (whisper's frames; a prefix is refused, since the
+    reference's collector decodes it without a ``pos_offset``). ``key``
+    (default
     ``PRNGKey(0)``) is split once per temperature, the second half that
     temperature's stream. ``fused_select`` is ``SamplerSpec.fused_select``
     (default False, as in the JAX package): True runs the forwards through
@@ -68,6 +72,11 @@ def collect(params, prompts, gt_answers, *, cfg: ModelConfig,
            else key.to(prompts.device))
     outs = {"prompt": [], "gt": [], "final": [], "finalized_at": [],
             "hidden": []}
+    extras = extras or {}
+    if "prefix_embeds" in extras:
+        raise ValueError("trajectory collection takes no prefix_embeds: "
+                         "the reference's collector decodes without a "
+                         "pos_offset")
     for tau in cdlm.temperatures:
         key, sub = prng.split(key)
         spec = SamplerSpec(prompt_len=prompts.shape[1],
@@ -76,8 +85,8 @@ def collect(params, prompts, gt_answers, *, cfg: ModelConfig,
                            temperature=float(tau), early_stop=False,
                            fused_select=fused_select)
         res, finalized_at, hidden = vanilla_blockwise(
-            params, prompts, cfg=cfg, spec=spec, key=sub, record_hidden=True,
-            graphs=graphs)
+            params, prompts, cfg=cfg, spec=spec, key=sub, extras=extras,
+            record_hidden=True, graphs=graphs)
         outs["prompt"].append(prompts)
         outs["gt"].append(gt_answers)
         outs["final"].append(res.tokens[:, prompts.shape[1]:])

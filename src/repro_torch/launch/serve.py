@@ -24,6 +24,9 @@ layout its ``page pool:`` occupancy line. With ``--http`` the engine is served b
 streaming, ``GET /healthz``, ``GET /metrics``) until interrupted; the
 first line printed names the bound address (``--port 0`` binds a free
 port). Everything runs on the CUDA device unless ``--device cpu``.
+An encoder-decoder config (whisper-base) is refused: its requests carry
+frame embeddings, which the CLI's token prompts cannot; internvl2-1b
+serves its text path (no prefix).
 """
 from __future__ import annotations
 
@@ -89,6 +92,11 @@ def main(argv=None):
     cfg = get_config(args.config)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: its requests need frame embeddings "
+            "(GenerationRequest.extras['encoder_embeds']), which a token "
+            "prompt cannot give; serve it through repro_torch.serving.Engine")
     dev = resolve_device(args.device)
     if args.ckpt:
         with np.load(args.ckpt) as data:

@@ -55,6 +55,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(positions: torch.Tensor, d_model: int,
+                         device=None) -> torch.Tensor:
+    """Whisper's position table at ``positions`` (any shape): fp32
+    ``[sin, cos]`` of ``pos * exp(-i ln(10000) / max(d/2 - 1, 1))``,
+    ``(..., d_model)``."""
+    half = d_model // 2
+    positions = torch.as_tensor(positions, device=device)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(10_000.0) / max(half - 1, 1)))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return x if cap is None else cap * torch.tanh(x / cap)
 
@@ -150,6 +164,17 @@ def _chunked_attention(q, k, v, *, q_pos, kv_pos, kv_valid, bias_fn: BiasFn,
     return out.to(v.dtype)
 
 
+def cross_attention(q, ck, cv, *, scale: float):
+    """Decoder queries against every encoder row (whisper's cross
+    attention), as the reference's dense attention with a zero bias:
+    fp32 scores and softmax, the weights cast to ``cv``'s dtype.
+
+    q: (b, Lq, Kv, G, hd); ck/cv: (b, enc_len, Kv, hd)."""
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), ck.float()) * scale
+    p = torch.softmax(scores, dim=-1).to(cv.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, cv)
+
+
 def attention_core(q, k, v, *, q_pos, kv_pos, kv_valid=None, bias_fn: BiasFn,
                    scale: float, cap: Optional[float] = None,
                    impl: str = "auto", chunk: int = 2048):
@@ -177,18 +202,22 @@ def attention_core(q, k, v, *, q_pos, kv_pos, kv_valid=None, bias_fn: BiasFn,
 # FFN
 # ---------------------------------------------------------------------------
 def act(x, kind: str):
-    """The gate's activation: silu (SwiGLU) or gelu (GeGLU). JAX's
-    ``jax.nn.gelu`` defaults to the tanh approximation, so gelu is
-    ``approximate="tanh"`` here, not torch's exact default."""
+    """The FFN's activation: silu (SwiGLU), gelu (GeGLU) or gelu_plain
+    (whisper's non-gated MLP). JAX's ``jax.nn.gelu`` defaults to the tanh
+    approximation, so both gelus are ``approximate="tanh"`` here, not
+    torch's exact default."""
     if kind == "silu":
         return F.silu(x)
-    if kind == "gelu":
+    if kind in ("gelu", "gelu_plain"):
         return F.gelu(x, approximate="tanh")
     raise ValueError(f"activation {kind!r} is not ported")
 
 
 def apply_mlp(params, x, cfg: ModelConfig):
-    """The gated FFN: act(x W_gate) * (x W_up), then W_out."""
+    """The gated FFN, act(x W_gate) * (x W_up), then W_out; or, where the
+    params hold ``wi`` (whisper), the plain one, act(x W_in) W_out."""
+    if "wi" in params:
+        return act(x @ params["wi"], cfg.activation) @ params["wo"]
     g = act(x @ params["wi_gate"], cfg.activation)
     return (g * (x @ params["wi_up"])) @ params["wo"]
 

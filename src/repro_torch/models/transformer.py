@@ -3,7 +3,9 @@
 sliding window of ``cfg.sliding_window``), ``MAMBA`` (``models/mamba.py``)
 or ``RWKV`` (``models/rwkv6.py``'s time mix), then an FFN, ``MLP``,
 ``MOE`` or ``RWKV_CM`` (the channel mix); rmsnorm or layernorm, RoPE or
-(attention-free) no positions.
+(attention-free) no positions; whisper's encoder-decoder (sinusoidal
+positions, a plain gelu MLP, cross attention in every decoder slot) and
+internvl2's prefix embeddings.
 
 A model is ``cfg.n_periods`` repeats of ``cfg.layer_period``; each slot's
 params are stacked over periods and the stack runs as a Python loop over
@@ -19,7 +21,9 @@ forward. ``forward`` covers:
 
 Per-slot emissions come back stacked over periods, ready for
 ``core.cache.commit_rows``: ``{"k", "v"}`` ``(n_periods, b, L, Kv, hd)``
-of an attention slot, the state after the forward's last token of a
+of an attention slot (and, cache-less in an encoder-decoder, the cross
+attention's ``{"ck", "cv"}`` over the encoder's rows), the state after
+the forward's last token of a
 Mamba slot (``conv``, ``ssm``) or an RWKV slot (``S``, ``tm_shift``,
 ``cm_shift``); the MoE slots' load-balance losses come back summed as
 ``aux_loss``.
@@ -36,6 +40,7 @@ from repro_torch.configs.base import (
     ATTN,
     ATTN_LOCAL,
     MAMBA,
+    MLP,
     MOE,
     RWKV_CM,
     ModelConfig,
@@ -156,13 +161,32 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
     return x + L.out_proj(slot["attn"], out, cfg), {"k": k, "v": v}
 
 
+def _cross_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
+    """Whisper's cross attention, between the mixer and the FFN: the
+    decoder's queries against the encoder's K/V, read from the cache slot
+    where it holds them (``ck``/``cv``, committed by the prefill) and
+    projected from ``encoder_out`` otherwise, then emitted. Plain PyTorch
+    (the reference's dense attention, no Pallas kernel). Returns (x,
+    emission)."""
+    h = L.apply_norm(slot["norm_cross"], x, cfg)
+    q = L.project_q(slot["cross"], h, cfg)
+    cache = ctx["cache_slot"]
+    if cache is not None and "ck" in cache:
+        ck, cv, em = cache["ck"], cache["cv"], {}
+    else:
+        ck, cv = L.project_kv(slot["cross"], ctx["encoder_out"], cfg)
+        em = {"ck": ck, "cv": cv}
+    out = L.cross_attention(q, ck, cv, scale=L.attn_scale(cfg))
+    return x + L.out_proj(slot["cross"], out, cfg), em
+
+
 def _apply_slot(slot, x, *, cfg: ModelConfig, mixer: str, ffn: str, ctx,
                 moe_per_row: bool):
     """One slot: its mixer (attention, Mamba or the RWKV time mix, each
-    reading its own leaves of the cache slot, zeros without a cache), then
-    its FFN (MLP, MOE or the RWKV channel mix, which reads the *input*
-    state's ``cm_shift``). Returns (x, emission, the MOE FFN's aux loss or
-    None)."""
+    reading its own leaves of the cache slot, zeros without a cache), an
+    encoder-decoder's cross attention, then its FFN (MLP, MOE or the RWKV
+    channel mix, which reads the *input* state's ``cm_shift``). Returns
+    (x, emission, the MOE FFN's aux loss or None)."""
     cache = ctx["cache_slot"]
     aux = rwkv_in = None
     if mixer in (ATTN, ATTN_LOCAL):
@@ -182,6 +206,10 @@ def _apply_slot(slot, x, *, cfg: ModelConfig, mixer: str, ffn: str, ctx,
         y, em = R.time_mix(slot["rwkv_tm"],
                            L.apply_norm(slot["norm1"], x, cfg), cfg, rwkv_in)
         x = x + y
+    if "cross" in slot and (ctx["encoder_out"] is not None
+                            or (cache is not None and "ck" in cache)):
+        x, cross_em = _cross_attention_slot(slot, x, cfg=cfg, ctx=ctx)
+        em.update(cross_em)
     h = L.apply_norm(slot["norm2"], x, cfg)
     if ffn == MOE:
         y, aux = MO.apply_moe(slot["moe"], h, cfg, dropless=cache is not None,
@@ -194,9 +222,72 @@ def _apply_slot(slot, x, *, cfg: ModelConfig, mixer: str, ffn: str, ctx,
     return x + y, em, aux
 
 
+def _run_stack(slots_params, x, *, cfg: ModelConfig, slot_kinds, n: int,
+               ctx, cache, remat: bool, moe_per_row: bool):
+    """The ``n`` periods of ``slot_kinds`` over ``x``, each slot's params
+    (and cache leaves) stacked over the periods. Returns (x, emissions
+    stacked over periods per slot, the summed MoE aux loss)."""
+    dev = x.device
+    slots = [_by_period(slot_params, n) for slot_params in slots_params]
+    cache_slots = (None if cache is None
+                   else [_by_period(c, n) for c in cache])
+
+    def period_body(x, aux, p: int):
+        ems = []
+        for i, (mixer, ffn) in enumerate(slot_kinds):
+            c = dict(ctx, cache_slot=None if cache is None
+                     else cache_slots[i][p])
+            x, em, a = _apply_slot(slots[i][p], x, cfg=cfg, mixer=mixer,
+                                   ffn=ffn, ctx=c, moe_per_row=moe_per_row)
+            if a is not None:
+                aux = aux + a
+            ems.append(em)
+        return x, aux, ems
+
+    checkpointed = remat and torch.is_grad_enabled()
+    emitted = [[] for _ in slot_kinds]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for p in range(n):
+        if checkpointed:
+            x, aux, ems = checkpoint(period_body, x, aux, p,
+                                     use_reentrant=False)
+        else:
+            x, aux, ems = period_body(x, aux, p)
+        for i, em in enumerate(ems):
+            emitted[i].append(em)
+    emissions = tuple({key: torch.stack([em[key] for em in ems])
+                       for key in ems[0]} for ems in emitted)
+    return x, emissions, aux
+
+
+def encode(params, frames, *, cfg: ModelConfig, prefill_attention_fn=None,
+           remat: bool = False) -> torch.Tensor:
+    """Whisper's encoder over ``frames`` (b, enc_len, d), in their dtype:
+    sinusoidal positions at ``arange(enc_len)``, ``cfg.n_encoder_layers``
+    bidirectional ``(ATTN, MLP)`` layers without a cache (self attention
+    through ``prefill_attention_fn`` where given), then the encoder's
+    final norm. Returns the (b, enc_len, d) output every decoder layer's
+    cross attention reads."""
+    dev = frames.device
+    enc_pos = torch.arange(frames.shape[1], device=dev)
+    if cfg.pos_embed == "sinusoidal":
+        frames = frames + L.sinusoidal_embedding(enc_pos, cfg.d_model).to(
+            frames.dtype)
+    ctx = dict(mode=masks.BIDIRECTIONAL, prompt_len=0, block_size=1,
+               q_pos=enc_pos, cache_lens=None, cache_slot=None,
+               cache_valid=None, pages=None, use_long_window=False,
+               decode_attention_fn=None, paged_decode_attention_fn=None,
+               prefill_attention_fn=prefill_attention_fn, encoder_out=None)
+    x, _, _ = _run_stack(params["encoder"]["slots"], frames, cfg=cfg,
+                         slot_kinds=((ATTN, MLP),), n=cfg.n_encoder_layers,
+                         ctx=ctx, cache=None, remat=remat, moe_per_row=False)
+    return L.apply_norm(params["encoder"]["final_norm"], x, cfg)
+
+
 def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             mode: str = masks.BIDIRECTIONAL, prompt_len: int = 0,
-            block_size: int = 1, positions=None, cache=None, cache_len=None,
+            block_size: int = 1, positions=None, prefix_embeds=None,
+            encoder_embeds=None, cache=None, cache_len=None,
             cache_valid=None, use_long_window: bool = False,
             decode_attention_fn=None, paged_decode_attention_fn=None,
             prefill_attention_fn=None, remat: bool = False,
@@ -205,7 +296,20 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             moe_per_row: bool = False) -> ModelOutput:
     """Run the model.
 
-    tokens: (b, L) int. ``cache`` (a ``core.cache.init_cache`` tuple or a
+    tokens: (b, L) int. ``prefix_embeds`` (b, n, d): stub-frontend
+    embeddings (internvl2's patches) put in front of the token embeddings,
+    in their dtype; they are part of the prompt for masking, so the
+    caller's ``prompt_len`` counts them, and the outputs' rows are the
+    prefix's then the tokens'. ``encoder_embeds`` (b, enc_len, d):
+    whisper's frame embeddings (stub frontend), cast to the activations'
+    dtype and run through the encoder: bidirectional, cache-less, over
+    ``cfg.n_encoder_layers``, ending in its final norm; every decoder
+    layer's cross attention reads its output, or, where the cache holds
+    them, the committed ``ck``/``cv``. Sinusoidal positions are added to
+    the decoder's input at its positions and to the encoder's at
+    ``arange(enc_len)``.
+
+    ``cache`` (a ``core.cache.init_cache`` tuple or a
     ``core.cache.PagedCache``) with ``cache_len`` (int, or (b,) per lane)
     runs the cached block decode: query i of lane j sits at
     ``cache_len[j] + i`` unless ``positions`` ((L,) or (b, L)) says
@@ -225,17 +329,17 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     (``kernels.block_attn.flash_block_attention``-shaped) for cache-less
     forwards at the default positions ``arange(L)`` (the kernel derives
     visibility from indices, so given ``positions`` take the generic
-    path). ``return_logits=False`` skips the lm_head (the fused-select
-    decode reads ``hidden``); ``logits_slice=(s0, s1)`` applies it to
-    positions ``[s0, s1)`` only (the CDLM losses read generation-span
-    logits). ``remat`` recomputes each layer period in the backward
-    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``
-    of the period body) when grad mode is on. The MoE slots of a cached
-    forward size their expert buffers by the decode's bounded capacity
-    (dropless), those of a cache-less one by the capacity factor, as the
-    reference's defaults do. ``moe_per_row`` gives each row of the batch
-    its own expert capacity (as in ``models.moe.apply_moe``): the
-    reference's per-lane forward.
+    path) and for the encoder. ``return_logits=False`` skips the lm_head
+    (the fused-select decode reads ``hidden``); ``logits_slice=(s0, s1)``
+    applies it to positions ``[s0, s1)`` only (the CDLM losses read
+    generation-span logits). ``remat`` recomputes each layer period in
+    the backward (``torch.utils.checkpoint``, as the JAX package's
+    ``jax.checkpoint`` of the period body) when grad mode is on. The MoE
+    slots of a cached forward size their expert buffers by the decode's
+    bounded capacity (dropless), those of a cache-less one by the
+    capacity factor, as the reference's defaults do. ``moe_per_row``
+    gives each row of the batch its own expert capacity (as in
+    ``models.moe.apply_moe``): the reference's per-lane forward.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -243,14 +347,19 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     if params["embed"]["tok"].device != tokens.device:
         raise ValueError(f"params live on {params['embed']['tok'].device}, "
                          f"forward was asked to run on {tokens.device}")
-    b, Lq = tokens.shape
+    b = tokens.shape[0]
     x = L.embed_tokens(params["embed"], tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([torch.as_tensor(prefix_embeds, device=dev).to(
+            x.dtype), x], dim=1)
+    Lq = x.shape[1]
     pages = None
     if cache is not None and not isinstance(cache, tuple):
         # a core.cache.PagedCache (not imported here: core.cache imports
         # the bridge, which imports this module)
         pages = cache.device_table()
         cache = cache.slots
+    encoder_attention_fn = prefill_attention_fn
     if positions is not None:
         prefill_attention_fn = None
     cache_lens = None
@@ -261,6 +370,14 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
         base = cache_lens[:, None] if cache is not None else 0
         positions = base + torch.arange(Lq, device=dev)
     positions = torch.as_tensor(positions, device=dev)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+
+    encoder_out = None
+    if cfg.is_encoder_decoder and encoder_embeds is not None:
+        encoder_out = encode(
+            params, torch.as_tensor(encoder_embeds, device=dev).to(x.dtype),
+            cfg=cfg, prefill_attention_fn=encoder_attention_fn, remat=remat)
 
     if cache_valid is not None:
         cache_valid = torch.as_tensor(cache_valid, dtype=torch.bool,
@@ -271,38 +388,12 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
                pages=pages, use_long_window=use_long_window,
                decode_attention_fn=decode_attention_fn,
                paged_decode_attention_fn=paged_decode_attention_fn,
-               prefill_attention_fn=prefill_attention_fn)
-
-    n = cfg.n_periods
-    slots = [_by_period(slot_params, n) for slot_params in params["slots"]]
-    cache_slots = (None if cache is None
-                   else [_by_period(c, n) for c in cache])
-
-    def period_body(x, aux, p: int):
-        ems = []
-        for i, (mixer, ffn) in enumerate(cfg.layer_period):
-            c = dict(ctx, cache_slot=None if cache is None
-                     else cache_slots[i][p])
-            x, em, a = _apply_slot(slots[i][p], x, cfg=cfg, mixer=mixer,
-                                   ffn=ffn, ctx=c, moe_per_row=moe_per_row)
-            if a is not None:
-                aux = aux + a
-            ems.append(em)
-        return x, aux, ems
-
-    checkpointed = remat and torch.is_grad_enabled()
-    emitted = [[] for _ in cfg.layer_period]
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for p in range(n):
-        if checkpointed:
-            x, aux, ems = checkpoint(period_body, x, aux, p,
-                                     use_reentrant=False)
-        else:
-            x, aux, ems = period_body(x, aux, p)
-        for i, em in enumerate(ems):
-            emitted[i].append(em)
-    emissions = tuple({key: torch.stack([em[key] for em in ems])
-                       for key in ems[0]} for ems in emitted)
+               prefill_attention_fn=prefill_attention_fn,
+               encoder_out=encoder_out)
+    x, emissions, aux = _run_stack(params["slots"], x, cfg=cfg,
+                                   slot_kinds=cfg.layer_period,
+                                   n=cfg.n_periods, ctx=ctx, cache=cache,
+                                   remat=remat, moe_per_row=moe_per_row)
 
     hidden = L.apply_norm(params["final_norm"], x, cfg)
     if not return_logits:

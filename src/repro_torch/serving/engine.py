@@ -108,6 +108,7 @@ from repro_torch.core.block_loop import (
     LaneParams,
     SamplerSpec,
     _gen_lengths,
+    extras_shapes,
     init_canvas,
     lane_block_forward,
     run_block_loop,
@@ -123,6 +124,22 @@ from repro_torch.serving.api import (
     SamplingParams,
     normalize_requests,
 )
+
+
+def _validate_requests(requests: Sequence[GenerationRequest]) -> None:
+    """Every request of a batch carries the same extras keys (the
+    reference's check, made before the batch leaves the queue)."""
+    keys0 = frozenset(requests[0].extras or {})
+    for r in requests:
+        if frozenset(r.extras or {}) != keys0:
+            raise ValueError(
+                "all requests in a batch must carry the same extras keys: "
+                f"request {requests[0].id} has {sorted(keys0)}, request "
+                f"{r.id} has {sorted(r.extras or {})}")
+
+
+EXTRAS_REFUSED = ("ContinuousEngine does not support request extras "
+                  "(encoder/prefix embeds) yet")
 
 
 def _resolve(req: GenerationRequest, serve: ServeConfig,
@@ -265,10 +282,21 @@ class Engine(_RequestStepper):
     on the CPU (the kernels' plain versions). ``graphs``: None (the
     default) replays each step of the decode as a CUDA graph on CUDA
     (captured once per engine) and runs eagerly on the CPU; False runs
-    eagerly on CUDA too; True on the CPU raises."""
+    eagerly on CUDA too; True on the CPU raises.
+
+    Requests carry the extras their config takes
+    (``core.block_loop.extras_shapes``): whisper's ``encoder_embeds``
+    (encoder_seq_len, d), internvl2's ``prefix_embeds`` (pos_offset, d)
+    with ``pos_offset`` the number of prefix rows; a batch's extras are
+    stacked (padded with the last request's) into the state's buffers.
+    ``use_long_window`` caps the cached forwards at
+    ``cfg.long_context_window`` as the reference's engine does: on the
+    scalar path for ``cdlm`` only, on the per-lane path for every
+    threshold sampler."""
 
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
-                 prompt_len: int, *, device="cuda", graphs=None):
+                 prompt_len: int, *, pos_offset: int = 0,
+                 use_long_window: bool = False, device="cuda", graphs=None):
         if serve.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {serve.sampler!r} (expected "
                              f"one of {', '.join(SAMPLERS)})")
@@ -290,7 +318,9 @@ class Engine(_RequestStepper):
             block_size=serve.block_size, conf_threshold=serve.conf_threshold,
             temperature=serve.temperature,
             cache_refresh_interval=serve.cache_refresh_interval,
-            cache_layout=serve.cache_layout, fused_select=serve.fused_select)
+            cache_layout=serve.cache_layout, fused_select=serve.fused_select,
+            pos_offset=pos_offset)
+        self._use_long_window = use_long_window
         self._strategy = STRATEGIES[serve.sampler]
         # the decode's device buffers, loaded in place by every batch, and
         # the graphs of its steps by name (captured at first use)
@@ -316,9 +346,6 @@ class Engine(_RequestStepper):
 
     def add_request(self, request: GenerationRequest) -> int:
         """Enqueue one request; returns its (possibly engine-assigned) id."""
-        if request.extras:
-            raise ValueError("repro_torch's Engine does not take request "
-                             "extras")
         self._register(request, {r.id for r in self._queue})
         self._queue.append(request)
         return request.id
@@ -336,16 +363,21 @@ class Engine(_RequestStepper):
         return False
 
     def _run(self, prompts, key=None, lanes: Optional[LaneParams] = None,
-             sampled: bool = False):
+             sampled: bool = False, extras: Optional[dict] = None):
         """One batch through the sampler's strategy on the engine's state
         and graphs: the scalar path with ``key``, or per-lane params
-        ``lanes`` (``sampled``: some lane draws). The result's tokens and
-        steps are the state's buffers, rewritten by the next batch."""
+        ``lanes`` (``sampled``: some lane draws), with the batch's
+        ``extras``. The result's tokens and steps are the state's buffers,
+        rewritten by the next batch. The long window as the reference's
+        two runners pass it: the scalar one for ``cdlm`` only."""
+        window = self._use_long_window and (lanes is not None
+                                            or self.serve.sampler == "cdlm")
         return run_block_loop(self.params, prompts, cfg=self.cfg,
                               spec=self.spec, strategy=self._strategy,
                               key=key, lane_params=lanes,
                               lane_sampled=sampled, state=self._state,
-                              replay=self._replay)
+                              replay=self._replay, extras=extras,
+                              use_long_window=window)
 
     def _lanes(self, rps: Sequence[ResolvedSamplingParams]) -> LaneParams:
         dev = self.device
@@ -359,22 +391,27 @@ class Engine(_RequestStepper):
             key=torch.as_tensor(np.stack([_lane_key(p) for p in rps]),
                                 device=dev))
 
-    def warmup(self, *, per_request: bool = False) -> None:
+    def warmup(self, extras=None, *, per_request: bool = False) -> None:
         """Build and load the kernels, and capture the decode's CUDA graphs
-        (once per engine), on one batch of the scalar path;
+        (once per engine), on one batch of the scalar path (with
+        ``extras``, a batch's, or zeros of the config's extras);
         ``per_request=True`` (servers) also runs the per-lane variants (the
         sampled one unless ``fused_select``)."""
         b = self.serve.max_batch
         prompts = torch.zeros((b, self.spec.prompt_len), dtype=torch.int64,
                               device=self.device)
-        self._run(prompts)
+        if extras is None:
+            extras = {k: torch.zeros((b, *shape), device=self.device)
+                      for k, shape in extras_shapes(self.cfg,
+                                                    self.spec).items()}
+        self._run(prompts, extras=extras)
         if per_request and self._strategy.finalize == "threshold":
             rp = ResolvedSamplingParams(0.0, self.serve.conf_threshold, None,
                                         0, self.cfg.eos_token_id)
             lanes = self._lanes([rp] * b)
-            self._run(prompts, lanes=lanes)
+            self._run(prompts, lanes=lanes, extras=extras)
             if not self.serve.fused_select:
-                self._run(prompts, lanes=lanes, sampled=True)
+                self._run(prompts, lanes=lanes, sampled=True, extras=extras)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -400,6 +437,7 @@ class Engine(_RequestStepper):
             return []
         Bmax = self.serve.max_batch
         chunk = self._queue[:Bmax]
+        _validate_requests(chunk)   # before the chunk leaves the queue
         del self._queue[:Bmax]
         rps = [_resolve(r, self.serve, self.cfg) for r in chunk]
         pad = Bmax - len(chunk)
@@ -407,6 +445,10 @@ class Engine(_RequestStepper):
             np.stack([np.asarray(r.prompt) for r in chunk]
                      + [np.asarray(chunk[-1].prompt)] * pad),
             dtype=torch.int64, device=self.device)
+        extras = {k: torch.as_tensor(np.stack(
+            [np.asarray(r.extras[k]) for r in chunk]
+            + [np.asarray(chunk[-1].extras[k])] * pad), device=self.device)
+            for k in (chunk[0].extras or {})}
         self._key, sub = prng.split(self._key)
         # a batch is one decode, so any request with explicit params moves
         # the whole batch to the per-lane path (its bare batch-mates then
@@ -417,9 +459,10 @@ class Engine(_RequestStepper):
         if use_lanes:
             prps = rps + [rps[-1]] * pad
             res = self._run(prompts, lanes=self._lanes(prps),
-                            sampled=any(p.temperature > 0 for p in prps))
+                            sampled=any(p.temperature > 0 for p in prps),
+                            extras=extras)
         else:
-            res = self._run(prompts, sub)
+            res = self._run(prompts, sub, extras=extras)
         self._calls["batches"] += 1
         self._calls["total"] += res.n_model_calls
         # copies: the result is the engine's state, which the next batch
@@ -510,14 +553,23 @@ class ContinuousEngine(_RequestStepper):
     ``device`` defaults to the CUDA device; pass ``device="cpu"`` to run on
     the CPU (the kernels' plain versions). ``graphs``: None (the default)
     decodes through CUDA graphs on CUDA and eagerly on the CPU; False
-    decodes eagerly on CUDA too; True on the CPU raises."""
+    decodes eagerly on CUDA too; True on the CPU raises.
+    ``use_long_window`` caps the lanes' cached forwards at
+    ``cfg.long_context_window`` (the admission prefill keeps the full
+    span, as the reference's). It refuses an encoder-decoder and request
+    extras, as the reference's does."""
 
     def __init__(self, params, cfg: ModelConfig, serve: ServeConfig,
-                 prompt_len: int, *, device="cuda", graphs=None):
+                 prompt_len: int, *, use_long_window: bool = False,
+                 device="cuda", graphs=None):
         if serve.sampler != "cdlm":
             raise ValueError(
                 "ContinuousEngine requires the 'cdlm' strategy (exact "
                 f"block-causal cache); got sampler={serve.sampler!r}")
+        if cfg.is_encoder_decoder:
+            raise ValueError("ContinuousEngine does not support "
+                             "encoder-decoder models yet (per-lane encoder "
+                             "state is not scheduled)")
         if serve.cache_layout not in C.CACHE_LAYOUTS:
             raise ValueError(f"unknown cache layout {serve.cache_layout!r} "
                              f"(expected one of {C.CACHE_LAYOUTS})")
@@ -552,6 +604,7 @@ class ContinuousEngine(_RequestStepper):
         self._greedy = "fused" if serve.fused_select else "dense"
         self.n_lanes = serve.max_batch
         self.paged = serve.cache_layout == C.PAGED
+        self._use_long_window = use_long_window
         P, B = prompt_len, serve.block_size
         if self.paged:
             self._n_tables = -(-(P + serve.gen_length) // B)
@@ -679,7 +732,7 @@ class ContinuousEngine(_RequestStepper):
         net, _ = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache, cfg=cfg,
             spec=self.spec, return_hidden=variant == "fused",
-            moe_per_row=True)
+            use_long_window=self._use_long_window, moe_per_row=True)
         if variant == "fused":
             cand, conf = D.confidence_and_candidates_fused(
                 net, unembed_matrix(self.params, cfg), bt, cfg.mask_token_id,
@@ -704,7 +757,7 @@ class ContinuousEngine(_RequestStepper):
         _, emissions = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache,
             cfg=self.cfg, spec=self.spec, return_hidden=True,
-            moe_per_row=True)
+            use_long_window=self._use_long_window, moe_per_row=True)
         return emissions
 
     def _write_block_inputs(self, state: _Slots, starts, live) -> None:
@@ -781,13 +834,16 @@ class ContinuousEngine(_RequestStepper):
         self._preemptions = 0
         self._stall_rounds = 0
 
-    def warmup(self, *, per_request: bool = False) -> None:
+    def warmup(self, extras=None, *, per_request: bool = False) -> None:
         """Build and load the kernels and capture the decode's CUDA graphs
         (once per engine): one admission and one block decode of the greedy
         variant on the engine's state, and of the sampled variant too when
         the engine default samples or, ``per_request`` (servers), any
         request may (not on a ``fused_select`` engine); the state is
-        cleared after. Refused while a request is in flight."""
+        cleared after. Refused while a request is in flight, and with
+        ``extras``, as in the reference."""
+        if extras:
+            raise ValueError(EXTRAS_REFUSED)
         if any(f is not None for f in self._flights):
             raise RuntimeError("engine busy: warmup() needs every lane free")
         state = self._state
@@ -836,8 +892,7 @@ class ContinuousEngine(_RequestStepper):
         """Enqueue one request (admitted at the next block boundary with a
         free lane and, paged, enough free pages); returns its unique id."""
         if request.extras:
-            raise ValueError("repro_torch's ContinuousEngine does not take "
-                             "request extras")
+            raise ValueError(EXTRAS_REFUSED)
         self._register(request,
                        {r.id for r in self._queue}
                        | {f.req.id for f in self._flights if f is not None})
@@ -1048,9 +1103,14 @@ class ContinuousEngine(_RequestStepper):
 
 def make_engine(params, cfg: ModelConfig, serve: ServeConfig,
                 prompt_len: int, **kw):
-    """Engine factory switched by ``serve.scheduler`` (``device`` and
-    ``graphs`` pass through)."""
+    """Engine factory switched by ``serve.scheduler`` (``device``,
+    ``graphs``, ``use_long_window`` and the static engine's ``pos_offset``
+    pass through; the continuous one refuses a prefix, as the
+    reference's factory does)."""
     if serve.scheduler == "continuous":
+        if kw.pop("pos_offset", 0):
+            raise ValueError("ContinuousEngine does not support prefix "
+                             "embeds (pos_offset != 0) yet")
         return ContinuousEngine(params, cfg, serve, prompt_len, **kw)
     if serve.scheduler == "static":
         return Engine(params, cfg, serve, prompt_len, **kw)

@@ -107,7 +107,7 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
               cdlm: CDLMConfig, teacher_head, use_lora: bool,
               lora_rank: int = 32, lora_alpha: float = 32.0,
               remat: bool = False, student_mode: str = masks.BLOCK_CAUSAL,
-              efficient_loss: bool = False):
+              efficient_loss: bool = False, extras=None):
     """Eq. 7 total objective.
 
     trainable: the LoRA adapters (``use_lora``) or the full student params;
@@ -116,18 +116,25 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
     hidden buffer into teacher distributions (App. A.1); batch:
     ``trajectory.training_pair``'s output; draws: :func:`dlm_draws` for
     the DLM term. ``efficient_loss`` applies the lm_head to the generation
-    span only (the objectives never read prompt logits)."""
+    span only (the objectives never read prompt logits). ``extras``: the
+    batch's request extras, which every forward takes; a prefix
+    (internvl2's ``prefix_embeds``) shifts the prompt length and the
+    generation span's rows by its length, as in the reference."""
     params = (LoRA.merge(static_params, trainable, lora_alpha, lora_rank)
               if use_lora else trainable)
+    extras = extras or {}
+    off = (extras["prefix_embeds"].shape[1] if "prefix_embeds" in extras
+           else 0)
     P = batch["prompt"].shape[1]
     G = batch["y"].shape[1] - P
     kw = dict(cfg=cfg, device=batch["y"].device, mode=student_mode,
-              prompt_len=P, block_size=cdlm.block_size, remat=remat)
+              prompt_len=off + P, block_size=cdlm.block_size, remat=remat,
+              **extras)
     if efficient_loss:
-        kw["logits_slice"] = (P, P + G)
+        kw["logits_slice"] = (off + P, off + P + G)
 
     def span(out):
-        return out.logits if efficient_loss else out.logits[:, P:]
+        return out.logits if efficient_loss else out.logits[:, off + P:]
 
     # (i) student at y; (ii) student at y*, the detached consistency target.
     # Its router's aux loss is not detached in the reference, so with MoE
@@ -157,7 +164,7 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
     canvas = torch.cat([batch["prompt"], masked_gt], dim=1)
     out_dlm = forward(params, canvas, **dict(kw, logits_slice=None),
                       return_logits=False)
-    l_dlm = LS.dlm_loss_from_hidden(out_dlm.hidden[:, P:],
+    l_dlm = LS.dlm_loss_from_hidden(out_dlm.hidden[:, off + P:],
                                     _xent_w(params, cfg), batch["gt"], m, t)
 
     total = LS.cdlm_total(l_distill, l_cons, l_dlm, w_distill=cdlm.w_distill,

@@ -93,10 +93,11 @@ def train_ar(cfg: ModelConfig, corpus: Corpus, tcfg: TrainConfig, *,
 
 def collect_dataset(teacher_params, cfg: ModelConfig, cdlm: CDLMConfig,
                     corpus: Corpus, *, n_examples: int, batch: int = 16,
-                    seed: int = 0, verbose: bool = True):
+                    seed: int = 0, extras=None, verbose: bool = True):
     """Alg. 1 over the corpus, batch by batch, through the block attention
-    and fused select kernels (``trajectory.collect``), with
-    ``PRNGKey(seed)`` split once per batch as the reference does; the
+    and fused select kernels (``trajectory.collect``, each batch with the
+    request ``extras``, (batch, ...) each, as the reference passes them),
+    with ``PRNGKey(seed)`` split once per batch as the reference does; the
     dataset's tensors stay on the params' device."""
     dev = teacher_params["embed"]["tok"].device
     key = prng.key(seed, dev)
@@ -109,7 +110,7 @@ def collect_dataset(teacher_params, cfg: ModelConfig, cdlm: CDLMConfig,
         key, sub = prng.split(key)
         chunks.append(trajectory.collect(
             teacher_params, tb["prompt"], tb["answer"], cfg=cfg, cdlm=cdlm,
-            key=sub, fused_select=True))
+            key=sub, extras=extras, fused_select=True))
         done += batch
         if verbose and done % (batch * 4) == 0:
             print(f"  collected {done}/{n_examples} prompts "

@@ -61,11 +61,13 @@ def _check_round_trip(params, tree):
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "dream-7b", "gemma-7b",
                                   "gemma2-27b", "llama4-maverick-400b-a17b",
                                   "kimi-k2-1t-a32b", "jamba-v0.1-52b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "whisper-base",
+                                  "internvl2-1b"])
 def test_round_trip_of_the_jax_tree(name):
     """Every leaf, ``ATTN_LOCAL`` slots and ``moe`` leaves (the fp32
     router, the (E, d, f) / (E, f, d) experts, the shared expert), Mamba
-    and RWKV leaves and layernorm's biases too."""
+    and RWKV leaves, layernorm's biases, and whisper's encoder, cross
+    attention and plain MLP too."""
     _, cfg, tree = _jax_tree(name)
     params = params_from_jax(tree, cfg, "cpu")
     _check_round_trip(params, tree)
@@ -93,7 +95,8 @@ def test_shape_mismatch_is_refused():
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "llada-8b",
                                   "gemma2-27b", "kimi-k2-1t-a32b",
-                                  "jamba-v0.1-52b", "rwkv6-1.6b"])
+                                  "jamba-v0.1-52b", "rwkv6-1.6b",
+                                  "whisper-base"])
 def test_seeded_init_follows_the_jax_init(name):
     _, cfg, tree = _jax_tree(name)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -137,16 +140,24 @@ def test_training_and_serving_configs_match_the_jax_package(name):
 
 
 def test_unported_architectures_are_refused():
-    """The registry holds every architecture; the port's stack refuses the
-    one it does not run (whisper-base: an encoder, sinusoidal positions, a
-    plain gelu) when params are built, and builds jamba's and rwkv6's;
-    an unknown name is refused by the registry."""
+    """The registry holds every architecture and the port's stack builds
+    each (whisper-base since its encoder, sinusoidal positions and plain
+    gelu were ported: its encoder and every decoder slot's cross attention
+    are in the params); a config it does not run (no positions on an
+    attention config) is refused when params are built, and an unknown
+    name is refused by the registry."""
     cfg = get_config("whisper-base").reduced()
-    with pytest.raises(ValueError, match="repro_torch runs"):
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert set(params["slots"][0]) >= {"cross", "norm_cross"}
+    assert params["encoder"]["slots"][0]["mlp"]["wi"].shape == (
+        cfg.n_encoder_layers, cfg.d_model, cfg.d_ff)
     for name in ("jamba-v0.1-52b", "rwkv6-1.6b"):
         init_params(get_config(name).reduced(),
                     torch.Generator().manual_seed(0), "cpu")
+    bad = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              pos_embed="none")
+    with pytest.raises(ValueError, match="repro_torch runs"):
+        init_params(bad, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(KeyError, match="unknown architecture"):
         get_config("gemma3-1b")
 

@@ -1220,3 +1220,89 @@ def test_checked_in_table_entries_resolve_and_launch(cuda):
                                       ("dw", dw, want_dw)):
                 ok, err = cs.grad_limit(torch, got_g, want, "bfloat16")
                 assert ok, (e["bucket"], name, err)
+
+
+# ---------------------------------------------------------------------------
+# the shapes of whisper-base and internvl2-1b (chip_smoke.py phase 10)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,Kv,G,S,lens,window", [
+    # whisper's decoder self attention: Kv 8, G 1 (32 folded rows)
+    (8, 8, 1, 192, [128, 160] * 4, None),
+    # internvl2 past its 8,192-token window: blocks at 8,448 and 8,480
+    (4, 2, 7, 8512, [8448, 8480] * 2, 8192),
+], ids=["whisper-base", "internvl2-1b window"])
+def test_decode_attention_at_the_extras_configs(cuda, b, Kv, G, S, lens,
+                                                window):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    Bq, hd, dtype = 32, 64, torch.bfloat16
+    q = _randn(gen, b, Bq, Kv, G, hd).to(dtype)
+    kc, vc = (_randn(gen, 2, b, S, Kv, hd)[1].to(dtype) for _ in range(2))
+    kb, vb = (_randn(gen, b, Bq, Kv, hd).to(dtype) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(scale=hd ** -0.5, window=window)
+    got = decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    want = dref.decode_attention(q, kc, vc, kb, vb, cl, **kw)
+    # both sides read the same inputs and accumulate in fp32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,Kv,G,mode,P,window", [
+    # whisper's encoder: 1,500 frames, ragged against the 64-key tile
+    (2, 1500, 8, 1, "bidirectional", 0, None),
+    # whisper's decoder prefill
+    (2, 128, 8, 1, "block_causal", 128, None),
+    # internvl2's long-window prefill: 256 prefix rows + P 8,192
+    (1, 8448, 2, 7, "block_causal", 8448, None),
+    (1, 8448, 2, 7, "block_causal", 8192, 8192),
+], ids=["whisper encoder", "whisper prefill", "internvl2 L8448",
+        "internvl2 L8448 window"])
+def test_block_attention_at_the_extras_configs(cuda, b, L, Kv, G, mode, P,
+                                               window):
+    gen = torch.Generator(device=cuda).manual_seed(L + G)
+    hd, dtype = 64, torch.bfloat16
+    q = _randn(gen, b, L, Kv, G, hd).to(dtype)
+    k, v = (_randn(gen, b, L, Kv, hd).to(dtype) for _ in range(2))
+    kw = dict(mode=mode, prompt_len=P, block_size=32, window=window,
+              scale=hd ** -0.5)
+    got = flash_block_attention(q, k, v, **kw)
+    want = bref.block_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,V", [(512, 51_865), (896, 151_655)],
+                         ids=["whisper-base", "internvl2-1b"])
+def test_select_at_the_extras_configs(cuda, d, V):
+    gen = torch.Generator(device=cuda).manual_seed(V)
+    h = _randn(gen, 256, d).bfloat16()
+    w = (_randn(gen, V, d) * 0.02).bfloat16()
+    masked = torch.rand((256,), generator=gen, device=cuda) < 0.7
+    cs = _limits()
+    cand, conf = fused_select(h, w, masked)
+    want_c, want_f = sref.select_streaming(h, w, masked)
+    assert torch.equal(torch.isfinite(conf), masked)
+    # chip_smoke.py's limits: a candidate may differ only at a top-2 gap
+    # within the summation-order limit, confidences within theirs
+    conf_tol, gap_tol = cs.select_limits(torch, h, w, cand, V)
+    top2 = (h.float() @ w.float().t()).topk(2, -1).values
+    off = cand != want_c
+    assert bool((top2[:, 0] - top2[:, 1])[off].lt(gap_tol[off]).all())
+    same = masked & ~off
+    rel = (conf - want_f).abs() / want_f.abs()
+    assert bool((rel[same] <= conf_tol[same]).all())
+
+
+@pytest.mark.cuda
+def test_xent_at_whisper_vocabulary(cuda):
+    """phase 10d's DLM term: 128 rows over whisper's (51,865, 512) head."""
+    h, w, y, g = _xent_case(cuda, 128, 512, 51_865, torch.bfloat16, 9, 0.3)
+    hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+    loss = fused_xent(hh, ww, y)
+    dh, dw = torch.autograd.grad((loss * g).sum(), (hh, ww))
+    want_loss, want_logz = xref.xent_streaming(h, w, y)
+    want_dh, want_dw = xref.xent_backward(h, w, y, g, want_logz)
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-4)
+    _grad_close(dh, want_dh, torch.bfloat16)
+    _grad_close(dw, want_dw, torch.bfloat16)
