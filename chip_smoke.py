@@ -193,6 +193,28 @@ Phases, each timed, any failure raises and exits non-zero:
    with the kernel and with the plain cross-entropy within phase 5's
    limits.
 
+11. the parallel and dry-run layer (``phase_parallel``): (a) the
+   sequence-parallel decode (``repro_torch/parallel/seq_decode.py``) in
+   four spawned ranks on the one card, gloo over CUDA tensors (NCCL
+   refuses two ranks on one device), each holding a quarter of a cache at
+   qwen2-0.5b's attention shape (8 lanes, 32 queries, Kv 2, G 7, hd 64,
+   S 32,768, bf16, lengths on, below and across the shard edges), the
+   merged output held against the decode kernel over the whole cache
+   without and with a window of 4,096 (within the output's bf16 rounding
+   plus 1e-4), ms per sharded call beside the kernel's (four ranks sharing
+   one card say nothing of four cards); (b) the dry-run's plan of
+   qwen2-0.5b x decode_32k at a 1x1 mesh, counted on the meta device, its
+   three roofline terms with the H100's constants beside the median of
+   10 steps of the same step on the card (full width, batch 128, the
+   32,768-row cache filled in place with ``normal_`` in bf16, the decode
+   through the kernel, CUDA events; the batch cut, and the cut printed,
+   only if the card's free memory forces it), the kernel's launches equal
+   to one per layer and step, and one profiled step's device ms by kernel
+   group; (c) the three examples
+   (``examples/*_torch.py``) on the card at small budgets (60 teacher
+   steps), every kernel launched and every decode of every example
+   emitting tokens (mean tokens before EOS above 0).
+
 The line before the last two is the kernels' JSON summary (phase 9's
 configs' entries keyed "<kernel> <config>", jamba's and rwkv6's with the
 checked shape too, ``arch_key``; phase 10's keyed by ``EXTRAS_KEYS``,
@@ -3821,6 +3843,278 @@ def phase_extras(torch, dev, smi):
     return launches
 
 
+# phase 11: the parallel and dry-run layer
+SEQ_RANKS = 4
+SEQ_SHAPE = (8, 32, 2, 7, 64, 32768)    # b, Bq, Kv, G, hd, S: qwen2-0.5b's
+# lengths on, below and across the 8,192-row shard edges
+SEQ_LENS = (32768, 8192, 8191, 8193, 16400, 24576, 30001, 512)
+SEQ_WINDOW = 4096
+SEQ_ITERS = 20
+ROOFLINE_RUN = ("qwen2-0.5b", "decode_32k", 10)   # arch, shape, steps
+# budgets at which the toy models emit tokens before EOS (at 4-10 steps
+# they emit EOS first, which would hide a decode that emits nothing)
+EXAMPLE_RUNS = (
+    ("quickstart_torch", ["--teacher-steps", "60", "--student-steps", "20",
+                          "--examples", "64", "--eval", "32"]),
+    ("train_cdlm_torch", ["--teacher-steps", "60", "--student-steps", "20",
+                          "--examples", "32", "--eval", "16", "--lora"]),
+    ("serve_blockwise_torch", ["--steps", "60", "--requests", "16",
+                               "--batch", "8"]))
+EXAMPLE_KERNELS = ("decode_attention", "fused_select", "block_attention",
+                   "xent_forward", "xent_backward")
+
+
+def _seq_inputs(torch, dev):
+    b, Bq, Kv, G, hd, S = SEQ_SHAPE
+    g = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    return (rnd(b, Bq, Kv, G, hd), rnd(b, S, Kv, hd), rnd(b, S, Kv, hd),
+            rnd(b, Bq, Kv, hd), rnd(b, Bq, Kv, hd),
+            torch.tensor(SEQ_LENS, dtype=torch.int32, device=dev))
+
+
+def seq_decode_rank(rank, port, queue):
+    """One of phase 11a's ranks: this rank's quarter of the cache through
+    the sequence-parallel decode (gloo over CUDA tensors), timed; rank 0
+    also runs the decode kernel over the whole cache and holds each output
+    against it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.parallel import make_sharded_decode_attention
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=SEQ_RANKS)
+    try:
+        q, kc, vc, kb, vb, lens = _seq_inputs(torch, dev)
+        n = kc.shape[1] // SEQ_RANKS
+        kl = kc[:, rank * n:(rank + 1) * n].contiguous()
+        vl = vc[:, rank * n:(rank + 1) * n].contiguous()
+        fn = make_sharded_decode_attention(None, axis_size=SEQ_RANKS,
+                                           axis_rank=rank)
+        scale = SEQ_SHAPE[4] ** -0.5
+        outs = {w: fn(q, kl, vl, kb, vb, lens, scale=scale, window=w)
+                for w in (None, SEQ_WINDOW)}
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SEQ_ITERS):
+            fn(q, kl, vl, kb, vb, lens, scale=scale)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3 / SEQ_ITERS
+        if rank == 0:
+            cases = []
+            for w, got in outs.items():
+                want = decode_attention(q, kc, vc, kb, vb, lens, scale=scale,
+                                        window=w)
+                err = (got.float() - want).abs().max().item()
+                # the result's bf16 rounding (half an ulp of the largest
+                # value) plus the kernels' fp32 tolerance
+                tol = 1e-4 + want.abs().max().item() * 2 ** -8
+                cases.append({"window": w, "max_abs_err": err, "tol": tol,
+                              "finite": bool(torch.isfinite(got).all()),
+                              "shape": list(got.shape),
+                              "dtype": str(got.dtype)})
+            kernel_ms = time_ms(torch, lambda: decode_attention(
+                q, kc, vc, kb, vb, lens, scale=scale), SEQ_ITERS)
+            queue.put({"cases": cases, "sharded_ms": sharded_ms,
+                       "kernel_ms": kernel_ms})
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_seq_decode(torch):
+    """11a: four spawned ranks on the one card, gloo over CUDA tensors
+    (NCCL refuses two ranks on one device), each holding a quarter of a
+    cache at qwen2-0.5b's attention shape; the merged output held against
+    the decode kernel over the whole cache, without and with a window."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    queue = mp.get_context("spawn").SimpleQueue()
+    ranks = mp.start_processes(seq_decode_rank, args=(port, queue),
+                               nprocs=SEQ_RANKS, join=False,
+                               start_method="spawn")
+    # drain the queue while joining (a rank that fails raises here)
+    got = []
+    while not ranks.join(timeout=1):
+        while not queue.empty():
+            got.append(queue.get())
+    while not queue.empty():
+        got.append(queue.get())
+    if len(got) != 1:
+        raise AssertionError(f"phase 11a: rank 0 reported {len(got)} times")
+    res = got[0]
+    b, Bq, Kv, G, hd, S = SEQ_SHAPE
+    for case in res["cases"]:
+        if not (case["finite"] and case["max_abs_err"] <= case["tol"]
+                and case["shape"] == [b, Bq, Kv, G, hd]):
+            raise AssertionError(f"phase 11a: sequence-parallel decode "
+                                 f"against the decode kernel {case}")
+    log(json.dumps({"seq_parallel_decode": dict(
+        res, ranks=SEQ_RANKS, backend="gloo", lens=list(SEQ_LENS),
+        shape=dict(b=b, Bq=Bq, Kv=Kv, G=G, hd=hd, S=S),
+        note="4 ranks sharing one card (host-staged gloo merges): "
+             "says nothing of 4 cards")}))
+
+
+def phase_roofline(torch, dev, smi):
+    """11b: the dry-run's plan of qwen2-0.5b x decode_32k at a 1x1 mesh,
+    counted on meta (its three terms with the H100's constants), then the
+    same step on the card: full width, cache filled in place with
+    ``normal_`` in bf16, the decode through the kernel, the median of 10
+    steps by CUDA events. Returns the step's kernel launches."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.base import H100
+    from repro_torch.core import masks
+    from repro_torch.core.cache import init_cache
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import forward
+
+    arch, shape_name, steps = ROOFLINE_RUN
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    rec = dryrun.run_one(arch, shape_name, mesh=Mesh(("data", "model"),
+                                                     (1, 1)), verbose=False)
+    S, b = shape.seq_len, shape.global_batch
+    Bq = 32
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    # the cache and the fp32 logits a lane, with room for the step's
+    # transients; a card without it cuts the batch only
+    lane = (2 * cfg.n_layers * S * cfg.n_kv_heads * cfg.head_dim * 2
+            + 2 * Bq * cfg.vocab_size * 4)
+    free = torch.cuda.mem_get_info(dev)[0] - (4 << 30)
+    run_b = b
+    while run_b * lane > free:
+        run_b //= 2
+    if run_b != b:
+        log(f"phase 11b: batch cut from {b} to {run_b} by the card's free "
+            f"memory ({free / 2**30:.1f} GiB)")
+    cache = init_cache(cfg, run_b, S, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for slot in cache:
+        for leaf in slot.values():
+            leaf.normal_(generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (run_b, Bq), device=dev,
+                           generator=g)
+    lens = torch.full((run_b,), S, dtype=torch.int32, device=dev)
+
+    def step():
+        return forward(params, tokens, cfg=cfg, device=dev,
+                       mode=masks.BLOCK_CAUSAL, block_size=Bq, cache=cache,
+                       cache_len=lens, decode_attention_fn=decode_attention)
+
+    with torch.no_grad():
+        out = step()
+        torch.cuda.synchronize()
+        if not (out.logits.shape == (run_b, Bq, cfg.vocab_size)
+                and bool(torch.isfinite(out.logits).all())):
+            raise AssertionError("phase 11b: the step's logits "
+                                 f"{tuple(out.logits.shape)} are not finite")
+        del out
+        zero_counts()
+        ms = []
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        launches = read_counts()
+        # where the step's time goes: one step under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    groups, by_kernel = device_groups(prof)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    want = {"decode_attention": cfg.n_layers * steps}
+    if {k: launches[k] for k in want} != want or any(
+            v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"phase 11b: launches {launches}, want {want}")
+    mem = rec["memory_analysis"]
+    log(json.dumps({"roofline_vs_card": {
+        "arch": arch, "shape": shape_name, "mesh": rec["mesh"],
+        "batch": run_b, "counted_batch": b,
+        "compute_ms": rec["compute_s"] * 1e3,
+        "memory_ms": rec["memory_s"] * 1e3,
+        "collective_ms": rec["collective_s"] * 1e3,
+        "bottleneck": rec["bottleneck"],
+        "arguments_once_ms": mem["argument_bytes"] / H100.hbm_bw * 1e3,
+        "counted_flops": rec["hlo_flops"], "counted_bytes": rec["hlo_bytes"],
+        "argument_bytes": mem["argument_bytes"],
+        "measured_median_ms": float(np.median(ms)),
+        "measured_ms": ms, "launches": launches,
+        "profiled_step_device_ms_by_group": groups,
+        "profiled_step_top_kernels": [[k, v[0], v[1]] for k, v in top],
+        "card": smi}}))
+    del params, cache, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_examples(torch):
+    """11c: the three examples on the card at ``EXAMPLE_RUNS``' budgets,
+    each run's kernel launches counted from 0; every kernel of
+    ``EXAMPLE_KERNELS`` must launch, and every decode (the teacher's and
+    the student's, every served row) must emit tokens before EOS."""
+    import importlib.util
+    total = {}
+    for name, args in EXAMPLE_RUNS:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t = time.perf_counter()
+        zero_counts()
+        out = mod.main(["--device", "cuda"] + args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if isinstance(out, dict):
+            gen = {k: out[k] for k in ("teacher_gen_length",
+                                       "student_gen_length")}
+        else:
+            # a row that served fewer responses than requests counts 0
+            want = int(args[args.index("--requests") + 1])
+            gen = {f"{r['sampler']}/{r['scheduler']}":
+                   r["gen_length"] if r["n"] == want else 0.0 for r in out}
+        if len(gen) < 2 or not all(v > 0 for v in gen.values()):
+            raise AssertionError(f"phase 11c: {name} emitted no tokens: "
+                                 f"{gen} ({out!r})")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(json.dumps({"example": name, "args": args, "launches": counts,
+                        "gen_length": gen, "s": time.perf_counter() - t}))
+    missing = [k for k in EXAMPLE_KERNELS if not total.get(k)]
+    if missing:
+        raise AssertionError(f"phase 11c: kernels never launched {missing}")
+    return total
+
+
+def phase_parallel(torch, dev, smi):
+    """Phase 11 (a)-(c)."""
+    out = {}
+    for label, run in (("a", lambda: phase_seq_decode(torch)),
+                       ("b", lambda: phase_roofline(torch, dev, smi)),
+                       ("c", lambda: phase_examples(torch))):
+        t = time.perf_counter()
+        out[label] = run()
+        log(f"phase 11 ({label}): {time.perf_counter() - t:.1f} s")
+    return out
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3885,6 +4179,11 @@ def main():
     t = time.perf_counter()
     extras_launches = phase_extras(torch, dev, smi)
     log(f"phase 10 (request extras, long window): "
+        f"{time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    phase_parallel(torch, dev, smi)
+    log(f"phase 11 (parallel decode, roofline, examples): "
         f"{time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 

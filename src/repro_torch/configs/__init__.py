@@ -1,11 +1,15 @@
 from repro_torch.configs.base import (  # noqa: F401
     A100,
+    DGX_H100,
     H100,
     H100_FP32_FLOPS,
+    INPUT_SHAPES,
     CDLMConfig,
+    Fabric,
     HardwareConfig,
     ModelConfig,
     ServeConfig,
+    ShapeConfig,
     TrainConfig,
 )
 from repro_torch.configs.registry import ARCHITECTURES, get_config  # noqa: F401

@@ -4,7 +4,8 @@ A copy of the JAX package's ``configs/base.py``, limited to what the port
 uses: the layer kinds, ``ModelConfig`` (with ``reduced()``, the parameter
 counts and the backbone predicates), ``check_supported`` (the slot kinds,
 norm and activation the port's model stack runs),
-``CDLMConfig``, ``TrainConfig``, ``ServeConfig`` and ``HardwareConfig``
+``CDLMConfig``, ``TrainConfig``, ``ServeConfig``, ``ShapeConfig`` with
+``INPUT_SHAPES`` (the dry-run's four input shapes) and ``HardwareConfig``
 (the roofline constants of the paper's A100 and of the port's H100). The
 port keeps its own copy so that it imports nothing of the JAX package; the
 field names, defaults and derived properties are the same, so a config
@@ -307,6 +308,23 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class HardwareConfig:
     """Roofline constants of one accelerator: dense bf16 peak FLOP/s, HBM
     bytes/s, interconnect bytes/s and HBM bytes. Every field is given: there
@@ -326,9 +344,30 @@ class HardwareConfig:
 A100 = HardwareConfig(name="a100-sxm4-80g", peak_flops=311.9e12,
                       hbm_bw=2039e9, ici_bw=300e9, hbm_bytes=80e9)
 # the port's card: NVIDIA's data sheet for the H100 SXM5 at its 700 W limit
-# (dense bf16 without sparsity; NVLink 4, 18 links)
+# (dense bf16 without sparsity; ``ici_bw``: NVLink 4's 18 links, both
+# directions summed, inside one node; the dry-run prices its collectives by
+# ``DGX_H100`` instead)
 H100 = HardwareConfig(name="h100-sxm5-80g", peak_flops=989e12,
                       hbm_bw=3.35e12, ici_bw=900e9, hbm_bytes=80e9)
 # fp32 FLOP/s outside the tensor cores (the fp32 kernels' route), from the
 # same data sheet
 H100_FP32_FLOPS = 67e12
+
+
+@dataclass(frozen=True)
+class Fabric:
+    """The links a collective crosses: ``node_gpus`` GPUs share one
+    NVLink domain at ``nvlink_bw`` each, and a group that spans nodes runs
+    at ``network_bw`` each (bytes/s per GPU, one direction)."""
+    name: str
+    node_gpus: int
+    nvlink_bw: float
+    network_bw: float
+
+
+# the nodes the dry-run's meshes are priced on: DGX H100-class, 8 GPUs on
+# NVLink 4 (900 GB/s per GPU both ways, 450 GB/s each way) and one 400 Gb/s
+# NDR InfiniBand NIC per GPU between nodes (50 GB/s each way), from NVIDIA's
+# DGX H100 data sheet
+DGX_H100 = Fabric(name="dgx-h100 (8 x NVLink 4, NDR 400G per GPU)",
+                  node_gpus=8, nvlink_bw=450e9, network_bw=50e9)

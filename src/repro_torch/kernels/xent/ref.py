@@ -20,9 +20,13 @@ import torch
 CHUNK = 4096
 
 
-def xent_ref(hidden, w, targets):
-    """hidden: (T, d); w: (V, d); targets: (T,) -> loss (T,) fp32."""
+def xent_ref(hidden, w, targets, softcap=None):
+    """hidden: (T, d); w: (V, d); targets: (T,) -> loss (T,) fp32. With
+    ``softcap``, the logits are ``softcap * tanh(logits / softcap)`` first
+    (a final-logit softcap, as the reference's logits-based loss)."""
     logits = hidden.float() @ w.float().t()
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     return (torch.logsumexp(logits, -1)
             - logits.gather(-1, targets.long()[:, None])[:, 0])
 

@@ -63,10 +63,13 @@ def _ssm_coeffs(params, u: torch.Tensor, cfg: ModelConfig):
 
 def _scan(a: torch.Tensor, b: torch.Tensor, h: torch.Tensor):
     """``h_t = a_t h_{t-1} + b_t`` from ``h`` (b, e, N) over the L steps of
-    ``a``, ``b`` (b, L, e, N): every state (b, L, e, N) and the last."""
+    ``a``, ``b`` (b, L, e, N): every state (b, L, e, N) and the last. The
+    steps are split once (``unbind``): indexing ``a[:, t]`` per step would
+    give each step's backward a zero gradient of the whole (b, L, e, N)
+    tensor to fill and add, O(L^2) bytes a layer."""
     hs = []
-    for t in range(a.shape[1]):
-        h = torch.addcmul(b[:, t], a[:, t], h)
+    for a_t, b_t in zip(torch.unbind(a, 1), torch.unbind(b, 1)):
+        h = torch.addcmul(b_t, a_t, h)
         hs.append(h)
     return torch.stack(hs, 1), h
 

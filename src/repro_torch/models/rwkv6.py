@@ -75,11 +75,12 @@ def time_mix(params, x: torch.Tensor, cfg: ModelConfig,
     u = params["u"].reshape(H, hs)[..., None]          # (H, hs, 1)
     S = state["S"]
     ys = []
-    for t in range(L):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (b, H, hs, hs)
-        ys.append((r[:, t, :, None, :]
-                   @ torch.addcmul(S, u, kv)).squeeze(-2))
-        S = torch.addcmul(kv, w[:, t, :, :, None], S)
+    # the tokens split once: a per-token index's backward would fill and
+    # add a zero gradient of the whole (b, L, H, hs) tensor, O(L^2) bytes
+    for r_t, k_t, v_t, w_t in zip(*(x.unbind(1) for x in (r, k, v, w))):
+        kv = k_t[..., :, None] * v_t[..., None, :]      # (b, H, hs, hs)
+        ys.append((r_t[..., None, :] @ torch.addcmul(S, u, kv)).squeeze(-2))
+        S = torch.addcmul(kv, w_t[..., :, None], S)
     y = torch.stack(ys, 1)                             # (b, L, H, hs)
 
     # per-head group norm (population variance, as jnp.var)

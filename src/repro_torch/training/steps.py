@@ -13,6 +13,8 @@ through the fused cross-entropy kernel on post-norm hidden states
 logits-based losses, without a ``(b, G, V)`` logits tensor. The KL terms
 keep full generation-span logits, as the reference does. A model with a
 final-logit softcap is refused (the kernel has none, as the JAX one).
+``ar_loss`` and ``cdlm_loss`` take an ``xent_fn`` in place of the kernel
+(the dry-run passes a plain one on the meta device, where no kernel runs).
 
 Randomness comes in as draws: ``dlm_draws`` makes the masking ratio ``t``
 (b,) and the uniforms ``u`` (b, G) from a ``torch.Generator``; the losses
@@ -45,9 +47,10 @@ def dlm_draws(generator: torch.Generator, b: int, G: int, device):
             "u": D.uniform(generator, (b, G), device)}
 
 
-def _xent_w(params, cfg: ModelConfig):
-    """The (V, d) unembedding the fused cross-entropy reads."""
-    if cfg.final_logit_softcap is not None:
+def _xent_w(params, cfg: ModelConfig, xent_fn=None):
+    """The (V, d) unembedding the cross-entropy reads; the fused kernel
+    (``xent_fn`` None) refuses a softcapped model."""
+    if xent_fn is None and cfg.final_logit_softcap is not None:
         raise ValueError(f"{cfg.name}: the fused cross-entropy has no "
                          "final-logit softcap; a softcapped model's loss "
                          "cannot go through it")
@@ -81,10 +84,13 @@ def dlm_pretrain_loss(params, batch, draws, *, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # AR training
 # ---------------------------------------------------------------------------
-def ar_loss(params, batch, *, cfg: ModelConfig, remat: bool = False):
+def ar_loss(params, batch, *, cfg: ModelConfig, remat: bool = False,
+            xent_fn=None):
     """Next-token loss over the answer span (SFT): the causal forward of
     canvas[:, :-1] read at positions P-1 .. P+G-2, whose targets are the
-    answer, weighted by ``maskable``."""
+    answer, weighted by ``maskable``. ``xent_fn(h (T, d), w (V, d), y
+    (T,)) -> (T,)`` replaces the fused kernel and applies any final-logit
+    softcap itself."""
     prompt, answer = batch["prompt"], batch["answer"]
     b, P = prompt.shape
     canvas = torch.cat([prompt, answer], dim=1)
@@ -92,8 +98,9 @@ def ar_loss(params, batch, *, cfg: ModelConfig, remat: bool = False):
                   mode=masks.CAUSAL, remat=remat, return_logits=False)
     h = out.hidden[:, P - 1:]
     G = answer.shape[1]
-    nll = fused_xent(h.reshape(b * G, -1), _xent_w(params, cfg),
-                     answer.reshape(b * G)).reshape(b, G)
+    nll = (xent_fn or fused_xent)(
+        h.reshape(b * G, -1), _xent_w(params, cfg, xent_fn),
+        answer.reshape(b * G)).reshape(b, G)
     w = batch["maskable"].float()
     loss = (nll * w).sum() / w.sum().clamp_min(1.0)
     total = loss + cfg.router_aux_weight * out.aux_loss
@@ -107,7 +114,7 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
               cdlm: CDLMConfig, teacher_head, use_lora: bool,
               lora_rank: int = 32, lora_alpha: float = 32.0,
               remat: bool = False, student_mode: str = masks.BLOCK_CAUSAL,
-              efficient_loss: bool = False, extras=None):
+              efficient_loss: bool = False, extras=None, xent_fn=None):
     """Eq. 7 total objective.
 
     trainable: the LoRA adapters (``use_lora``) or the full student params;
@@ -119,7 +126,9 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
     span only (the objectives never read prompt logits). ``extras``: the
     batch's request extras, which every forward takes; a prefix
     (internvl2's ``prefix_embeds``) shifts the prompt length and the
-    generation span's rows by its length, as in the reference."""
+    generation span's rows by its length, as in the reference.
+    ``xent_fn`` replaces the fused kernel in the DLM term, as in
+    :func:`ar_loss`."""
     params = (LoRA.merge(static_params, trainable, lora_alpha, lora_rank)
               if use_lora else trainable)
     extras = extras or {}
@@ -165,7 +174,9 @@ def cdlm_loss(trainable, static_params, batch, draws, *, cfg: ModelConfig,
     out_dlm = forward(params, canvas, **dict(kw, logits_slice=None),
                       return_logits=False)
     l_dlm = LS.dlm_loss_from_hidden(out_dlm.hidden[:, off + P:],
-                                    _xent_w(params, cfg), batch["gt"], m, t)
+                                    _xent_w(params, cfg, xent_fn),
+                                    batch["gt"], m, t,
+                                    xent_fn=xent_fn or fused_xent)
 
     total = LS.cdlm_total(l_distill, l_cons, l_dlm, w_distill=cdlm.w_distill,
                           w_cons=cdlm.w_cons, w_dlm=cdlm.w_dlm)

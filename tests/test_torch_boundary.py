@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py`` or the port's benches, ``benchmarks/*_torch.py``) imports
+``chip_smoke.py``, the port's benches, ``benchmarks/*_torch.py``, or its
+examples, ``examples/*_torch.py``) imports
 JAX or anything of the JAX package ``repro``.
 Checked twice: every module imported in a fresh interpreter leaves no
 ``jax*`` / ``repro`` / ``repro.*`` entry in ``sys.modules``, and an AST scan
@@ -55,7 +56,8 @@ def test_import_pulls_in_no_jax(imported, module):
 
 
 @pytest.mark.parametrize("path", FILES + [ROOT / "chip_smoke.py"] + sorted(
-    (ROOT / "benchmarks").glob("*_torch.py")),
+    (ROOT / "benchmarks").glob("*_torch.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))

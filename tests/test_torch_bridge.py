@@ -1,7 +1,7 @@
 """The port's configs and params bridge: the JAX param tree (and its npz
 checkpoint keys) round-trips through ``params_from_jax``; the seeded init
-draws the JAX init's shapes and distributions; configs match the JAX
-package's field for field."""
+draws the JAX init's shapes and distributions; configs (and the dry-run's
+input shapes) match the JAX package's field for field."""
 import dataclasses
 
 import numpy as np
@@ -137,6 +137,17 @@ def test_training_and_serving_configs_match_the_jax_package(name):
         assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
     if name == "CDLMConfig":
         assert mine.n_blocks == theirs.n_blocks
+
+
+def test_input_shapes_match_the_jax_package():
+    """The dry-run's four input shapes, field for field."""
+    mine, theirs = port_base.INPUT_SHAPES, jax_base.INPUT_SHAPES
+    assert list(mine) == list(theirs)
+    assert [f.name for f in dataclasses.fields(port_base.ShapeConfig)] == \
+        [f.name for f in dataclasses.fields(jax_base.ShapeConfig)]
+    for name, shape in mine.items():
+        for f in dataclasses.fields(shape):
+            assert getattr(shape, f.name) == getattr(theirs[name], f.name)
 
 
 def test_unported_architectures_are_refused():

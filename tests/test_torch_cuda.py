@@ -1306,3 +1306,40 @@ def test_xent_at_whisper_vocabulary(cuda):
     torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-4)
     _grad_close(dh, want_dh, torch.bfloat16)
     _grad_close(dw, want_dw, torch.bfloat16)
+
+
+SEQ_DECODE = """
+from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.parallel import make_sharded_decode_attention
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+g = torch.Generator(device=dev).manual_seed(3)
+b, Bq, Kv, G, hd, S = 4, 8, 2, 7, 64, 512
+rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+q, kc, vc = rnd(b, Bq, Kv, G, hd), rnd(b, S, Kv, hd), rnd(b, S, Kv, hd)
+kb, vb = rnd(b, Bq, Kv, hd), rnd(b, Bq, Kv, hd)
+lens = torch.tensor([512, 128, 127, 300], dtype=torch.int32, device=dev)
+n = S // WORLD
+fn = make_sharded_decode_attention(None, axis_size=WORLD, axis_rank=RANK)
+got = {w: fn(q, kc[:, RANK * n:(RANK + 1) * n], vc[:, RANK * n:(RANK + 1) * n],
+             kb, vb, lens, scale=hd ** -0.5, window=w) for w in (None, 64)}
+if RANK == 0:
+    for w, out in got.items():
+        want = decode_attention(q, kc, vc, kb, vb, lens, scale=hd ** -0.5,
+                                window=w)
+        err = (out.float() - want).abs().max().item()
+        tol = 1e-4 + want.abs().max().item() * 2 ** -8
+        assert out.dtype == torch.bfloat16 and err <= tol, (w, err, tol)
+print("SEQ_DECODE_OK")
+"""
+
+
+@pytest.mark.cuda
+def test_sequence_parallel_decode_matches_the_kernel(cuda, tmp_path):
+    """``chip_smoke.py`` phase 11a at a small size: four gloo ranks on the
+    one card, each a quarter of the cache, the merged bf16 output against
+    the decode kernel over the whole cache (its bf16 rounding plus 1e-4),
+    without and with a window."""
+    from _torch_dist import run_ranks
+    outs = run_ranks(SEQ_DECODE, 4, tmp_path, timeout=300)
+    assert all("SEQ_DECODE_OK" in o for o in outs)
