@@ -124,6 +124,7 @@ from repro_torch.serving.api import (
     SamplingParams,
     normalize_requests,
 )
+from repro_torch.spans import Phases
 
 
 def _validate_requests(requests: Sequence[GenerationRequest]) -> None:
@@ -137,6 +138,10 @@ def _validate_requests(requests: Sequence[GenerationRequest]) -> None:
                 f"request {requests[0].id} has {sorted(keys0)}, request "
                 f"{r.id} has {sorted(r.extras or {})}")
 
+
+# the continuous engine's phases (``ContinuousEngine.phase_stats``)
+PHASES = ("engine.step", "engine.schedule", "engine.admit", "engine.block",
+          "engine.sync", "engine.refine", "engine.commit", "engine.finish")
 
 EXTRAS_REFUSED = ("ContinuousEngine does not support request extras "
                   "(encoder/prefix embeds) yet")
@@ -237,6 +242,19 @@ class _RequestStepper:
         graph ``name`` (captured now, the capture's warm-up run being this
         call, if new), or eagerly when the engine has no graphs."""
         return fn() if self._graphs is None else self._graphs(name, fn)
+
+
+class _Tally:
+    """Count, sum and peak of a sampled whole number, kept running."""
+    __slots__ = ("n", "total", "peak")
+
+    def __init__(self):
+        self.n = self.total = self.peak = 0
+
+    def add(self, x: int) -> None:
+        self.n += 1
+        self.total += x
+        self.peak = max(self.peak, x)
 
 
 class _Flight:
@@ -626,6 +644,7 @@ class ContinuousEngine(_RequestStepper):
         self._arange_b = torch.arange(B, device=self.device)
         self._all_block = torch.ones((1, B), dtype=torch.bool,
                                      device=self.device)
+        self._phases = Phases(PHASES)
         self._reset()
 
     # -- state transitions ---------------------------------------------------
@@ -785,29 +804,32 @@ class ContinuousEngine(_RequestStepper):
         live = state.live & run
         starts = P + np.clip(state.blk, 0, spec.n_blocks - 1) * B
         self._write_block_inputs(state, starts, live)
+        phases = self._phases
         it = 0
         while it < B:
             # the loop condition is read back to the host: one device sync
             # per refinement iteration (a copy: on the CPU, .cpu() aliases
             # the buffer the iteration rewrites)
-            active = state.active_t.cpu().numpy().copy()
+            with phases("engine.sync"):
+                active = state.active_t.cpu().numpy().copy()
             if not active.any():
                 break
-            self._replay(variant, lambda: self._refine(variant))
+            with phases("engine.refine"):
+                self._replay(variant, lambda: self._refine(variant))
             state.steps += active
             state.calls["refine"] += 1
             it += 1
 
-        # commit pass: recompute the finalized blocks' KV exactly, for the
-        # lanes that ran, each at its own offset
-        C.commit_rows(state.cache, self._replay("commit",
-                                                  self._commit_forward),
-                      starts, live)
-        state.calls["commit"] += 1
-
-        bt = state.tokens.gather(1, self._block_positions(state))
-        eos_hit = (bt == torch.as_tensor(state.eos, device=dev)[:, None]
-                   ).any(-1).cpu().numpy()
+        with phases("engine.commit"):
+            # commit pass: recompute the finalized blocks' KV exactly, for
+            # the lanes that ran, each at its own offset
+            C.commit_rows(state.cache,
+                          self._replay("commit", self._commit_forward),
+                          starts, live)
+            state.calls["commit"] += 1
+            bt = state.tokens.gather(1, self._block_positions(state))
+            eos_hit = (bt == torch.as_tensor(state.eos, device=dev)[:, None]
+                       ).any(-1).cpu().numpy()
         state.blk = np.where(live, state.blk + 1, state.blk)
         finished = live & (eos_hit | (state.blk >= state.lane_nblocks))
         state.live &= ~finished
@@ -829,8 +851,9 @@ class ContinuousEngine(_RequestStepper):
         # blocks must not be streamed twice
         self._emitted: Dict[int, int] = {}
         self._t0 = time.perf_counter()
-        self._pool_samples: List[int] = []
-        self._live_samples: List[int] = []
+        self._pool_tally = _Tally()     # pages in use at each block decode
+        self._lane_tally = _Tally()     # lanes decoding at each block decode
+        self._phases.reset()
         self._preemptions = 0
         self._stall_rounds = 0
 
@@ -863,6 +886,7 @@ class ContinuousEngine(_RequestStepper):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         state.clear()
+        self._phases.reset()
 
     def _lane_nblocks(self, rp: ResolvedSamplingParams) -> int:
         if rp.max_tokens is None:
@@ -934,9 +958,40 @@ class ContinuousEngine(_RequestStepper):
         decode one block for every runnable lane, (paged) claim the
         survivors' next blocks, evict finished lanes. Returns one
         :class:`BlockEvent` per block finalized (final blocks carry the
-        request's :class:`GenerationOutput`)."""
-        N, P, B = self.n_lanes, self.spec.prompt_len, self.spec.block_size
-        state = self._state
+        request's :class:`GenerationOutput`). Each part is a phase of
+        :meth:`phase_stats`."""
+        phases, state = self._phases, self._state
+        with phases("engine.step"):
+            with phases("engine.schedule"):
+                run, admission = self._schedule(state)
+            if admission is not None:
+                with phases("engine.admit"):
+                    self._admit(state, *admission)
+                run = run | admission[1]
+            if all(f is None for f in self._flights):
+                # nothing decoding and nothing arrived yet: idle to the next
+                # arrival instead of spinning
+                if self._queue:
+                    wait = self._queue[0].arrival_s - (time.perf_counter()
+                                                       - self._t0)
+                    if wait > 0:
+                        time.sleep(wait)
+                return []
+            if self.paged:
+                self._pool_tally.add(self.n_pages
+                                     - C.free_page_count(state.cache))
+            self._lane_tally.add(int(run.sum()))
+            with phases("engine.block"):
+                self._decode_block(state, run)
+            with phases("engine.finish"):
+                return self._finish(state, run)
+
+    def _schedule(self, state: _Slots):
+        """The host's choices at a block boundary: (paged) back the
+        in-flight lanes' current blocks, preempting while none can be, and
+        pick the arrived requests to admit into free lanes. Returns the
+        runnable lanes and ``_admit``'s arguments (None: nobody admitted)."""
+        N, P = self.n_lanes, self.spec.prompt_len
         now = time.perf_counter() - self._t0
 
         # ---- paged: back the in-flight lanes' current blocks first ----
@@ -997,26 +1052,15 @@ class ContinuousEngine(_RequestStepper):
             keys[lane] = _lane_key(rp)
             if self.paged:
                 budget -= self._admit_pages
-        if admit.any():
-            self._admit(state, prompts, admit, nblocks, temps, taus, eos,
-                        keys)
-            run = run | admit
-        if all(f is None for f in self._flights):
-            # nothing decoding and nothing arrived yet: idle to the next
-            # arrival instead of spinning
-            if self._queue:
-                wait = self._queue[0].arrival_s - (time.perf_counter()
-                                                   - self._t0)
-                if wait > 0:
-                    time.sleep(wait)
-            return []
-        if self.paged:
-            self._pool_samples.append(self.n_pages
-                                      - C.free_page_count(state.cache))
+        if not admit.any():
+            return run, None
+        return run, (prompts, admit, nblocks, temps, taus, eos, keys)
 
-        # ---- one block-level decode for the runnable lanes ----
-        self._live_samples.append(int(run.sum()))
-        self._decode_block(state, run)
+    def _finish(self, state: _Slots, run) -> List[BlockEvent]:
+        """After a block decode: (paged) claim the survivors' next-block
+        pages, read the canvases, emit the block events and evict the
+        finished lanes."""
+        N, P, B = self.n_lanes, self.spec.prompt_len, self.spec.block_size
         if self.paged:
             # claim the survivors' next-block pages now, so that the next
             # boundary's in-flight allocation finds them backed
@@ -1078,16 +1122,16 @@ class ContinuousEngine(_RequestStepper):
         """Occupancy since the last reset (paged layout; zeros for dense),
         sampled at every block boundary, with the preemptions and the
         rounds in which a live lane stalled for pages."""
-        if not self.paged or not self._pool_samples:
+        pool = self._pool_tally
+        if not self.paged or not pool.n:
             return {"n_pages": float(self.n_pages), "peak_pages": 0.0,
                     "avg_pages": 0.0, "peak_occupancy": 0.0,
                     "preemptions": 0.0, "stall_rounds": 0.0}
-        peak = max(self._pool_samples)
         return {
             "n_pages": float(self.n_pages),
-            "peak_pages": float(peak),
-            "avg_pages": float(np.mean(self._pool_samples)),
-            "peak_occupancy": peak / self.n_pages,
+            "peak_pages": float(pool.peak),
+            "avg_pages": pool.total / pool.n,
+            "peak_occupancy": pool.peak / self.n_pages,
             "preemptions": float(self._preemptions),
             "stall_rounds": float(self._stall_rounds),
         }
@@ -1095,10 +1139,25 @@ class ContinuousEngine(_RequestStepper):
     def concurrency_stats(self) -> Dict[str, float]:
         """Decoding-lane concurrency since the last reset, sampled at every
         block-level decode step."""
-        if not self._live_samples:
+        lanes = self._lane_tally
+        if not lanes.n:
             return {"peak_lanes": 0.0, "avg_lanes": 0.0}
-        return {"peak_lanes": float(max(self._live_samples)),
-                "avg_lanes": float(np.mean(self._live_samples))}
+        return {"peak_lanes": float(lanes.peak),
+                "avg_lanes": lanes.total / lanes.n}
+
+    def phase_stats(self) -> Dict[str, Dict[str, float]]:
+        """``{phase: {"count", "seconds"}}`` since the last reset, on the
+        host's clock, with or without a profiler: ``engine.step`` (a whole
+        :meth:`step`) holds ``engine.schedule`` (page backing, preemption,
+        the admission choice), ``engine.admit`` (the admission and its
+        prompts' prefill), ``engine.block`` (a block decode) and
+        ``engine.finish`` (the next block's pages, the canvases' read, the
+        events, eviction); ``engine.block`` holds ``engine.sync`` (each
+        read of ``active``: the host waits for the device),
+        ``engine.refine`` (each iteration's replay) and ``engine.commit``
+        (the commit pass and the EOS read). While a profiler records, each
+        phase is also a ``record_function`` range of its name."""
+        return self._phases.stats()
 
 
 def make_engine(params, cfg: ModelConfig, serve: ServeConfig,

@@ -26,7 +26,14 @@ repo has no tokenizer):
 - ``GET /healthz`` — liveness (``{"status": "ok"}``).
 
 - ``GET /metrics`` — Prometheus text exposition surfacing the engine's
-  ``page_pool_stats()`` / ``concurrency_stats()`` plus request counters.
+  ``page_pool_stats()`` / ``concurrency_stats()`` plus request counters,
+  and, for the continuous engine, ``phase_stats()``: the host's seconds
+  and entries in each phase of ``step()`` since the engine's last reset,
+  as ``cdlm_engine_phase_seconds_total{phase="engine.sync"}`` and
+  ``cdlm_engine_phase_total{phase="engine.sync"}`` (the phases are
+  ``ContinuousEngine.phase_stats``'s). These need no profiler: a rate of
+  ``engine.sync`` seconds near that of ``engine.step`` says the host
+  mostly waits for the device, a low one that the host sets the pace.
 
 A single scheduler thread owns the engine (the engines are not
 thread-safe): HTTP handlers enqueue requests through
@@ -111,7 +118,7 @@ class EngineDriver:
 
     def metrics(self) -> str:
         # lock-free snapshot: counters are GIL-atomic int reads and the
-        # stats methods only read host-side lists, so /metrics stays
+        # stats methods only read host-side counters, so /metrics stays
         # responsive while a decode step holds the scheduler lock
         eng = self.engine
         lines = [
@@ -133,6 +140,15 @@ class EngineDriver:
             for k, v in src().items():
                 lines.append(f"# TYPE {prefix}_{k} gauge")
                 lines.append(f"{prefix}_{k} {v}")
+        phases = getattr(eng, "phase_stats", None)
+        if phases is not None:
+            stats = phases()
+            for metric, key in (("cdlm_engine_phase_seconds_total",
+                                 "seconds"),
+                                ("cdlm_engine_phase_total", "count")):
+                lines.append(f"# TYPE {metric} counter")
+                lines += [f'{metric}{{phase="{name}"}} {s[key]}'
+                          for name, s in stats.items()]
         return "\n".join(lines) + "\n"
 
     def shutdown(self):

@@ -3,9 +3,10 @@ on the CPU: streamed chunks reassemble to the non-streamed ``token_ids``,
 which equal the engine's ``generate`` (greedy and seeded-sampled, both
 schedulers); a sampled request to a ``fused_select`` engine and a prompt
 of the wrong length get 400; ``/healthz`` turns 500 once ``step()``
-raises; ``/metrics`` carries the request counters. Then the serve CLI's
-``--http --port 0`` in a subprocess and ``benchmarks/serve_smoke_torch.py``.
-Every comparison is exact (token ids)."""
+raises; ``/metrics`` carries the request counters and the engine's
+phases. Then the serve CLI's ``--http --port 0`` in a subprocess and
+``benchmarks/serve_smoke_torch.py``. Every comparison is exact (token
+ids)."""
 import json
 import os
 import subprocess
@@ -27,6 +28,7 @@ from repro_torch.serving import (  # noqa: E402
     SamplingParams,
     make_engine,
 )
+from repro_torch.serving.engine import PHASES  # noqa: E402
 from repro_torch.serving.server import serve_http  # noqa: E402
 
 torch.set_num_threads(2)
@@ -140,6 +142,26 @@ def test_healthz_turns_500_after_step_raises(server):
         urllib.request.urlopen(f"{base}/healthz", timeout=30)
     assert err.value.code == 500
     assert "decode failed" in json.load(err.value)["error"]
+
+
+@pytest.mark.parametrize("server", [{}], ids=["continuous"], indirect=True)
+def test_metrics_export_the_engine_phases(server):
+    eng, base = server
+    with _post(base, {"prompt": _prompt().tolist()}) as r:
+        assert json.load(r)["choices"][0]["token_ids"]
+    with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+        metrics = r.read().decode()
+    got = dict(line.rsplit(" ", 1) for line in metrics.splitlines()
+               if line.startswith("cdlm_engine_phase"))
+    stats = eng.phase_stats()
+    assert set(stats) == set(PHASES)
+    for name, st in stats.items():
+        assert float(got[f'cdlm_engine_phase_total{{phase="{name}"}}']
+                     ) == st["count"]
+        assert float(got[f'cdlm_engine_phase_seconds_total{{phase="{name}"}}'
+                         ]) == st["seconds"]
+    assert stats["engine.refine"]["count"] == eng.call_counts()["refine"] > 0
+    assert "# TYPE cdlm_engine_phase_seconds_total counter" in metrics
 
 
 def test_serve_cli_serves_http_on_port_0():
