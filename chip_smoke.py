@@ -59,7 +59,11 @@ Phases, each timed, any failure raises and exits non-zero:
    decode (8 lanes, 832 rows), prefill (L 768) and select over its
    (151,655, 896) head; the long window's decode (window 8,192, 4 lanes
    of 8,512 rows) and prefill at L 8,448 (one lane) without and with the
-   window;
+   window; the forward's fused elementwise passes (add + RMSNorm, QKV
+   bias + RoPE, act(g) * u; ``check_elementwise``) at dream-7b's widths
+   at 32, 1,024 and 16,384 rows, timed beside their plain versions, their
+   bytes bound and ``F.rms_norm``, and checked at llada-8b's, qwen2-0.5b's
+   and gemma-7b's;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -257,6 +261,12 @@ SELECT_KERNELS = ["select_partial_tc", "select_partial_kernel",
                   "select_merge_kernel"]
 DECODE_KERNELS = ["decode_attn_tc", "decode_attn_kernel",
                   "decode_merge_kernel"]
+ELEMENTWISE_SRC = "src/repro_torch/kernels/elementwise/csrc/elementwise.cu"
+# the passes replace no Pallas kernel: XLA fused these ops on the TPU
+ELEMENTWISE_TPU = "none (XLA fused the ops)"
+ELEMENTWISE_KERNELS = {"add_rmsnorm": ["add_rmsnorm_kernel"],
+                       "qkv_rope": ["qkv_rope_kernel"],
+                       "gated_act": ["gated_act_kernel"]}
 # source -> its tensor-core kernels, and the fp32 kernels beside them
 TC_KERNELS = {"xent.cu": XENT_TC_KERNELS, "block_attn.cu": ["block_attn_tc"],
               "select.cu": ["select_partial_tc"],
@@ -265,7 +275,9 @@ FP32_KERNELS = XENT_FP32_KERNELS + ["block_attn_kernel",
                                     "select_partial_kernel",
                                     "decode_attn_kernel"]
 # source -> further kernels whose ptxas report must show no spills
-NO_SPILL = {"decode_attn.cu": ["decode_attn_kernel"]}
+NO_SPILL = {"decode_attn.cu": ["decode_attn_kernel"],
+            "elementwise.cu": ["add_rmsnorm_kernel", "qkv_rope_kernel",
+                               "gated_act_kernel"]}
 # template instances ptxas and cuobjdump must report: the attention
 # kernels at every head dim they take
 INSTANCES = ([f"block_attn_tc<{hd}>" for hd in (64, 112, 128, 256)]
@@ -298,7 +310,8 @@ XENT_FWD_KERNELS = ["xent_partial_tc", "xent_partial_kernel",
 XENT_BWD_KERNELS = ["xent_probs_tc", "xent_grad_tc", "xent_probs_kernel",
                     "xent_dh_kernel", "xent_dw_kernel", "xent_dh_final_kernel"]
 KERNELS = ("decode_attention", "fused_select", "paged_decode_attention",
-           "block_attention", "xent_forward", "xent_backward")
+           "block_attention", "xent_forward", "xent_backward", "add_rmsnorm",
+           "qkv_rope", "gated_act")
 NEAR_TIE = 1e-4
 # the per-lane draw's kernels in a trace: threefry's int32 elementwise ops,
 # the uniform's shifts and masks and the Gumbel's logs and clamp
@@ -1222,6 +1235,110 @@ def check_architectures(torch, dev, lens):
     return main
 
 
+def bf16_ulps(torch, a, b):
+    """Per element, how many bf16 steps lie between a and b (both bf16)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_elementwise(torch, dev, *, arch, rows, timed=False):
+    """The three fused elementwise passes against their plain versions at
+    ``arch``'s widths and ``rows`` token rows (lanes of 32-row blocks at
+    per-lane offsets, or 512-row prompts above 1,024 rows): the residual
+    sum, QKV bias + RoPE and act(g) * u bit for bit, the norm within one
+    bf16 ulp (its sum of squares runs in another order than PyTorch's
+    mean). ``timed``: each pass's ms (CUDA events over back-to-back calls,
+    and the profiler's device time), its plain version's, its bound at
+    3.35 TB/s from the bytes it must move, and for the norm
+    ``F.rms_norm``'s (the norm alone, which the port never calls). Returns
+    a record per pass."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.elementwise import (
+        add_rmsnorm,
+        gated_act,
+        qkv_rope,
+    )
+    from repro_torch.kernels.elementwise import ref as eref
+    cfg = get_config(arch)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    L = 512 if rows > 1024 else 32
+    b = rows // L
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+    x, delta, w = r(b, L, d, scale=4.0), r(b, L, d), r(d, scale=0.1) + 1
+    q, k, v = r(b, L, nq), r(b, L, nkv), r(b, L, nkv)
+    bq, bk, bv = ((r(nq, scale=0.1), r(nkv, scale=0.1), r(nkv, scale=0.1))
+                  if cfg.qkv_bias else (None, None, None))
+    pos = (torch.arange(L, device=dev) if L == 512 else
+           torch.randint(0, 737, (b, 1), device=dev, generator=g)
+           + torch.arange(L, device=dev))
+    gg, uu = r(b, L, ff, scale=3.0), r(b, L, ff)
+    rope_kw = dict(head_dim=hd, theta=cfg.rope_theta)
+    calls = {
+        "add_rmsnorm": (lambda: add_rmsnorm(x, delta, w, cfg.norm_eps),
+                        lambda: eref.add_rmsnorm(x, delta, w, cfg.norm_eps)),
+        "qkv_rope": (lambda: qkv_rope(q, k, v, bq, bk, bv, pos, **rope_kw),
+                     lambda: eref.qkv_rope(q, k, v, bq, bk, bv, pos,
+                                           **rope_kw)),
+        "gated_act": (lambda: gated_act(gg, uu, cfg.activation),
+                      lambda: eref.gated_act(gg, uu, cfg.activation))}
+    item = 2
+    io = 2 if bv is not None else 0
+    n_bytes = {"add_rmsnorm": 4 * rows * d * item + d * item,
+               "qkv_rope": 2 * rows * (nq + nkv) * item + io * rows * nkv
+               * item + (nq + 2 * nkv) * item * (bq is not None)
+               + rows * 8,
+               "gated_act": 3 * rows * ff * item}
+    recs = {}
+    with torch.no_grad():
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            ulps = max(bf16_ulps(torch, a, c).max().item()
+                       for a, c in zip(got, want))
+            exact = [torch.equal(a, c) for a, c in zip(got, want)]
+            # the norm's h may sit one bf16 ulp off; every other output is
+            # the plain path's bit for bit
+            ok = (exact[0] and ulps <= 1 if name == "add_rmsnorm"
+                  else all(exact))
+            if not ok:
+                raise AssertionError(f"{name} {arch} rows {rows}: "
+                                     f"{ulps} bf16 ulps, equal {exact}")
+            rec = {"kernel": name, "case": f"{arch} rows {rows}",
+                   "max_abs_err": max((a.float() - c.float()).abs().max()
+                                      .item() for a, c in zip(got, want)),
+                   "max_bf16_ulps": ulps, "bit_equal": exact}
+            if timed:
+                library = None
+                if name == "add_rmsnorm":
+                    s_ = x + delta
+                    library = lambda: F.rms_norm(  # noqa: E731
+                        s_, (d,), w, cfg.norm_eps)
+                times = alternate(torch, plain, kernel, library, iters=20)
+                bms, by = bound_ms(n_bytes[name], 0, "bfloat16")
+                rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
+                           library_ms=times.get("library"), bound_ms=bms,
+                           bound_by=by, bytes=n_bytes[name],
+                           kernel_device_ms=device_ms(
+                               torch, kernel, 20, ELEMENTWISE_KERNELS[name]),
+                           plain_device_ms=device_ms(torch, plain, 20, [""]),
+                           library_device_ms=library and device_ms(
+                               torch, library, 20, [""]))
+            log(json.dumps(rec))
+            recs[name] = rec
+    return recs
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attn import ref as dref
     lens8 = [0, 512, 536, 577, 608, 640, 700, 736]
@@ -1340,6 +1457,17 @@ def phase_kernels(torch, dev):
                    name=f"ragged V {dtype}")
     check_xent(torch, dev, T=300, d=256, V=50_021, dtype="bfloat16",
                scale=1.0, name="ragged V sharp bfloat16")
+    # the forward's elementwise passes: timed at the main path's shapes
+    # (dream-7b: one lane's 32 rows, 32 lanes' 1,024, an admission's
+    # 16,384), checked at the other configs' widths
+    for rows in (32, 1024, 16384):
+        recs = check_elementwise(torch, dev, arch="dream-7b", rows=rows,
+                                 timed=True)
+        if rows == 1024:
+            main.update(recs)
+    for arch in ("llada-8b", "qwen2-0.5b", "gemma-7b"):
+        for rows in (32, 1024):
+            check_elementwise(torch, dev, arch=arch, rows=rows)
     return main
 
 
@@ -1365,6 +1493,11 @@ def kernel_counters():
         decode_attention,
         paged_decode_attention,
     )
+    from repro_torch.kernels.elementwise import (
+        add_rmsnorm,
+        gated_act,
+        qkv_rope,
+    )
     from repro_torch.kernels.select import fused_select
     from repro_torch.kernels.xent import fused_xent
     return {"decode_attention": (decode_attention, "launches"),
@@ -1372,7 +1505,10 @@ def kernel_counters():
             "paged_decode_attention": (paged_decode_attention, "launches"),
             "block_attention": (flash_block_attention, "launches"),
             "xent_forward": (fused_xent, "launches"),
-            "xent_backward": (fused_xent, "backward_launches")}
+            "xent_backward": (fused_xent, "backward_launches"),
+            "add_rmsnorm": (add_rmsnorm, "launches"),
+            "qkv_rope": (qkv_rope, "launches"),
+            "gated_act": (gated_act, "launches")}
 
 
 def zero_counts():
@@ -1397,18 +1533,39 @@ def serve_counted(torch, dev, eng, reqs):
     return {o.id: o for o in outs}, wall, launches
 
 
+def elementwise_launches(cfg, forwards: int) -> dict:
+    """The fused elementwise passes' launches in ``forwards`` forwards of
+    ``cfg`` with grad off: at bf16, two add + norms a slot and the final
+    norm (rmsnorm), a QKV bias + RoPE per attention slot (RoPE), an
+    act(g) * u per gated MLP slot (silu, tanh gelu); none otherwise."""
+    from repro_torch.configs.base import MLP
+    fused = cfg.dtype == "bfloat16"
+    n_slots = cfg.n_periods * len(cfg.layer_period)
+    n_mlp = cfg.n_periods * sum(f == MLP for _, f in cfg.layer_period)
+    return {"add_rmsnorm": forwards * (2 * n_slots + 1)
+            if fused and cfg.norm_type == "rmsnorm" else 0,
+            "qkv_rope": forwards * attention_layers(cfg)
+            if fused and cfg.pos_embed == "rope" else 0,
+            "gated_act": forwards * n_mlp
+            if fused and cfg.activation in ("silu", "gelu") else 0}
+
+
 def check_launches(cfg, calls, launches, layout):
     """Each kernel launched exactly as often as the engine's call accounting
     says: select once per refinement iteration, block attention once per
     attention layer and admission, the layout's decode attention once per
-    attention layer and cached forward, the other layout's never."""
+    attention layer and cached forward, the other layout's never, the
+    elementwise passes as ``elementwise_launches`` says for every
+    forward."""
     n_attn = attention_layers(cfg)
     cached = n_attn * (calls["refine"] + calls["commit"])
     want = {"decode_attention": cached if layout == "dense" else 0,
             "fused_select": calls["refine"],
             "paged_decode_attention": cached if layout == "paged" else 0,
             "block_attention": n_attn * calls["admit"],
-            "xent_forward": 0, "xent_backward": 0}
+            "xent_forward": 0, "xent_backward": 0,
+            **elementwise_launches(cfg, calls["admit"] + calls["refine"]
+                                   + calls["commit"])}
     if launches != want:
         raise AssertionError(f"{layout}: launches {launches} != the call "
                              f"accounting {want} ({calls})")
@@ -2080,10 +2237,12 @@ def phase_training(torch, dev):
             _finite(torch, m, f"{stage} step {i}")
     n_ce = tcfg.steps + scfg.steps + lcfg.steps
     forwards = cdlm.gen_length     # one batch: a forward per step
+    # the losses' forwards take the plain ops; the collection's the passes
     want = {"decode_attention": 0, "paged_decode_attention": 0,
             "fused_select": forwards,
             "block_attention": forwards * cfg.n_layers,
-            "xent_forward": n_ce, "xent_backward": n_ce}
+            "xent_forward": n_ce, "xent_backward": n_ce,
+            **elementwise_launches(cfg, forwards)}
     if launches != want:
         raise AssertionError(f"training: launches {launches} != {want}")
     fat, final = ds["finalized_at"], ds["final"]
@@ -2278,7 +2437,9 @@ def _dense_launches(cfg, calls, layout):
             "fused_select": 0,
             "paged_decode_attention": cached if layout == "paged" else 0,
             "block_attention": cfg.n_layers * calls["admit"],
-            "xent_forward": 0, "xent_backward": 0}
+            "xent_forward": 0, "xent_backward": 0,
+            **elementwise_launches(cfg, calls["admit"] + calls["refine"]
+                                   + calls["commit"])}
 
 
 def check_sampled_serving(torch, dev, ctx):
@@ -2585,6 +2746,7 @@ def check_sampled_collection(torch, dev, ctx):
         launches = launches or counts
         want = {k: 0 for k in counts}
         want["block_attention"] = G * cfg.n_layers
+        want.update(elementwise_launches(cfg, G))
         if counts != want:
             raise AssertionError(f"sampled collection, {name}: launches "
                                  f"{counts} != {want}")
@@ -3226,7 +3388,8 @@ def static_ar(torch, dev, cfg, params, name):
         engines[graphs].warmup()
     n_attn = attention_layers(cfg)
     want = {k: 0 for k in kernel_counters()}
-    want.update(decode_attention=n_attn * G, block_attention=n_attn)
+    want.update(decode_attention=n_attn * G, block_attention=n_attn,
+                **elementwise_launches(cfg, 1 + G))
     runs, rec, graph_decode = [], {}, 0
     for graphs in (False, None, None, False):
         path = "graph" if graphs is None else "eager"
@@ -4195,7 +4358,9 @@ def main():
                "paged_decode_attention": (DECODE_SRC, PAGED_TPU),
                "block_attention": (BLOCK_SRC, BLOCK_TPU),
                "xent_forward": (XENT_SRC, XENT_TPU),
-               "xent_backward": (XENT_SRC, XENT_BWD_TPU)}
+               "xent_backward": (XENT_SRC, XENT_BWD_TPU),
+               **{name: (ELEMENTWISE_SRC, ELEMENTWISE_TPU)
+                  for name in ELEMENTWISE_KERNELS}}
     xent = main_recs["xent"]
     main_recs["xent_forward"] = dict(xent["forward"],
                                      max_abs_err=xent["max_abs_err"])

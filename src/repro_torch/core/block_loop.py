@@ -60,6 +60,7 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
 )
 from repro_torch.kernels.decode_attn import ref as decode_ref
+from repro_torch.kernels.elementwise import ElementwiseFns
 from repro_torch.models import forward, unembed_matrix
 
 
@@ -153,22 +154,25 @@ PORTED = {(s.cache_policy, s.finalize) for s in STRATEGIES.values()}
 
 
 class AttentionFns(NamedTuple):
-    """The attention of every forward of a decode: ``prefill`` for
-    full-sequence forwards (prompt prefill, full-canvas recompute, cache
+    """The kernels of every forward of a decode: the attention, ``prefill``
+    for full-sequence forwards (prompt prefill, full-canvas recompute, cache
     refresh), ``decode`` and ``paged_decode`` for cached forwards on a
-    dense and a paged cache. :data:`KERNELS` (the default) are the CUDA
-    kernels' wrappers; :data:`PLAIN` their plain PyTorch versions, which
-    a caller names to hold a decode's kernel path against its plain one.
-    A cached forward under a ``cache_valid`` mask (the approx policies)
-    takes the generic attention either way, as in the reference."""
+    dense and a paged cache, and ``elementwise``, the fused passes between
+    the matmuls (``forward``'s ``elementwise_fns``; None: the plain ops).
+    :data:`KERNELS` (the default) are the CUDA kernels' wrappers;
+    :data:`PLAIN` the plain PyTorch versions and ops, which a caller names
+    to hold a decode's kernel path against its plain one. A cached forward
+    under a ``cache_valid`` mask (the approx policies) takes the generic
+    attention either way, as in the reference."""
     prefill: Callable = flash_block_attention
     decode: Callable = decode_attention
     paged_decode: Callable = paged_decode_attention
+    elementwise: Optional[ElementwiseFns] = ElementwiseFns()
 
 
 KERNELS = AttentionFns()
 PLAIN = AttentionFns(block_ref.block_attention, decode_ref.decode_attention,
-                     decode_ref.paged_decode_attention)
+                     decode_ref.paged_decode_attention, None)
 
 
 def init_canvas(prompt_tokens: torch.Tensor, spec: SamplerSpec,
@@ -328,6 +332,7 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                        spec: SamplerSpec, return_hidden: bool = False,
                        decode_attention_fn=decode_attention,
                        paged_decode_attention_fn=paged_decode_attention,
+                       elementwise_fns=ElementwiseFns(),
                        use_long_window: bool = False,
                        moe_per_row: bool):
     """Block-causal cached forward where each lane decodes its own block.
@@ -346,8 +351,9 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
     ``paged_decode_attention_fn`` (default: the CUDA kernels' wrappers) are
     the attention of every cached forward on a dense and a paged cache;
     ``None`` takes the generic masked attention instead (on a paged cache,
-    over the gathered dense view). ``use_long_window`` caps attention at
-    ``cfg.long_context_window``.
+    over the gathered dense view); ``elementwise_fns`` (default the fused
+    kernels', None: the plain ops) as in ``forward``. ``use_long_window``
+    caps attention at ``cfg.long_context_window``.
 
     Exactness: under the block-causal mask a lane's output depends only on
     its own cache rows and its own block, so lanes at different block
@@ -367,6 +373,7 @@ def lane_block_forward(params, tokens, starts, kv_cache, *, cfg: ModelConfig,
                   cache_len=starts + off,
                   decode_attention_fn=decode_attention_fn,
                   paged_decode_attention_fn=paged_decode_attention_fn,
+                  elementwise_fns=elementwise_fns,
                   use_long_window=use_long_window,
                   return_logits=not return_hidden, moe_per_row=moe_per_row)
     return (out.hidden if return_hidden else out.logits), out.emissions
@@ -415,15 +422,18 @@ def top1_step(params, tokens, start: int, *, cfg: ModelConfig,
 
 
 def _canvas_hidden(params, tokens, *, cfg: ModelConfig, spec: SamplerSpec,
-                   prefill_fn=flash_block_attention, extras=None):
+                   prefill_fn=flash_block_attention, elementwise_fns=None,
+                   extras=None):
     """The top-1 step's forward: post-norm hidden states (b, P+G, d) of
     the whole canvases (after ``extras``' prefix, whose rows are dropped),
     bidirectional, through ``prefill_fn`` (the block attention kernel;
-    None: the generic attention)."""
+    None: the generic attention) and ``elementwise_fns`` (None: the plain
+    ops)."""
     return forward(params, tokens, cfg=cfg, device=tokens.device,
                    mode=masks.BIDIRECTIONAL, prompt_len=spec.full_prompt_len,
                    block_size=spec.block_size, return_logits=False,
                    prefill_attention_fn=prefill_fn,
+                   elementwise_fns=elementwise_fns,
                    **(extras or {})).hidden[:, spec.pos_offset:]
 
 
@@ -518,7 +528,9 @@ def _top1_loop(params, prompt_tokens, *, cfg: ModelConfig, spec: SamplerSpec,
             # the canvas is written in place below: a graph reads it at
             # its fixed address
             return _canvas_hidden(params, tokens, cfg=cfg, spec=spec,
-                                  prefill_fn=prefill_fn, extras=st.extras)
+                                  prefill_fn=prefill_fn,
+                                  elementwise_fns=fns.elementwise,
+                                  extras=st.extras)
 
         step = 0
         for blk in range(spec.n_blocks):
@@ -689,7 +701,8 @@ def _refresh_cache(params, tokens, kv_cache, *, cfg: ModelConfig,
     out = forward(params, tokens, cfg=cfg, device=tokens.device,
                   mode=masks.BIDIRECTIONAL, prompt_len=spec.full_prompt_len,
                   block_size=spec.block_size, return_logits=False,
-                  prefill_attention_fn=fns.prefill, **(extras or {}))
+                  prefill_attention_fn=fns.prefill,
+                  elementwise_fns=fns.elementwise, **(extras or {}))
     C.commit(kv_cache, out.emissions, 0)
 
 
@@ -730,6 +743,7 @@ def _block_forward(params, tokens, start, kv_cache, *,
                                   return_hidden=return_hidden,
                                   decode_attention_fn=fns.decode,
                                   paged_decode_attention_fn=fns.paged_decode,
+                                  elementwise_fns=fns.elementwise,
                                   use_long_window=use_long_window,
                                   moe_per_row=False)
     pos = _block_positions(start, B, b, dev)
@@ -738,7 +752,7 @@ def _block_forward(params, tokens, start, kv_cache, *,
                       mode=strategy.attn_mode,
                       prompt_len=spec.full_prompt_len, block_size=B,
                       prefill_attention_fn=fns.prefill, return_logits=False,
-                      **(extras or {}))
+                      elementwise_fns=fns.elementwise, **(extras or {}))
         hidden = out.hidden.gather(
             1, (pos + spec.pos_offset)[..., None].expand(
                 b, B, out.hidden.shape[-1]))
@@ -755,6 +769,7 @@ def _block_forward(params, tokens, start, kv_cache, *,
                   cache_valid=~_block_pos_mask(T + spec.pos_offset, astart,
                                                B, dev),
                   use_long_window=use_long_window,
+                  elementwise_fns=fns.elementwise,
                   return_logits=not return_hidden)
     return out.hidden if return_hidden else out.logits, out.emissions
 
@@ -814,6 +829,7 @@ def _threshold_loop(params, st: DecodeState, *, cfg: ModelConfig,
                        device=st.tokens.device, mode=strategy.attn_mode,
                        prompt_len=spec.full_prompt_len, block_size=B,
                        return_logits=False, prefill_attention_fn=fns.prefill,
+                       elementwise_fns=fns.elementwise,
                        **st.extras).emissions
 
     def iteration():
@@ -880,6 +896,7 @@ def _ar_prefill(params, st: DecodeState, *, cfg: ModelConfig,
     out = forward(params, st.tokens[:, :spec.prompt_len], cfg=cfg,
                   device=st.tokens.device, mode=strategy.attn_mode,
                   prefill_attention_fn=fns.prefill, logits_slice=(P - 1, P),
+                  elementwise_fns=fns.elementwise,
                   **st.extras)
     C.commit(st.cache, out.emissions, 0)
     st.last.copy_(out.logits[:, -1])
@@ -907,7 +924,8 @@ def _ar_step(params, st: DecodeState, *, cfg: ModelConfig,
     apos = st.pos + off
     out = forward(params, nxt[:, None], cfg=cfg, device=tokens.device,
                   mode=strategy.attn_mode, cache=st.cache, cache_len=apos,
-                  decode_attention_fn=fns.decode)
+                  decode_attention_fn=fns.decode,
+                  elementwise_fns=fns.elementwise)
     C.commit_at(st.cache, out.emissions, apos)
     st.last.copy_(out.logits[:, -1])
     st.pos += 1

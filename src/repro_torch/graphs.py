@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attn import (
     decode_attention,
     paged_decode_attention,
 )
+from repro_torch.kernels.elementwise import add_rmsnorm, gated_act, qkv_rope
 from repro_torch.kernels.select import fused_select
 from repro_torch.kernels.xent import fused_xent
 
@@ -39,7 +40,10 @@ COUNTERS = ((decode_attention, "launches"),
             (flash_block_attention, "launches"),
             (fused_select, "launches"),
             (fused_xent, "launches"),
-            (fused_xent, "backward_launches"))
+            (fused_xent, "backward_launches"),
+            (add_rmsnorm, "launches"),
+            (qkv_rope, "launches"),
+            (gated_act, "launches"))
 
 
 def _counts():

@@ -82,15 +82,76 @@ def _by_period(tree, n: int):
     return torch.unbind(tree, 0)
 
 
-def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
-    """Returns (y, emission). An ``ATTN_LOCAL`` slot attends within
-    ``cfg.sliding_window`` whatever ``use_long_window`` says."""
-    h = L.apply_norm(slot["norm1"], x, cfg)
-    q = L.project_q(slot["attn"], h, cfg)
-    k, v = L.project_kv(slot["attn"], h, cfg)
+def _fusable(*tensors) -> bool:
+    """Whether the fused passes take these tensors (a pass's inputs, or the
+    tensors its inputs are computed from): bf16 on a CUDA device, and no
+    gradient to carry through them (the kernels have no backward): grad
+    mode off, or none of them requiring grad, as in the engines' decode."""
+    grad = torch.is_grad_enabled()
+    return all(t.is_cuda and t.dtype == torch.bfloat16
+               and not (grad and t.requires_grad)
+               for t in tensors if t is not None)
+
+
+def _add_norm(norm, x, delta, *, cfg: ModelConfig, ctx):
+    """(x + delta, the norm of that sum); without ``delta``, (x, its norm).
+    Every residual add of the stack is followed by a norm, so each add is
+    folded into the norm after it: one fused pass where the forward's
+    ``elementwise_fns`` cover it (rmsnorm, :func:`_fusable` tensors), the
+    plain ops otherwise."""
+    fns = ctx["elementwise_fns"]
+    if (fns is not None and cfg.norm_type == "rmsnorm"
+            and _fusable(x, delta, norm["w"])):
+        return fns.add_norm(x, delta, norm["w"], cfg.norm_eps)
+    if delta is not None:
+        x = x + delta
+    return x, L.apply_norm(norm, x, cfg)
+
+
+def _project_qkv(params, h, *, cfg: ModelConfig, ctx):
+    """q (b, L, Kv, G, hd), k and v (b, L, Kv, hd): the projections, their
+    biases and RoPE at ``ctx["q_pos"]``; the bias adds and the rotations in
+    one fused pass where ``elementwise_fns`` cover them (RoPE,
+    :func:`_fusable` tensors)."""
+    fns = ctx["elementwise_fns"]
+    b, n = h.shape[:2]
+    if (fns is not None and cfg.pos_embed == "rope"
+            and _fusable(h, *(params.get(k) for k in ("wq", "wk", "wv", "bq",
+                                                      "bk", "bv")))):
+        q, k, v = fns.qkv_rope(
+            h @ params["wq"], h @ params["wk"], h @ params["wv"],
+            params.get("bq"), params.get("bk"), params.get("bv"),
+            ctx["q_pos"], head_dim=cfg.head_dim, theta=cfg.rope_theta)
+        shape = (b, n, cfg.n_kv_heads, cfg.head_dim)
+        return (q.reshape(b, n, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim),
+                k.reshape(shape), v.reshape(shape))
+    q = L.project_q(params, h, cfg)
+    k, v = L.project_kv(params, h, cfg)
     if cfg.pos_embed == "rope":
         q = L.rope(q, ctx["q_pos"], cfg.rope_theta)
         k = L.rope(k, ctx["q_pos"], cfg.rope_theta)
+    return q, k, v
+
+
+def _mlp(params, h, *, cfg: ModelConfig, ctx):
+    """The MLP FFN; a gated silu or tanh-gelu one takes the fused
+    ``act(g) * u`` pass where ``elementwise_fns`` cover it
+    (:func:`_fusable` tensors)."""
+    fns = ctx["elementwise_fns"]
+    if (fns is not None and "wi_gate" in params
+            and cfg.activation in ("silu", "gelu")
+            and _fusable(h, params["wi_gate"], params["wi_up"])):
+        return fns.gated_act(h @ params["wi_gate"], h @ params["wi_up"],
+                             cfg.activation) @ params["wo"]
+    return L.apply_mlp(params, h, cfg)
+
+
+def _self_attention_slot(slot, h, *, cfg: ModelConfig, mixer: str, ctx):
+    """The attention of the normed ``h``: returns (the out projection, to
+    add to the residual stream, and the emission). An ``ATTN_LOCAL`` slot
+    attends within ``cfg.sliding_window`` whatever ``use_long_window``
+    says."""
+    q, k, v = _project_qkv(slot["attn"], h, cfg=cfg, ctx=ctx)
     window = None
     if mixer == ATTN_LOCAL:
         window = cfg.sliding_window
@@ -132,7 +193,7 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
                 # dense view; positions past cache_len are masked below
                 ck, cv = gather_pages(ck, pages), gather_pages(cv, pages)
             b, S, Lq = ck.shape[0], ck.shape[1], k.shape[1]
-            slots = torch.arange(S, device=x.device)
+            slots = torch.arange(S, device=h.device)
             k_all = torch.cat([ck, k.to(ck.dtype)], dim=1)
             v_all = torch.cat([cv, v.to(cv.dtype)], dim=1)
             kv_pos = torch.cat([slots.expand(b, S), q_pos.expand(b, Lq)], 1)
@@ -140,7 +201,7 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
                         if kernel_ok else ctx["cache_valid"].expand(b, S))
             kv_valid = torch.cat(
                 [cache_ok,
-                 torch.ones((b, Lq), dtype=torch.bool, device=x.device)], 1)
+                 torch.ones((b, Lq), dtype=torch.bool, device=h.device)], 1)
         else:
             k_all, v_all, kv_pos, kv_valid = k, v, q_pos, None
         bias_fn = masks.make_bias_fn(mode=ctx["mode"],
@@ -158,7 +219,7 @@ def _self_attention_slot(slot, x, *, cfg: ModelConfig, mixer: str, ctx):
         out = L.attention_core(q, k_all, v_all, q_pos=q_pos, kv_pos=kv_pos,
                                kv_valid=kv_valid, bias_fn=bias_with_valid,
                                scale=scale, cap=cap)
-    return x + L.out_proj(slot["attn"], out, cfg), {"k": k, "v": v}
+    return L.out_proj(slot["attn"], out, cfg), {"k": k, "v": v}
 
 
 def _cross_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
@@ -180,37 +241,38 @@ def _cross_attention_slot(slot, x, *, cfg: ModelConfig, ctx):
     return x + L.out_proj(slot["cross"], out, cfg), em
 
 
-def _apply_slot(slot, x, *, cfg: ModelConfig, mixer: str, ffn: str, ctx,
-                moe_per_row: bool):
-    """One slot: its mixer (attention, Mamba or the RWKV time mix, each
-    reading its own leaves of the cache slot, zeros without a cache), an
-    encoder-decoder's cross attention, then its FFN (MLP, MOE or the RWKV
-    channel mix, which reads the *input* state's ``cm_shift``). Returns
-    (x, emission, the MOE FFN's aux loss or None)."""
+def _apply_slot(slot, x, delta, *, cfg: ModelConfig, mixer: str, ffn: str,
+                ctx, moe_per_row: bool):
+    """One slot over the residual stream ``x`` with the previous slot's
+    output ``delta`` not yet added (None: nothing to add): its mixer
+    (attention, Mamba or the RWKV time mix, each reading its own leaves of
+    the cache slot, zeros without a cache), an encoder-decoder's cross
+    attention (layernorm, plain), then its FFN (MLP, MOE or the RWKV
+    channel mix, which reads the *input* state's ``cm_shift``). The
+    mixer's and the FFN's outputs are added to the stream by the norm after
+    each (:func:`_add_norm`). Returns (x, the FFN's output
+    still to add, emission, the MOE FFN's aux loss or None)."""
     cache = ctx["cache_slot"]
     aux = rwkv_in = None
+    x, h = _add_norm(slot["norm1"], x, delta, cfg=cfg, ctx=ctx)
     if mixer in (ATTN, ATTN_LOCAL):
-        x, em = _self_attention_slot(slot, x, cfg=cfg, mixer=mixer, ctx=ctx)
+        y, em = _self_attention_slot(slot, h, cfg=cfg, mixer=mixer, ctx=ctx)
     elif mixer == MAMBA:
         state = (None if cache is None
                  else {"conv": cache["conv"], "ssm": cache["ssm"]})
-        y, em = MB.mamba_forward(slot["mamba"],
-                                 L.apply_norm(slot["norm1"], x, cfg), cfg,
-                                 state=state)
-        x = x + y
+        y, em = MB.mamba_forward(slot["mamba"], h, cfg, state=state)
     else:   # RWKV
         rwkv_in = (R.init_rwkv_state(cfg, x.shape[0], dtype=x.dtype,
                                      device=x.device) if cache is None
                    else {"S": cache["S"], "tm_shift": cache["tm_shift"],
                          "cm_shift": cache["cm_shift"]})
-        y, em = R.time_mix(slot["rwkv_tm"],
-                           L.apply_norm(slot["norm1"], x, cfg), cfg, rwkv_in)
-        x = x + y
+        y, em = R.time_mix(slot["rwkv_tm"], h, cfg, rwkv_in)
     if "cross" in slot and (ctx["encoder_out"] is not None
                             or (cache is not None and "ck" in cache)):
-        x, cross_em = _cross_attention_slot(slot, x, cfg=cfg, ctx=ctx)
+        x, cross_em = _cross_attention_slot(slot, x + y, cfg=cfg, ctx=ctx)
+        y = None
         em.update(cross_em)
-    h = L.apply_norm(slot["norm2"], x, cfg)
+    x, h = _add_norm(slot["norm2"], x, y, cfg=cfg, ctx=ctx)
     if ffn == MOE:
         y, aux = MO.apply_moe(slot["moe"], h, cfg, dropless=cache is not None,
                               moe_per_row=moe_per_row)
@@ -218,56 +280,59 @@ def _apply_slot(slot, x, *, cfg: ModelConfig, mixer: str, ffn: str, ctx,
         y, cm_em = R.channel_mix(slot["rwkv_cm"], h, cfg, rwkv_in)
         em.update(cm_em)
     else:
-        y = L.apply_mlp(slot["mlp"], h, cfg)
-    return x + y, em, aux
+        y = _mlp(slot["mlp"], h, cfg=cfg, ctx=ctx)
+    return x, y, em, aux
 
 
 def _run_stack(slots_params, x, *, cfg: ModelConfig, slot_kinds, n: int,
                ctx, cache, remat: bool, moe_per_row: bool):
     """The ``n`` periods of ``slot_kinds`` over ``x``, each slot's params
-    (and cache leaves) stacked over the periods. Returns (x, emissions
-    stacked over periods per slot, the summed MoE aux loss)."""
+    (and cache leaves) stacked over the periods. Returns (x, the last
+    slot's output still to add (the final norm adds it), emissions stacked
+    over periods per slot, the summed MoE aux loss)."""
     dev = x.device
     slots = [_by_period(slot_params, n) for slot_params in slots_params]
     cache_slots = (None if cache is None
                    else [_by_period(c, n) for c in cache])
 
-    def period_body(x, aux, p: int):
+    def period_body(x, delta, aux, p: int):
         ems = []
         for i, (mixer, ffn) in enumerate(slot_kinds):
             c = dict(ctx, cache_slot=None if cache is None
                      else cache_slots[i][p])
-            x, em, a = _apply_slot(slots[i][p], x, cfg=cfg, mixer=mixer,
-                                   ffn=ffn, ctx=c, moe_per_row=moe_per_row)
+            x, delta, em, a = _apply_slot(slots[i][p], x, delta, cfg=cfg,
+                                          mixer=mixer, ffn=ffn, ctx=c,
+                                          moe_per_row=moe_per_row)
             if a is not None:
                 aux = aux + a
             ems.append(em)
-        return x, aux, ems
+        return x, delta, aux, ems
 
     checkpointed = remat and torch.is_grad_enabled()
     emitted = [[] for _ in slot_kinds]
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    delta = None
     for p in range(n):
         if checkpointed:
-            x, aux, ems = checkpoint(period_body, x, aux, p,
-                                     use_reentrant=False)
+            x, delta, aux, ems = checkpoint(period_body, x, delta, aux, p,
+                                            use_reentrant=False)
         else:
-            x, aux, ems = period_body(x, aux, p)
+            x, delta, aux, ems = period_body(x, delta, aux, p)
         for i, em in enumerate(ems):
             emitted[i].append(em)
     emissions = tuple({key: torch.stack([em[key] for em in ems])
                        for key in ems[0]} for ems in emitted)
-    return x, emissions, aux
+    return x, delta, emissions, aux
 
 
 def encode(params, frames, *, cfg: ModelConfig, prefill_attention_fn=None,
-           remat: bool = False) -> torch.Tensor:
+           elementwise_fns=None, remat: bool = False) -> torch.Tensor:
     """Whisper's encoder over ``frames`` (b, enc_len, d), in their dtype:
     sinusoidal positions at ``arange(enc_len)``, ``cfg.n_encoder_layers``
     bidirectional ``(ATTN, MLP)`` layers without a cache (self attention
     through ``prefill_attention_fn`` where given), then the encoder's
-    final norm. Returns the (b, enc_len, d) output every decoder layer's
-    cross attention reads."""
+    final norm; ``elementwise_fns`` as in :func:`forward`. Returns the (b,
+    enc_len, d) output every decoder layer's cross attention reads."""
     dev = frames.device
     enc_pos = torch.arange(frames.shape[1], device=dev)
     if cfg.pos_embed == "sinusoidal":
@@ -277,11 +342,14 @@ def encode(params, frames, *, cfg: ModelConfig, prefill_attention_fn=None,
                q_pos=enc_pos, cache_lens=None, cache_slot=None,
                cache_valid=None, pages=None, use_long_window=False,
                decode_attention_fn=None, paged_decode_attention_fn=None,
-               prefill_attention_fn=prefill_attention_fn, encoder_out=None)
-    x, _, _ = _run_stack(params["encoder"]["slots"], frames, cfg=cfg,
-                         slot_kinds=((ATTN, MLP),), n=cfg.n_encoder_layers,
-                         ctx=ctx, cache=None, remat=remat, moe_per_row=False)
-    return L.apply_norm(params["encoder"]["final_norm"], x, cfg)
+               prefill_attention_fn=prefill_attention_fn, encoder_out=None,
+               elementwise_fns=elementwise_fns)
+    x, delta, _, _ = _run_stack(params["encoder"]["slots"], frames, cfg=cfg,
+                                slot_kinds=((ATTN, MLP),),
+                                n=cfg.n_encoder_layers, ctx=ctx, cache=None,
+                                remat=remat, moe_per_row=False)
+    return _add_norm(params["encoder"]["final_norm"], x, delta, cfg=cfg,
+                     ctx=ctx)[1]
 
 
 def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
@@ -290,7 +358,8 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             encoder_embeds=None, cache=None, cache_len=None,
             cache_valid=None, use_long_window: bool = False,
             decode_attention_fn=None, paged_decode_attention_fn=None,
-            prefill_attention_fn=None, remat: bool = False,
+            prefill_attention_fn=None, elementwise_fns=None,
+            remat: bool = False,
             logits_slice: Optional[Tuple[int, int]] = None,
             return_logits: bool = True,
             moe_per_row: bool = False) -> ModelOutput:
@@ -329,7 +398,15 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     (``kernels.block_attn.flash_block_attention``-shaped) for cache-less
     forwards at the default positions ``arange(L)`` (the kernel derives
     visibility from indices, so given ``positions`` take the generic
-    path) and for the encoder. ``return_logits=False`` skips the lm_head
+    path) and for the encoder. ``elementwise_fns``
+    (``kernels.elementwise.ElementwiseFns``-shaped; None: the plain ops)
+    are the fused passes between the matmuls: residual add + RMSNorm, QKV
+    bias + RoPE and the gated silu / tanh-gelu activation, each taken only
+    where it covers the input (rmsnorm, RoPE, a gated MLP, bf16 CUDA
+    tensors with no gradient to carry) and the plain ops elsewhere
+    (layernorm, plain gelu, the recurrent mixers, MoE experts, training),
+    whatever the bundle.
+    ``return_logits=False`` skips the lm_head
     (the fused-select decode reads ``hidden``); ``logits_slice=(s0, s1)``
     applies it to positions ``[s0, s1)`` only (the CDLM losses read
     generation-span logits). ``remat`` recomputes each layer period in
@@ -377,7 +454,8 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     if cfg.is_encoder_decoder and encoder_embeds is not None:
         encoder_out = encode(
             params, torch.as_tensor(encoder_embeds, device=dev).to(x.dtype),
-            cfg=cfg, prefill_attention_fn=encoder_attention_fn, remat=remat)
+            cfg=cfg, prefill_attention_fn=encoder_attention_fn,
+            elementwise_fns=elementwise_fns, remat=remat)
 
     if cache_valid is not None:
         cache_valid = torch.as_tensor(cache_valid, dtype=torch.bool,
@@ -389,13 +467,13 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
                decode_attention_fn=decode_attention_fn,
                paged_decode_attention_fn=paged_decode_attention_fn,
                prefill_attention_fn=prefill_attention_fn,
-               encoder_out=encoder_out)
-    x, emissions, aux = _run_stack(params["slots"], x, cfg=cfg,
-                                   slot_kinds=cfg.layer_period,
-                                   n=cfg.n_periods, ctx=ctx, cache=cache,
-                                   remat=remat, moe_per_row=moe_per_row)
+               encoder_out=encoder_out, elementwise_fns=elementwise_fns)
+    x, delta, emissions, aux = _run_stack(
+        params["slots"], x, cfg=cfg, slot_kinds=cfg.layer_period,
+        n=cfg.n_periods, ctx=ctx, cache=cache, remat=remat,
+        moe_per_row=moe_per_row)
 
-    hidden = L.apply_norm(params["final_norm"], x, cfg)
+    hidden = _add_norm(params["final_norm"], x, delta, cfg=cfg, ctx=ctx)[1]
     if not return_logits:
         return ModelOutput(logits=None, hidden=hidden, emissions=emissions,
                            aux_loss=aux)

@@ -115,6 +115,7 @@ from repro_torch.core.block_loop import (
 )
 from repro_torch.core.sampler import SAMPLERS
 from repro_torch.kernels.block_attn import flash_block_attention
+from repro_torch.kernels.elementwise import ElementwiseFns
 from repro_torch.models import forward, unembed_matrix
 from repro_torch.serving.api import (
     BlockEvent,
@@ -672,7 +673,8 @@ class ContinuousEngine(_RequestStepper):
         prompts under the block-causal mask through the block attention
         kernel and commit them into those rows (the prefill runs every
         lane, as the JAX engine's does, and commits only the admitted
-        ones)."""
+        ones), its norms, RoPE and gated activations through the fused
+        elementwise passes."""
         spec, dev = self.spec, self.device
         canvas = init_canvas(torch.as_tensor(prompts, dtype=torch.int64,
                                              device=dev), spec, self.cfg)
@@ -695,7 +697,8 @@ class ContinuousEngine(_RequestStepper):
                       cfg=self.cfg, device=self.device,
                       mode=masks.BLOCK_CAUSAL, prompt_len=spec.prompt_len,
                       block_size=spec.block_size, return_logits=False,
-                      prefill_attention_fn=flash_block_attention)
+                      prefill_attention_fn=flash_block_attention,
+                      elementwise_fns=ElementwiseFns())
         C.commit_rows(state.cache, out.emissions, 0, admit)
         state.blk[admit] = 0
         state.lane_nblocks[admit] = nblocks[admit]

@@ -717,11 +717,12 @@ def test_graph_serving_equals_eager(cuda, layout, pool):
         calls = eng.call_counts()
         cached = cfg.n_layers * (calls["refine"] + calls["commit"])
         # COUNTERS order: decode, paged decode, block attention, select,
-        # xent forward, xent backward
+        # xent forward, xent backward, then the elementwise passes (none
+        # at fp32: the plain ops)
         assert counts == [cached if layout == "dense" else 0,
                           cached if layout == "paged" else 0,
                           cfg.n_layers * calls["admit"], calls["refine"],
-                          0, 0]
+                          0, 0, 0, 0, 0]
         runs[graphs] = ({o.id: o for o in outs}, calls,
                         eng.page_pool_stats(), counts)
     (eager, e_calls, e_stats, e_counts), (graph, g_calls, g_stats, g_counts) \
@@ -760,7 +761,10 @@ def test_graph_collector_equals_eager(cuda, dtype):
     (res_e, fat_e, hid_e), counts_e = got[False]
     assert torch.equal(res_g.tokens, res_e.tokens)
     assert torch.equal(fat_g, fat_e) and torch.equal(hid_g, hid_e)
-    assert counts_g == counts_e == [0, 0, G * cfg.n_layers, G, 0, 0]
+    # then the elementwise passes per canvas forward (none at fp32)
+    passes = ([(2 * cfg.n_layers + 1) * G, cfg.n_layers * G,
+               cfg.n_layers * G] if dtype == "bfloat16" else [0, 0, 0])
+    assert counts_g == counts_e == [0, 0, G * cfg.n_layers, G, 0, 0] + passes
 
 
 @pytest.mark.cuda
@@ -823,7 +827,7 @@ def test_graph_sampled_serving_equals_eager(cuda, layout, pool, sampled):
         cached = cfg.n_layers * (calls["refine"] + calls["commit"])
         assert counts == [cached if layout == "dense" else 0,
                           cached if layout == "paged" else 0,
-                          cfg.n_layers * calls["admit"], 0, 0, 0]
+                          cfg.n_layers * calls["admit"], 0, 0, 0, 0, 0, 0]
         runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
                                 o.finish_reason) for o in outs}, calls,
                         eng.page_pool_stats(), counts)
@@ -859,7 +863,12 @@ def test_graph_sampled_collection_equals_eager(cuda, dtype):
     (res_e, fat_e, hid_e), counts_e = got[False]
     assert torch.equal(res_g.tokens, res_e.tokens)
     assert torch.equal(fat_g, fat_e) and torch.equal(hid_g, hid_e)
-    assert counts_g == counts_e == [0, 0, G * cfg.n_layers, 0, 0, 0]
+    # then the elementwise passes, per canvas forward: two add + norms a
+    # layer and the final norm, one QKV bias + RoPE and one gated
+    # activation a layer; none at fp32 (the plain ops)
+    passes = ([(2 * cfg.n_layers + 1) * G, cfg.n_layers * G,
+               cfg.n_layers * G] if dtype == "bfloat16" else [0, 0, 0])
+    assert counts_g == counts_e == [0, 0, G * cfg.n_layers, 0, 0, 0] + passes
 
 
 @pytest.mark.cuda
@@ -965,14 +974,14 @@ def test_static_graph_equals_eager(cuda, name, layout, case):
     assert runs[None] == runs[False]
     assert sorted(runs[None][0]) == list(range(5))
     # COUNTERS order: decode, paged decode, block attention, select, xent
-    # forward, xent backward
+    # forward, xent backward, the elementwise passes (none at fp32)
     counts = runs[None][2]
     assert (counts[0] > 0) == (name == "ar" or name == "cdlm"
                                and layout == "dense")
     assert (counts[1] > 0) == (name == "cdlm" and layout == "paged")
     assert (counts[2] > 0) == (name != "vanilla" or case == "greedy-fused")
     assert (counts[3] > 0) == (case == "greedy-fused" and name != "ar")
-    assert counts[4:] == [0, 0]
+    assert counts[4:] == [0] * 5
 
 
 # the recurrent-state configs: jamba (Mamba, attention, MoE) and rwkv6
@@ -1033,7 +1042,8 @@ def test_recurrent_graph_serving_equals_eager(cuda, name, layout):
         cached = n_attn * (calls["refine"] + calls["commit"])
         assert counts == [cached if layout == "dense" else 0,
                           cached if layout == "paged" else 0,
-                          n_attn * calls["admit"], calls["refine"], 0, 0]
+                          n_attn * calls["admit"], calls["refine"], 0, 0,
+                          0, 0, 0]
         runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
                                 o.finish_reason) for o in outs},
                         calls, counts)
@@ -1343,3 +1353,221 @@ def test_sequence_parallel_decode_matches_the_kernel(cuda, tmp_path):
     from _torch_dist import run_ranks
     outs = run_ranks(SEQ_DECODE, 4, tmp_path, timeout=300)
     assert all("SEQ_DECODE_OK" in o for o in outs)
+
+
+# the forward's fused elementwise passes (kernels/elementwise)
+ELEMENTWISE_CONFIGS = ("dream-7b", "llada-8b", "qwen2-0.5b", "gemma-7b")
+
+
+def _elementwise_inputs(cuda, arch, rows):
+    """Inputs of the three passes at ``arch``'s widths and ``rows`` token
+    rows, laid out as the forward makes them: lanes of 32-row blocks at
+    per-lane offsets up to ~770, or one prompt of 512 rows a lane."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    L = 512 if rows > 1024 else 32
+    b = rows // L
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def r(*shape, scale=1.0):
+        return (_randn(gen, *shape) * scale).to(torch.bfloat16)
+    bias = cfg.qkv_bias
+    pos = (torch.arange(L, device=cuda) if L == 512 else
+           torch.randint(0, 737, (b, 1), device=cuda, generator=gen)
+           + torch.arange(L, device=cuda))
+    return cfg, dict(
+        x=r(b, L, d, scale=4.0), delta=r(b, L, d), w=r(d, scale=0.1) + 1,
+        q=r(b, L, nq), k=r(b, L, nkv), v=r(b, L, nkv),
+        bq=r(nq, scale=0.1) if bias else None,
+        bk=r(nkv, scale=0.1) if bias else None,
+        bv=r(nkv, scale=0.1) if bias else None, pos=pos,
+        g=r(b, L, cfg.d_ff, scale=3.0), u=r(b, L, cfg.d_ff))
+
+
+def _passes(fns, cfg, t):
+    """The three passes of ``fns`` (the wrappers or ``ref``) on inputs
+    ``t``: (x, h), (q, k, v), act(g) * u, and h without the add."""
+    from repro_torch.kernels.elementwise import ElementwiseFns
+    assert isinstance(fns, ElementwiseFns)
+    return (fns.add_norm(t["x"], t["delta"], t["w"], cfg.norm_eps),
+            fns.qkv_rope(t["q"], t["k"], t["v"], t["bq"], t["bk"], t["bv"],
+                         t["pos"], head_dim=cfg.head_dim,
+                         theta=cfg.rope_theta),
+            fns.gated_act(t["g"], t["u"], cfg.activation),
+            fns.add_norm(t["x"], None, t["w"], cfg.norm_eps)[1])
+
+
+def _plain_fns():
+    from repro_torch.kernels.elementwise import ElementwiseFns
+    from repro_torch.kernels.elementwise import ref as eref
+    return ElementwiseFns(eref.add_rmsnorm, eref.qkv_rope, eref.gated_act)
+
+
+def _check_passes(got, want):
+    """The residual sum, the QKV bias + RoPE and act(g) * u equal the plain
+    path's bit for bit; the norm within one bf16 ulp: its fp32 sum of
+    squares runs in another order than PyTorch's mean, so the mean may
+    differ in its last bit, and a product on a rounding edge with it."""
+    (gx, gh), gqkv, ga, gh0 = got
+    (wx, wh), wqkv, wa, wh0 = want
+    assert torch.equal(gx, wx)
+    for g, w in zip(gqkv, wqkv):
+        assert torch.equal(g, w)
+    assert torch.equal(ga, wa)
+    for g, w in ((gh, wh), (gh0, wh0)):
+        ulps = _limits().bf16_ulps(torch, g, w)
+        assert ulps.max().item() <= 1
+        assert ulps.float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 1024, 16384])
+@pytest.mark.parametrize("arch", ELEMENTWISE_CONFIGS)
+def test_elementwise_kernels_match_plain(cuda, arch, rows):
+    """Each pass against its plain version at the config's widths: the
+    single lane's 32 rows, 32 lanes' 1,024, an admission's 16,384."""
+    from repro_torch.kernels.elementwise import ElementwiseFns
+    cfg, t = _elementwise_inputs(cuda, arch, rows)
+    fns = ElementwiseFns()
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        got = _passes(fns, cfg, t)
+        want = _passes(_plain_fns(), cfg, t)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 1]
+    _check_passes(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ELEMENTWISE_CONFIGS)
+def test_elementwise_kernels_in_a_cuda_graph(cuda, arch):
+    """The three passes captured in a CUDA graph: each replay equals the
+    eager kernels bit for bit and the plain versions as above, and counts
+    its launches."""
+    from repro_torch.graphs import Graph
+    from repro_torch.kernels.elementwise import ElementwiseFns
+    cfg, t = _elementwise_inputs(cuda, arch, 1024)
+    fns = ElementwiseFns()
+    with torch.no_grad():
+        eager = _passes(fns, cfg, t)
+        graph = Graph(lambda: _passes(fns, cfg, t))
+        before = [f.launches for f in fns]
+        for _ in range(2):
+            out = graph.replay()
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == [4, 2, 2]
+        flat = lambda o: [o[0][0], o[0][1], *o[1], o[2], o[3]]  # noqa: E731
+        for g, e in zip(flat(out), flat(eager)):
+            assert torch.equal(g, e)
+        _check_passes(out, _passes(_plain_fns(), cfg, t))
+
+
+def _dream_shaped(cuda, n_layers=2):
+    """dream-7b at its widths, ``n_layers`` layers, a small vocabulary; bf16
+    params with a sharp (untied) head: >1 token an iteration, and no choice
+    near a tie."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    cfg = get_config("dream-7b").reduced(
+        dtype="bfloat16", n_layers=n_layers, d_model=3584, n_heads=28,
+        n_kv_heads=4, head_dim=128, d_ff=18944)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda, torch.bfloat16)
+    with torch.no_grad():
+        params["embed"]["head"] *= 40.0
+        params["embed"]["head"][cfg.mask_token_id] = 0
+    return cfg, params
+
+
+@pytest.mark.cuda
+def test_cached_forward_routes_through_the_elementwise_kernels(cuda):
+    """One cached dream-shaped block forward through ``KERNELS``: per layer
+    two add + norms, one QKV bias + RoPE and one gated activation, and the
+    final norm; the same forward through ``PLAIN`` launches none and gives
+    hidden states within the passes' limits' worth of each other."""
+    from repro_torch.core import cache as C
+    from repro_torch.core.block_loop import (
+        KERNELS,
+        PLAIN,
+        SamplerSpec,
+        lane_block_forward,
+    )
+    from repro_torch.kernels.elementwise import ElementwiseFns
+    cfg, params = _dream_shaped(cuda)
+    spec = SamplerSpec(prompt_len=64, gen_len=64, block_size=32)
+    cache = C.init_cache(cfg, 4, 128, device=cuda)
+    tokens = torch.randint(2, cfg.vocab_size - 1, (4, 128), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    starts = torch.tensor([64, 64, 96, 64], device=cuda)
+    fns = ElementwiseFns()
+    out = {}
+    for bundle in (KERNELS, PLAIN):
+        before = [f.launches for f in fns]
+        with torch.no_grad():
+            out[bundle] = lane_block_forward(
+                params, tokens, starts, cache, cfg=cfg, spec=spec,
+                return_hidden=True, elementwise_fns=bundle.elementwise,
+                moe_per_row=True)[0]
+        torch.cuda.synchronize()
+        n = cfg.n_layers
+        want = [2 * n + 1, n, n] if bundle is KERNELS else [0, 0, 0]
+        assert [f.launches - b for f, b in zip(fns, before)] == want
+    diff = (out[KERNELS].float() - out[PLAIN].float()).abs().max().item()
+    assert diff <= 0.05 * out[PLAIN].float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_continuous_engine_kernels_equal_plain(cuda, layout, monkeypatch):
+    """A small ``ContinuousEngine`` decode (bf16, through its CUDA graphs)
+    with ``KERNELS``' elementwise passes and with ``PLAIN``'s (None: the
+    plain ops) in every forward, the admission's and the block forwards':
+    the same tokens, steps and call counts; the plain run launches no pass.
+    Both runs keep the attention kernels: at bf16 the kernel and the plain
+    attention round differently enough to flip choices near a tie, which
+    no change of the passes' makes (the norm's at most one bf16 ulp in a
+    few elements)."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.core.block_loop import PLAIN, lane_block_forward
+    from repro_torch.models import forward
+    from repro_torch.serving import ContinuousEngine, Request
+    from repro_torch.serving import engine as E
+    cfg, params = _dream_shaped(cuda)
+    P, G, B = 32, 64, 32
+    serve = ServeConfig(max_batch=2, block_size=B, gen_length=G,
+                        conf_threshold=0.5, scheduler="continuous",
+                        fused_select=True, cache_layout=layout)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
+                                                (4, P))
+
+    def plain_forward(*a, **kw):
+        kw.update(elementwise_fns=PLAIN.elementwise)
+        return forward(*a, **kw)
+
+    runs = {}
+    for name in ("kernels", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(E, "forward", plain_forward)
+            monkeypatch.setattr(E, "lane_block_forward", functools.partial(
+                lane_block_forward, elementwise_fns=PLAIN.elementwise))
+        eng = ContinuousEngine(params, cfg, serve, prompt_len=P, device=cuda)
+        eng.warmup()
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i) for i, p in enumerate(prompts)]))
+        runs[name] = ({o.id: (o.tokens.tolist(), o.steps) for o in outs},
+                      eng.call_counts(), counts)
+    assert runs["kernels"][:2] == runs["plain"][:2]
+    assert runs["kernels"][2][:6] == runs["plain"][2][:6]
+    assert runs["plain"][2][6:] == [0, 0, 0]
+    calls = runs["kernels"][1]
+    forwards = calls["admit"] + calls["refine"] + calls["commit"]
+    n = cfg.n_layers
+    assert runs["kernels"][2][6:] == [forwards * (2 * n + 1), forwards * n,
+                                      forwards * n]
