@@ -7,9 +7,10 @@ Phases, each timed, any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions, and an nvcc build of every kernel source of the checkout; the
-   tensor-core kernels' (xent, block attention, select, decode attention)
-   registers, shared memory and spills, and the fp32 decode kernel's
-   (ptxas: none may spill), each template instance apart
+   tensor-core kernels' (xent, block attention, select, decode attention,
+   the grouped MoE's two products) registers, shared memory and spills,
+   and the fp32 decode kernel's (ptxas: none may spill), each template
+   instance apart
    (the dense and paged decode instances too, and every head dim the
    attention kernels take: 64, 112, 128, 256, each of ``INSTANCES`` must be
    reported), and every kernel's HGMMA instructions (cuobjdump: present in
@@ -40,8 +41,8 @@ Phases, each timed, any failure raises and exits non-zero:
    G 1, hd 256), gemma2-27b's local and global slots (Kv 16, G 2, hd 128,
    scale 144^-1/2, softcap 50, the local slot's window 4096),
    llama4-maverick (Kv 8, G 5, hd 128), kimi-k2 (Kv 8, G 8, hd 112;
-   padded to 128 inside the kernels) and jamba's attention slot (Kv 8,
-   G 4, hd 128), decode (dense and paged, bit for bit, split edges too)
+   padded to 128 inside the kernels), jamba's attention slot (Kv 8,
+   G 4, hd 128) and sdar-30b-a3b (Kv 4, G 8, hd 128), decode (dense and paged, bit for bit, split edges too)
    and prefill block attention (b=8, L=512), bf16 (the first mixer kind
    timed against masked SDPA, or where SDPA cannot compute the case, a
    softcap or a window, against a compiled ``flex_attention`` that must
@@ -63,7 +64,14 @@ Phases, each timed, any failure raises and exits non-zero:
    bias + RoPE, act(g) * u; ``check_elementwise``) at dream-7b's widths
    at 32, 1,024 and 16,384 rows, timed beside their plain versions, their
    bytes bound and ``F.rms_norm``, and checked at llada-8b's, qwen2-0.5b's
-   and gemma-7b's;
+   and gemma-7b's; sdar-30b-a3b's kernels: the QK-norm instance of QKV +
+   RoPE (``check_qk_norm``, 1,024 rows timed, 4,096 checked) and the
+   grouped MoE's five ``moe_*`` kernels (``check_moe``: the layout's
+   counts and tiles, the output within ``MOE_REL`` of the plain
+   version's largest) at a reduced shape and at 1,024, 2,048, 4,096,
+   32,768 and 65,536 tokens of top-8 over 128 experts of 2,048 x 768
+   (32, 64 and 128 lanes' blocks and 64 and 128 lanes' admissions), each
+   timed beside its plain version and its bound;
 3. the main path, dense layout: ``ContinuousEngine`` serving CDLM decoding
    of qwen2-0.5b at full width (24 layers, d=896, V=151,936, bf16, seeded
    random init), 12 requests of mixed ``max_tokens`` through 8 lanes, the
@@ -160,8 +168,10 @@ Phases, each timed, any failure raises and exits non-zero:
    an MLP slot and a 128-expert MOE slot) and kimi-k2 at full width and one
    layer (384 experts, top 8, hd 112), jamba at full width and one period
    (8 layers: 7 Mamba slots and an attention slot, 4 of them 16-expert
-   MOE slots) and rwkv6 at full width and depth (24 RWKV layers,
-   attention-free, layernorm): 8 requests of one or two 32-token blocks
+   MOE slots), rwkv6 at full width and depth (24 RWKV layers,
+   attention-free, layernorm) and sdar-30b-a3b at full width and two of
+   its 48 layers (QK-norm, every layer's 128 experts through the grouped
+   ``moe_*`` kernels, held to their launch accounting): 8 requests of one or two 32-token blocks
    after a 128-token prompt through 8 lanes, on the dense then the paged
    layout (rwkv6: dense, the paged layout's refusal asserted), each
    through the engine's CUDA graphs (the MoE dispatch and the Mamba and
@@ -230,6 +240,7 @@ Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
 """
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -267,8 +278,14 @@ ELEMENTWISE_TPU = "none (XLA fused the ops)"
 ELEMENTWISE_KERNELS = {"add_rmsnorm": ["add_rmsnorm_kernel"],
                        "qkv_rope": ["qkv_rope_kernel"],
                        "gated_act": ["gated_act_kernel"]}
+MOE_SRC = "src/repro_torch/kernels/moe/csrc/moe.cu"
+MOE_TPU = "none (the JAX package's capacity scatter drops tokens)"
+# the grouped MoE's launches, in order; every name starts with "moe_"
+MOE_KERNELS = ["moe_align", "moe_gather", "moe_gate_up", "moe_down",
+               "moe_combine"]
 # source -> its tensor-core kernels, and the fp32 kernels beside them
-TC_KERNELS = {"xent.cu": XENT_TC_KERNELS, "block_attn.cu": ["block_attn_tc"],
+TC_KERNELS = {"moe.cu": ["moe_gate_up", "moe_down"],
+              "xent.cu": XENT_TC_KERNELS, "block_attn.cu": ["block_attn_tc"],
               "select.cu": ["select_partial_tc"],
               "decode_attn.cu": ["decode_attn_tc"]}
 FP32_KERNELS = XENT_FP32_KERNELS + ["block_attn_kernel",
@@ -292,7 +309,8 @@ INSTANCES = ([f"block_attn_tc<{hd}>" for hd in (64, 112, 128, 256)]
 # recurrent-state configs' keyed by their shapes too, ``arch_key``)
 ARCH_RUNS = (("gemma-7b", None), ("gemma2-27b", None),
              ("llama4-maverick-400b-a17b", 2), ("kimi-k2-1t-a32b", 1),
-             ("jamba-v0.1-52b", 8), ("rwkv6-1.6b", None))
+             ("jamba-v0.1-52b", 8), ("rwkv6-1.6b", None),
+             ("sdar-30b-a3b", 2))
 ARCH_KERNELS = ("decode_attention", "paged_decode_attention",
                 "block_attention", "fused_select")
 # configs whose summary entries name the checked shape: each entry's
@@ -313,6 +331,15 @@ KERNELS = ("decode_attention", "fused_select", "paged_decode_attention",
            "block_attention", "xent_forward", "xent_backward", "add_rmsnorm",
            "qkv_rope", "gated_act")
 NEAR_TIE = 1e-4
+# qkv_rope's QK-norm instance: q and k within 2 bf16 ulps of the plain
+# version's largest value (a normed value one ulp off moves its rotation
+# by up to one ulp of the head's values, which is many ulps of a rotated
+# value near 0)
+QK_NORM_ULPS = 2
+# the grouped MoE against its plain version, relative to max|y|: both
+# round at the same points and sum each product in fp32, and every card
+# run so far read 0
+MOE_REL = 1e-4
 # the per-lane draw's kernels in a trace: threefry's int32 elementwise ops,
 # the uniform's shifts and masks and the Gumbel's logs and clamp
 DRAW_KERNEL_MARKS = ("bitwise", "shift", "<int>", "(int, int)",
@@ -1339,6 +1366,167 @@ def check_elementwise(torch, dev, *, arch, rows, timed=False):
     return recs
 
 
+def check_qk_norm(torch, dev, *, rows, timed=False):
+    """qkv_rope's QK-norm instance against its plain version at
+    sdar-30b-a3b's widths (32 q and 4 kv heads of 128, no bias) and
+    ``rows`` token rows in lanes of 32 at per-lane offsets: v bit for bit,
+    q and k within ``QK_NORM_ULPS`` bf16 ulps of their largest value (the
+    head's sum of squares runs in another order than PyTorch's mean, so a
+    normed value may sit one ulp off before its rotation). ``timed``: its
+    ms beside the plain
+    version's and its bytes' bound. Returns the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.elementwise import qkv_rope
+    from repro_torch.kernels.elementwise import ref as eref
+    cfg = get_config("sdar-30b-a3b")
+    g = torch.Generator(device=dev).manual_seed(rows)
+    b, L, hd = rows // 32, 32, cfg.head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+    q, k, v = r(b, L, nq, scale=3.0), r(b, L, nkv, scale=3.0), r(b, L, nkv)
+    qn, kn = r(hd, scale=0.1) + 1, r(hd, scale=0.1) + 1
+    pos = (torch.randint(0, 737, (b, 1), device=dev, generator=g)
+           + torch.arange(L, device=dev))
+    kw = dict(head_dim=hd, theta=cfg.rope_theta, q_norm=qn, k_norm=kn,
+              eps=cfg.norm_eps)
+
+    def kernel():
+        return qkv_rope(q, k, v, None, None, None, pos, **kw)
+
+    def plain():
+        return eref.qkv_rope(q, k, v, None, None, None, pos, **kw)
+    with torch.no_grad():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        ulps = [bf16_ulps(torch, a, c).max().item()
+                for a, c in zip(got, want)]
+        off = [(a != c).float().mean().item() for a, c in zip(got, want)]
+        # one bf16 ulp of the largest |value|: 2^(floor(log2 max) - 7)
+        top = [2.0 ** (math.floor(math.log2(c.float().abs().max().item()))
+                       - 7) for c in want[:2]]
+        errs = [(a.float() - c.float()).abs().max().item()
+                for a, c in zip(got, want)]
+        if (any(e > QK_NORM_ULPS * u for e, u in zip(errs, top))
+                or not torch.equal(got[2], want[2])):
+            raise AssertionError(f"qkv_rope QK-norm rows {rows}: q, k, v "
+                                 f"off by {errs} (ulps of the largest "
+                                 f"{top}), {ulps} bf16 ulps")
+        rec = {"kernel": "qkv_rope QK-norm", "case": f"sdar-30b-a3b rows "
+               f"{rows}", "max_bf16_ulps": ulps, "share_not_equal": off,
+               "max_abs_err": max(errs), "ulp_of_largest": top}
+        if timed:
+            n_bytes = 2 * rows * (nq + nkv) * 2 + 2 * hd * 2 + rows * 8
+            before = qkv_rope.launches
+            times = alternate(torch, plain, kernel, None, iters=20)
+            bms, by = bound_ms(n_bytes, 0, "bfloat16")
+            rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
+                       bound_ms=bms, bound_by=by, bytes=n_bytes,
+                       launches=qkv_rope.launches - before,
+                       kernel_device_ms=device_ms(torch, kernel, 20,
+                                                  ["qkv_rope_kernel"]))
+    log(json.dumps(rec))
+    return rec
+
+
+def moe_inputs(torch, dev, *, T, E, k, d, f, seed=0):
+    """Routed inputs of one grouped MoE layer: x (T, d) bf16 and the
+    experts (std 1/sqrt(fan in)), each token's gates and top-k ids from a
+    random router's fp32 softmax (``models/moe.py::route``)."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.moe import route
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def r(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+    x = r(T, d, scale=1.0)
+    w = {"router": r(d, E, scale=d ** -0.5),
+         "wi_gate": r(E, d, f, scale=d ** -0.5),
+         "wi_up": r(E, d, f, scale=d ** -0.5),
+         "wo": r(E, f, d, scale=f ** -0.5)}
+    cfg = ModelConfig(name="moe", family="moe", n_layers=1, d_model=d,
+                      n_heads=1, n_kv_heads=1, d_ff=f, vocab_size=8,
+                      n_experts=E, experts_per_token=k, moe_d_ff=f,
+                      layer_period=(("attn", "moe"),),
+                      moe_dispatch="grouped")
+    _, gates, ids = route(w, x, cfg)
+    return x, gates, ids, w
+
+
+def check_moe(torch, dev, *, T, E=128, k=8, d=2048, f=768, timed=False):
+    """The grouped MoE's five kernels against the plain version
+    (``kernels/moe/ref.py``, the same bf16 rounding points, fp32 sums on
+    the card) at T tokens of top-k over E experts of d x f: the alignment's
+    counts and tiles equal the plain layout's and every pair's row lies in
+    its expert's group, once; the output within ``MOE_REL`` of max|y|.
+    ``timed``: the five kernels' ms (CUDA
+    events) and device time per kernel, the plain version's ms, and the
+    bound: every expert hit read once, the pairs' rows in and out once,
+    2 * 3 * pairs * d * f operations. Returns the record."""
+    from repro_torch.kernels.moe import (
+        grouped_experts,
+        moe_align,
+        moe_gate_up,
+    )
+    from repro_torch.kernels.moe import ref as mref
+    x, gates, ids, w = moe_inputs(torch, dev, T=T, E=E, k=k, d=d, f=f,
+                                  seed=T)
+    P = T * k
+    with torch.no_grad():
+        row_of, tile_expert, tile_rows, n_tiles = moe_align(
+            ids.reshape(-1).contiguous(), E)
+        p_row, p_te, p_tr, counts = mref.align(ids, E)
+        n = int(n_tiles.item())
+        rows_ok = (torch.equal(tile_expert[:n], p_te.int())
+                   and torch.equal(tile_rows[:n], p_tr.int())
+                   and n == len(p_te)
+                   and torch.equal(tile_expert[row_of.long() // mref.BM],
+                                   ids.reshape(-1).int())
+                   and len(torch.unique(row_of)) == P)
+        if not rows_ok:
+            raise AssertionError(f"moe_align T {T}: the layout differs from "
+                                 "the plain one")
+
+        def kernel():
+            return grouped_experts(x, gates, ids, w["wi_gate"], w["wi_up"],
+                                   w["wo"])
+
+        def plain():
+            return mref.grouped_experts(x, gates, ids, w["wi_gate"],
+                                        w["wi_up"], w["wo"])
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        abs_err = (got.float() - want.float()).abs().max().item()
+        err = abs_err / scale
+        rec = {"kernel": "grouped_experts", "case": f"T {T} E {E} k {k} "
+               f"d {d} f {f}", "pairs": P, "rows_padded": n * mref.BM,
+               "max_abs_err": abs_err, "max_err_over_max_y": err,
+               "max_bf16_ulps": bf16_ulps(torch, got, want).max().item(),
+               "share_not_equal": (got != want).float().mean().item()}
+        if not err <= MOE_REL:
+            raise AssertionError(f"grouped MoE T {T}: {rec}")
+        if timed:
+            hit = int((counts > 0).sum())
+            n_bytes = 2 * (3 * hit * d * f + 2 * T * d)
+            n_ops = 2 * 3 * P * d * f
+            before = moe_gate_up.launches
+            times = alternate(torch, plain, kernel, None, iters=5)
+            bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
+            per = {name: device_ms(torch, kernel, 5, [name + "("])
+                   for name in MOE_KERNELS}
+            dev_ms = sum(v for v in per.values() if v)
+            rec.update(kernel_ms=times["kernel"], plain_ms=times["plain"],
+                       bound_ms=bms, bound_by=by, bytes=n_bytes, ops=n_ops,
+                       launches=moe_gate_up.launches - before,
+                       device_ms=per, roofline_pct=100 * bms / dev_ms)
+    log(json.dumps(rec))
+    return rec
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attn import ref as dref
     lens8 = [0, 512, 536, 577, 608, 640, 700, 736]
@@ -1468,6 +1656,17 @@ def phase_kernels(torch, dev):
     for arch in ("llada-8b", "qwen2-0.5b", "gemma-7b"):
         for rows in (32, 1024):
             check_elementwise(torch, dev, arch=arch, rows=rows)
+    # sdar-30b-a3b: the QK-norm instance of qkv_rope, and the grouped MoE
+    # at 32, 64 and 128 lanes' blocks and 64 and 128 lanes' admissions
+    # (32,768 and 65,536 tokens)
+    main["qkv_rope_qk_norm"] = check_qk_norm(torch, dev, rows=1024,
+                                             timed=True)
+    check_qk_norm(torch, dev, rows=4096)
+    check_moe(torch, dev, T=64, E=4, k=2, d=256, f=256)
+    for T in (1024, 2048, 4096, 32768, 65536):
+        rec = check_moe(torch, dev, T=T, timed=True)
+        if T == 1024:
+            main["grouped_moe"] = rec
     return main
 
 
@@ -1498,6 +1697,13 @@ def kernel_counters():
         gated_act,
         qkv_rope,
     )
+    from repro_torch.kernels.moe import (
+        moe_align,
+        moe_combine,
+        moe_down,
+        moe_gate_up,
+        moe_gather,
+    )
     from repro_torch.kernels.select import fused_select
     from repro_torch.kernels.xent import fused_xent
     return {"decode_attention": (decode_attention, "launches"),
@@ -1508,7 +1714,10 @@ def kernel_counters():
             "xent_backward": (fused_xent, "backward_launches"),
             "add_rmsnorm": (add_rmsnorm, "launches"),
             "qkv_rope": (qkv_rope, "launches"),
-            "gated_act": (gated_act, "launches")}
+            "gated_act": (gated_act, "launches"),
+            **{name: (fn, "launches") for name, fn in zip(
+                MOE_KERNELS, (moe_align, moe_gather, moe_gate_up, moe_down,
+                              moe_combine))}}
 
 
 def zero_counts():
@@ -1537,17 +1746,22 @@ def elementwise_launches(cfg, forwards: int) -> dict:
     """The fused elementwise passes' launches in ``forwards`` forwards of
     ``cfg`` with grad off: at bf16, two add + norms a slot and the final
     norm (rmsnorm), a QKV bias + RoPE per attention slot (RoPE), an
-    act(g) * u per gated MLP slot (silu, tanh gelu); none otherwise."""
-    from repro_torch.configs.base import MLP
+    act(g) * u per gated MLP slot (silu, tanh gelu), each of the grouped
+    MoE's five kernels once per MOE slot of a "grouped" config (a forward
+    of at most ``kernels.moe.ops.MAX_TOKENS`` tokens); none otherwise."""
+    from repro_torch.configs.base import MLP, MOE
     fused = cfg.dtype == "bfloat16"
     n_slots = cfg.n_periods * len(cfg.layer_period)
     n_mlp = cfg.n_periods * sum(f == MLP for _, f in cfg.layer_period)
+    n_moe = (cfg.n_periods * sum(f == MOE for _, f in cfg.layer_period)
+             if fused and cfg.moe_dispatch == "grouped" else 0)
     return {"add_rmsnorm": forwards * (2 * n_slots + 1)
             if fused and cfg.norm_type == "rmsnorm" else 0,
             "qkv_rope": forwards * attention_layers(cfg)
             if fused and cfg.pos_embed == "rope" else 0,
             "gated_act": forwards * n_mlp
-            if fused and cfg.activation in ("silu", "gelu") else 0}
+            if fused and cfg.activation in ("silu", "gelu") else 0,
+            **{name: forwards * n_moe for name in MOE_KERNELS}}
 
 
 def check_launches(cfg, calls, launches, layout):
@@ -3506,6 +3720,11 @@ def serve_architecture(torch, dev, name, depth, smi):
                 raise AssertionError(f"{name} request {rid}: paged tokens "
                                      "differ from dense")
     launches = {arch_key(k, name): total[k] for k in ARCH_KERNELS}
+    if cfg.moe_dispatch == "grouped":
+        # the grouped MoE's and the QK-norm pass's summary entries: their
+        # launches on this config's served runs
+        launches["grouped_moe"] = total["moe_gate_up"]
+        launches["qkv_rope_qk_norm"] = total["qkv_rope"]
     ar = None
     if name in SHAPE_KEYED:
         ar, ar_decode = static_ar(torch, dev, cfg, params, name)
@@ -4382,6 +4601,19 @@ def main():
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+    # sdar-30b-a3b's kernels: times and errors from phase 2, launches from
+    # its phase 9 runs (two of its 48 layers, served through the engine)
+    for name, src, tpu in (("grouped_moe", MOE_SRC, MOE_TPU),
+                           ("qkv_rope_qk_norm", ELEMENTWISE_SRC,
+                            ELEMENTWISE_TPU)):
+        rec = main_recs[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": arch_launches.pop(name),
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None})
     # the attention and select kernels at each of phase 9's configs: times
     # and errors from phase 2's bf16 cases at the config's shapes, launches
     # from its phase 9 runs

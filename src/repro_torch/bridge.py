@@ -6,7 +6,9 @@ The port's params are the JAX tree's structure as nested dicts of tensors:
 ...)}`` with every slot leaf stacked over ``cfg.n_periods``; a slot holds
 ``norm1`` and ``norm2`` (``w``, and ``b`` under layernorm), its mixer's
 leaves, ``attn`` (an ``ATTN`` or ``ATTN_LOCAL`` mixer alike), ``mamba`` or
-``rwkv_tm``, an encoder-decoder's ``cross`` attention (no bias) and
+``rwkv_tm`` (an ``attn`` of a ``qk_norm`` config also holds ``q_norm``
+and ``k_norm``, (hd,) per layer, stacked as ``(n, hd)``), an
+encoder-decoder's ``cross`` attention (no bias) and
 ``norm_cross``, and its FFN's, ``mlp`` (``wi_gate``, ``wi_up``, ``wo``;
 whisper's plain ``wi``, ``wo``), ``rwkv_cm`` or, for an ``MOE`` slot,
 ``moe`` (``router`` (d, E) fp32, ``wi_gate`` and ``wi_up`` (E, d, f),
@@ -124,7 +126,7 @@ def _specs(cfg: ModelConfig):
                     "wo": ((n, cfg.d_ff, d), 1 / math.sqrt(cfg.d_ff))}
         return _ffn(n, d, cfg.d_ff)
 
-    def attention(n, bias: bool):
+    def attention(n, bias: bool, qk_norm: bool = False):
         a = {"wq": ((n, d, nq), 1 / math.sqrt(d)),
              "wk": ((n, d, nkv), 1 / math.sqrt(d)),
              "wv": ((n, d, nkv), 1 / math.sqrt(d)),
@@ -132,6 +134,8 @@ def _specs(cfg: ModelConfig):
         if bias:
             a.update(bq=((n, nq), "zeros"), bk=((n, nkv), "zeros"),
                      bv=((n, nkv), "zeros"))
+        if qk_norm:
+            a.update(q_norm=((n, hd), "ones"), k_norm=((n, hd), "ones"))
         return a
 
     def slot(mixer, ffn):
@@ -141,7 +145,7 @@ def _specs(cfg: ModelConfig):
         elif mixer == RWKV:
             s["rwkv_tm"] = _rwkv_time_mix(cfg, n)
         else:
-            s["attn"] = attention(n, cfg.qkv_bias)
+            s["attn"] = attention(n, cfg.qkv_bias, cfg.qk_norm)
         if cfg.is_encoder_decoder:
             # cross attention: no q/k/v bias, as the reference's
             s["cross"] = attention(n, False)

@@ -12,4 +12,8 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeConfig,
     TrainConfig,
 )
-from repro_torch.configs.registry import ARCHITECTURES, get_config  # noqa: F401
+from repro_torch.configs.registry import (  # noqa: F401
+    ARCHITECTURES,
+    PORT_ARCHITECTURES,
+    get_config,
+)

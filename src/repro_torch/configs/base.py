@@ -9,7 +9,10 @@ norm and activation the port's model stack runs),
 (the roofline constants of the paper's A100 and of the port's H100). The
 port keeps its own copy so that it imports nothing of the JAX package; the
 field names, defaults and derived properties are the same, so a config
-built on either side describes the same model.
+built on either side describes the same model. ``ModelConfig`` adds two
+fields of the port's own (``PORT_FIELDS``), which every config copied from
+the JAX package leaves at their defaults: ``qk_norm`` and
+``moe_dispatch``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,10 @@ RWKV = "rwkv"          # RWKV6 time-mix block
 MLP = "mlp"            # dense FFN
 MOE = "moe"            # mixture-of-experts FFN
 RWKV_CM = "rwkv_cm"    # RWKV6 channel-mix (token-shifted FFN)
+
+MOE_DISPATCH = ("capacity", "grouped")
+# ModelConfig's fields that the JAX package's ModelConfig has not
+PORT_FIELDS = ("qk_norm", "moe_dispatch")
 
 
 @dataclass(frozen=True)
@@ -47,6 +54,9 @@ class ModelConfig:
     # Attention flavor
     qkv_bias: bool = False           # qwen-style QKV bias
     rope_theta: float = 10_000.0
+    # per-head RMSNorm of q and k before RoPE (Qwen3's q_norm / k_norm);
+    # port only
+    qk_norm: bool = False
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
     sliding_window: Optional[int] = None         # window for ATTN_LOCAL layers
@@ -64,6 +74,11 @@ class ModelConfig:
     n_shared_experts: int = 0
     router_aux_weight: float = 0.01
     capacity_factor: float = 1.25
+    # "capacity": the reference's capacity-bounded scatter (tokens past an
+    # expert's capacity drop); "grouped": every choice of every token
+    # computed, by the dropless grouped expert product (models/moe.py);
+    # port only
+    moe_dispatch: str = "capacity"
 
     # SSM (mamba)
     mamba_d_state: int = 16
@@ -108,6 +123,10 @@ class ModelConfig:
         if self.n_heads % max(self.n_kv_heads, 1) != 0 and self.family != "ssm":
             raise ValueError(f"{self.name}: n_heads={self.n_heads} not a "
                              f"multiple of n_kv_heads={self.n_kv_heads}")
+        if self.moe_dispatch not in MOE_DISPATCH:
+            raise ValueError(f"{self.name}: moe_dispatch "
+                             f"{self.moe_dispatch!r} is not one of "
+                             f"{MOE_DISPATCH}")
         if self.n_layers % len(self.layer_period) != 0:
             raise ValueError(f"{self.name}: n_layers={self.n_layers} not a "
                              f"multiple of period {len(self.layer_period)}")
@@ -140,7 +159,8 @@ class ModelConfig:
         if not self.tie_embeddings:
             total += self.vocab_size * d
         per = {}
-        per[ATTN] = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+        per[ATTN] = (d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+                     + (2 * hd if self.qk_norm else 0))
         per[ATTN_LOCAL] = per[ATTN]
         exp = self.mamba_expand * d
         per[MAMBA] = (d * exp * 2 + exp * self.mamba_d_conv

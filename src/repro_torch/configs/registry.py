@@ -7,6 +7,9 @@ rmsnorm or layernorm, RoPE or no positions
 (``configs/base.py::check_supported``); building params for, or running,
 whisper-base (an encoder, sinusoidal positions, a plain gelu) raises.
 internvl2-1b's text path runs; its prefix embeddings are not ported.
+
+``PORT_ARCHITECTURES`` holds the configs the port runs that the JAX
+package has not (sdar-30b-a3b); ``get_config`` resolves both.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.configs import (
     qwen1_5_110b,
     qwen2_0_5b,
     rwkv6_1_6b,
+    sdar_30b_a3b,
     whisper_base,
 )
 from repro_torch.configs.base import ModelConfig
@@ -43,10 +47,14 @@ ARCHITECTURES: Dict[str, ModelConfig] = {
     "whisper-base": whisper_base.CONFIG,
 }
 
+PORT_ARCHITECTURES: Dict[str, ModelConfig] = {
+    "sdar-30b-a3b": sdar_30b_a3b.CONFIG,
+}
+
 
 def get_config(arch: str) -> ModelConfig:
-    try:
-        return ARCHITECTURES[arch]
-    except KeyError:
+    known = {**ARCHITECTURES, **PORT_ARCHITECTURES}
+    if arch not in known:
         raise KeyError(f"unknown architecture {arch!r}; available: "
-                       f"{sorted(ARCHITECTURES)}") from None
+                       f"{sorted(known)}")
+    return known[arch]

@@ -239,6 +239,32 @@ def commit_rows(cache, emissions: tuple, offsets, rows):
     return cache
 
 
+def period_commit(cache, offsets, rows):
+    """An ``emit`` for ``models.transformer.forward``: it writes each
+    period's emissions (per slot, without the period axis) into period
+    ``p`` of the selected lanes' rows, in place, as :func:`commit_rows`
+    writes every period's; a paged cache's index is built once, at the
+    first period."""
+    at = []
+
+    def emit(p: int, emissions: tuple) -> None:
+        ems = tuple({k: v[None] for k, v in em.items()} for em in emissions)
+        if not isinstance(cache, PagedCache):
+            commit_rows(_period(cache, p), ems, offsets, rows)
+            return
+        if not at:
+            at.append(_paged_index(cache, _kv_len(ems), offsets, rows))
+        if at[0] is not None:
+            _write_paged(_period(cache.slots, p), ems, *at[0])
+
+    return emit
+
+
+def _period(slots, p: int) -> tuple:
+    """Views of period ``p`` of every slot's leaves, the period axis kept."""
+    return tuple({k: v[p:p + 1] for k, v in slot.items()} for slot in slots)
+
+
 # ---------------------------------------------------------------------------
 # Paged layout
 # ---------------------------------------------------------------------------
@@ -386,13 +412,23 @@ def _commit_rows_paged(paged: PagedCache, emissions: tuple, offsets,
     key, and their state emissions replace the lanes' states. Positions
     on unallocated pages are dropped, as in the JAX package (the engine
     allocates before it commits)."""
+    at = _paged_index(paged, _kv_len(emissions), offsets, rows)
+    if at is not None:
+        _write_paged(paged.slots, emissions, *at)
+    return paged
+
+
+def _paged_index(paged: PagedCache, Lb: int, offsets, rows):
+    """Where :func:`_commit_rows_paged` writes ``Lb`` rows of each selected
+    lane: the pool (page, row) and emission (lane, row) index tensors of
+    every position on an allocated page, and the lanes as a tensor; None
+    without a lane."""
     b, n_t = paged.page_table.shape
     page = paged.page_size
     lanes = _lanes(rows, b)
     if not len(lanes):
-        return paged
+        return None
     offsets = np.broadcast_to(np.asarray(offsets, np.int64), (b,))
-    Lb = _kv_len(emissions)
     pos = offsets[lanes, None] + np.arange(Lb)[None, :]     # (n, Lb)
     if pos.min() < 0 or pos.max() >= n_t * page:
         raise ValueError(f"rows [{pos.min()}, {pos.max() + 1}) outside a "
@@ -402,14 +438,16 @@ def _commit_rows_paged(paged: PagedCache, emissions: tuple, offsets,
     dev = paged.device
     idx = [torch.as_tensor(a, device=dev) for a in
            (pid[li, ji], pos[li, ji] % page, lanes[li], ji)]
-    lanes_t = torch.as_tensor(lanes, device=dev)
-    for cslot, eslot in zip(paged.slots, emissions):
+    return idx, torch.as_tensor(lanes, device=dev)
+
+
+def _write_paged(slots, emissions: tuple, idx, lanes_t) -> None:
+    for cslot, eslot in zip(slots, emissions):
         for key in KV:
             if key in cslot:
                 cslot[key][:, idx[0], idx[1]] = eslot[key][
                     :, idx[2], idx[3]].to(cslot[key].dtype)
         _write_states(cslot, eslot, lanes_t)
-    return paged
 
 
 def gather_dense(paged: PagedCache) -> tuple:

@@ -31,6 +31,13 @@ from repro_torch.kernels.decode_attn import (
     paged_decode_attention,
 )
 from repro_torch.kernels.elementwise import add_rmsnorm, gated_act, qkv_rope
+from repro_torch.kernels.moe import (
+    moe_align,
+    moe_combine,
+    moe_down,
+    moe_gate_up,
+    moe_gather,
+)
 from repro_torch.kernels.select import fused_select
 from repro_torch.kernels.xent import fused_xent
 
@@ -43,7 +50,12 @@ COUNTERS = ((decode_attention, "launches"),
             (fused_xent, "backward_launches"),
             (add_rmsnorm, "launches"),
             (qkv_rope, "launches"),
-            (gated_act, "launches"))
+            (gated_act, "launches"),
+            (moe_align, "launches"),
+            (moe_gather, "launches"),
+            (moe_gate_up, "launches"),
+            (moe_down, "launches"),
+            (moe_combine, "launches"))
 
 
 def _counts():

@@ -39,6 +39,13 @@
 //    intrinsics' range) into shared memory once; then each thread takes
 //    8-wide chunks of the (x1, x2) halves of the q and k heads, adds the
 //    bias, rotates, and writes; and the v bias where the config has one.
+//    The QKN instance (a config with Qwen3's QK-norm) RMS-normalises each
+//    head of q and k between the bias and the rotation: the head's chunks
+//    lie in `half / 8` neighbouring lanes of one warp (a power of two: hd
+//    64, 128 or 256), which sum their squares by shuffles, and each value is
+//    scaled by the head's rsqrt and its (hd,) weight, rounded to bf16 as the
+//    plain path's norm output is. Without it the instance is the kernel as
+//    it was.
 //  - gated_act_kernel: act(g) * u, 8 elements a thread, for silu and for
 //    the tanh gelu (the expression PyTorch's own kernel evaluates).
 #include <cuda_bf16.h>
@@ -138,6 +145,9 @@ add_rmsnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ delta,
 // biases (n * hd,) or null; positions pos[b * pos_sb + l * pos_sl] for row
 // b * L + l. Writes q_out, k_out and, with bv, v_out (same layouts).
 // log_step = fp32(ln(theta) / half), the plain path's frequency scale.
+// QKN: qn and kn (hd,) are the QK-norm's weights, inv_q and inv_k the mean's
+// factors of q's and k's heads (PyTorch's), eps the norm's.
+template <bool QKN>
 __global__ void __launch_bounds__(kRopeThreads)
 qkv_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -145,7 +155,9 @@ qkv_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const int64_t* __restrict__ pos, int64_t pos_sb,
                 int64_t pos_sl, int L, bf16* __restrict__ q_out,
                 bf16* __restrict__ k_out, bf16* __restrict__ v_out, int n_q,
-                int n_kv, int hd, float log_step) {
+                int n_kv, int hd, float log_step,
+                const bf16* __restrict__ qn, const bf16* __restrict__ kn,
+                float inv_q, float inv_k, float eps) {
   __shared__ float cs[kRopeMaxHalf];
   __shared__ float sn[kRopeMaxHalf];
   const int64_t row = blockIdx.x;
@@ -181,6 +193,31 @@ qkv_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int j = 0; j < 8; ++j) {
           x1[j] = round_bf16(__fadd_rn(x1[j], b1[j]));
           x2[j] = round_bf16(__fadd_rn(x2[j], b2[j]));
+        }
+      }
+      if constexpr (QKN) {
+        float ss = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          ss = __fadd_rn(ss, __fmul_rn(x1[j], x1[j]));
+          ss = __fadd_rn(ss, __fmul_rn(x2[j], x2[j]));
+        }
+        // the head's `chunks` lanes: aligned, neighbouring, one warp
+        const unsigned lane = threadIdx.x & 31;
+        const unsigned group =
+            chunks == 32 ? 0xffffffffu
+                         : ((1u << chunks) - 1u) << (lane & ~(chunks - 1u));
+        for (int o = 1; o < chunks; o <<= 1) ss += __shfl_xor_sync(group, ss, o);
+        const float r =
+            rsqrtf(__fadd_rn(__fmul_rn(ss, is_q ? inv_q : inv_k), eps));
+        const bf16* nw = is_q ? qn : kn;
+        float w1[8], w2[8];
+        load8(nw + c, w1);
+        load8(nw + c + half, w2);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          x1[j] = round_bf16(__fmul_rn(__fmul_rn(x1[j], r), w1[j]));
+          x2[j] = round_bf16(__fmul_rn(__fmul_rn(x2[j], r), w2[j]));
         }
       }
 #pragma unroll
@@ -252,21 +289,26 @@ extern "C" int ew_add_rmsnorm(const void* x, const void* delta, const void* w,
 }
 
 // hd % 16 == 0 and hd <= 256; biases may be null (v_out unused without bv).
+// qn and kn both null, or both (hd,) with hd 64, 128 or 256: the QK-norm.
 extern "C" int ew_qkv_rope(const void* q, const void* k, const void* v,
                            const void* bq, const void* bk, const void* bv,
                            const void* pos, int64_t pos_sb, int64_t pos_sl,
                            int64_t rows, int L, void* q_out, void* k_out,
                            void* v_out, int n_q, int n_kv, int hd,
-                           float log_step, void* stream) {
+                           float log_step, const void* qn, const void* kn,
+                           float inv_q, float inv_k, float eps, void* stream) {
   if (rows == 0) return cudaSuccess;
-  qkv_rope_kernel<<<static_cast<unsigned>(rows), kRopeThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = qn != nullptr ? qkv_rope_kernel<true> : qkv_rope_kernel<false>;
+  kernel<<<static_cast<unsigned>(rows), kRopeThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(bq),
       static_cast<const bf16*>(bk), static_cast<const bf16*>(bv),
       static_cast<const int64_t*>(pos), pos_sb, pos_sl, L,
       static_cast<bf16*>(q_out), static_cast<bf16*>(k_out),
-      static_cast<bf16*>(v_out), n_q, n_kv, hd, log_step);
+      static_cast<bf16*>(v_out), n_q, n_kv, hd, log_step,
+      static_cast<const bf16*>(qn), static_cast<const bf16*>(kn), inv_q,
+      inv_k, eps);
   return cudaGetLastError();
 }
 

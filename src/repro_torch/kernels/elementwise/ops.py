@@ -1,7 +1,8 @@
 """The forward's fused elementwise passes: the wrappers of
 ``csrc/elementwise.cu``.
 
-``add_rmsnorm`` (residual add + RMSNorm), ``qkv_rope`` (QKV bias + RoPE)
+``add_rmsnorm`` (residual add + RMSNorm), ``qkv_rope`` (QKV bias, the
+QK-norm where the config has one, and RoPE)
 and ``gated_act`` (act(g) * u) each compute one chain of
 ``models/layers.py`` ops in one pass. A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises. The kernels take
@@ -27,10 +28,14 @@ _I64 = ctypes.c_int64
 _NORM_ARGTYPES = [_P] * 5 + [_I64, ctypes.c_int, ctypes.c_float,
                              ctypes.c_float, _P]
 _ROPE_ARGTYPES = ([_P] * 7 + [_I64, _I64, _I64, ctypes.c_int] + [_P] * 3
-                  + [ctypes.c_int] * 3 + [ctypes.c_float, _P])
+                  + [ctypes.c_int] * 3 + [ctypes.c_float] + [_P] * 2
+                  + [ctypes.c_float] * 3 + [_P])
 _ACT_ARGTYPES = [_P] * 3 + [_I64, ctypes.c_int, _P]
 MAX_D = 8192          # add_rmsnorm_kernel: 256 threads x 4 vectors of 8
 HEAD_DIMS = (64, 112, 128, 256)
+# the QK-norm's head reduction runs over the head's 8-wide chunks, a power
+# of two of lanes of one warp
+QK_NORM_HEAD_DIMS = (64, 128, 256)
 ACTS = {"silu": 0, "gelu": 1}
 
 
@@ -82,20 +87,29 @@ def add_rmsnorm(x, delta: Optional[torch.Tensor], w, eps: float):
 
 
 def qkv_rope(q, k, v, bq, bk, bv, positions, *, head_dim: int,
-             theta: float):
+             theta: float, q_norm=None, k_norm=None, eps: float = 1e-6):
     """q (b, L, n_q * head_dim), k and v (b, L, n_kv * head_dim), the
     projections as the matmuls wrote them; biases (n * head_dim,) or None;
-    positions (L,) or (b, L) ints -> (q, k, v): each plus its bias, q and k
-    rotated at the positions. Without ``bv``, v is returned as it is."""
-    _build.refuse_grad("qkv_rope", *(t for t in (q, k, v, bq, bk, bv)
-                                     if t is not None))
+    positions (L,) or (b, L) ints -> (q, k, v): each plus its bias, each
+    head of q and k RMS-normed (``eps``) by ``q_norm`` / ``k_norm``
+    (head_dim,) where given (both or neither), q and k rotated at the
+    positions. Without ``bv``, v is returned as it is."""
+    ins = (q, k, v, bq, bk, bv, q_norm, k_norm)
+    _build.refuse_grad("qkv_rope", *(t for t in ins if t is not None))
     if q.device.type == "cpu":
         return ref.qkv_rope(q, k, v, bq, bk, bv, positions,
-                            head_dim=head_dim, theta=theta)
-    _check("qkv_rope", q, k, v, bq, bk, bv, device=q.device)
+                            head_dim=head_dim, theta=theta, q_norm=q_norm,
+                            k_norm=k_norm, eps=eps)
+    _check("qkv_rope", *ins, device=q.device)
     b, L = q.shape[:2]
     hd = head_dim
     n_q, n_kv = q.shape[-1] // hd, k.shape[-1] // hd
+    qkn = q_norm is not None
+    if (qkn != (k_norm is not None)
+            or (qkn and (hd not in QK_NORM_HEAD_DIMS
+                         or q_norm.shape != (hd,) or k_norm.shape != (hd,)))):
+        raise ValueError(f"qkv_rope: q_norm and k_norm ({hd},) together, at "
+                         f"head_dim one of {QK_NORM_HEAD_DIMS}")
     if (hd not in HEAD_DIMS or q.ndim != 3 or q.shape[-1] != n_q * hd
             or k.shape != (b, L, n_kv * hd) or v.shape != k.shape
             or (bq is not None and bq.shape != (n_q * hd,))
@@ -112,11 +126,16 @@ def qkv_rope(q, k, v, bq, bk, bv, positions, *, head_dim: int,
     v_out = v if bv is None else torch.empty_like(v)
     log_step = float(np.float32(math.log(theta) / (hd // 2)))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    # PyTorch's mean over each head of (b, L, n, hd): the sum times
+    # rows / (rows * hd), in fp32
+    inv_q, inv_k = (float(np.float32(r) / np.float32(r * hd)) if r else 0.0
+                    for r in (b * L * n_q, b * L * n_kv))
     fn = _build.function("ew_qkv_rope", _ROPE_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk),
             ptr(bv), pos.data_ptr(), pos.stride(0), pos.stride(1), b * L, L,
             q_out.data_ptr(), k_out.data_ptr(), v_out.data_ptr(), n_q, n_kv,
-            hd, log_step, _stream(q.device))
+            hd, log_step, ptr(q_norm), ptr(k_norm), inv_q, inv_k, eps,
+            _stream(q.device))
     _build.check(rc, "ew_qkv_rope")
     qkv_rope.launches += 1
     return q_out, k_out, v_out

@@ -95,6 +95,14 @@ def project_kv(params, x, cfg: ModelConfig):
             v.reshape(b, L, cfg.n_kv_heads, cfg.head_dim))
 
 
+def head_norm(x, w, eps: float):
+    """RMSNorm of each head's ``hd`` values (the last axis) times ``w``
+    (hd,), in fp32, cast back: the QK-norm of q and of k before RoPE."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
 def out_proj(params, attn_out, cfg: ModelConfig):
     b, L = attn_out.shape[:2]
     return attn_out.reshape(b, L, cfg.n_heads * cfg.head_dim) @ params["wo"]

@@ -26,6 +26,12 @@ slots ``[j C, (j + 1) C)`` of each expert's ``k C`` rows, so every expert
 weight is read once per forward (the reference loops over the k choices,
 reading every expert's weights k times); each choice keeps its own
 capacity C, so which tokens drop is the reference's.
+
+A config with ``moe_dispatch`` "grouped" (sdar-30b-a3b, whose Qwen3-MoE
+layers compute every choice) takes :func:`apply_moe_grouped` instead, in
+every forward: the same routing, then the dropless grouped expert product
+over the real (token, choice) pairs (``kernels/moe``), with no capacity
+and nothing dropped.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe import ref as moe_ref
 from repro_torch.models.layers import act
 
 
@@ -131,6 +138,27 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     if "shared" in params:
         out = out + _shared(params, xt, cfg)
     return out.reshape(b, L, d).to(x.dtype), aux
+
+
+def apply_moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
+                      experts_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, L, d) -> (out (b, L, d) in x's dtype, aux loss fp32 scalar):
+    every token's top-k choices computed, each weighted by its gate and
+    summed in choice order (the routing of :func:`route`). The experts run
+    through ``experts_fn`` (``kernels.moe.grouped_experts``-shaped; None:
+    its plain version, ``kernels/moe/ref.py``). Nothing depends on the
+    batch's grouping of tokens: ``apply_moe``'s capacity arguments have no
+    counterpart here."""
+    if "shared" in params:
+        raise ValueError(f"{cfg.name}: the grouped dispatch has no shared "
+                         "expert")
+    b, L, d = x.shape
+    xt = x.reshape(b * L, d)
+    probs, gates, ids = route(params, xt, cfg)
+    fn = moe_ref.grouped_experts if experts_fn is None else experts_fn
+    out = fn(xt, gates, ids, params["wi_gate"], params["wi_up"],
+             params["wo"])
+    return out.reshape(b, L, d), aux_loss(probs, ids, cfg)
 
 
 def apply_moe_dense_fallback(params, x: torch.Tensor,

@@ -25,8 +25,8 @@ of an attention slot (and, cache-less in an encoder-decoder, the cross
 attention's ``{"ck", "cv"}`` over the encoder's rows), the state after
 the forward's last token of a
 Mamba slot (``conv``, ``ssm``) or an RWKV slot (``S``, ``tm_shift``,
-``cm_shift``); the MoE slots' load-balance losses come back summed as
-``aux_loss``.
+``cm_shift``), or go period by period to the forward's ``emit``; the MoE
+slots' load-balance losses come back summed as ``aux_loss``.
 """
 from __future__ import annotations
 
@@ -58,8 +58,8 @@ from repro_torch.models import rwkv6 as R
 class ModelOutput(NamedTuple):
     logits: Optional[torch.Tensor]  # (b, Lq, V) fp32; None without logits
     hidden: torch.Tensor            # (b, Lq, d) last hidden (post final norm)
-    emissions: tuple                # per slot its K/V or state, stacked over
-    #                                 periods
+    emissions: Optional[tuple]      # per slot its K/V or state, stacked
+    #                                 over periods (None: given to emit)
     aux_loss: torch.Tensor          # MoE load-balance aux (fp32 scalar; 0
     #                                 without an MOE slot)
 
@@ -110,23 +110,29 @@ def _add_norm(norm, x, delta, *, cfg: ModelConfig, ctx):
 
 def _project_qkv(params, h, *, cfg: ModelConfig, ctx):
     """q (b, L, Kv, G, hd), k and v (b, L, Kv, hd): the projections, their
-    biases and RoPE at ``ctx["q_pos"]``; the bias adds and the rotations in
-    one fused pass where ``elementwise_fns`` cover them (RoPE,
-    :func:`_fusable` tensors)."""
+    biases, a ``qk_norm`` config's per-head RMSNorm of q and k, and RoPE at
+    ``ctx["q_pos"]``; the bias adds, the norms and the rotations in one
+    fused pass where ``elementwise_fns`` cover them (RoPE, :func:`_fusable`
+    tensors)."""
     fns = ctx["elementwise_fns"]
     b, n = h.shape[:2]
+    keys = ("wq", "wk", "wv", "bq", "bk", "bv", "q_norm", "k_norm")
     if (fns is not None and cfg.pos_embed == "rope"
-            and _fusable(h, *(params.get(k) for k in ("wq", "wk", "wv", "bq",
-                                                      "bk", "bv")))):
+            and _fusable(h, *(params.get(k) for k in keys))):
         q, k, v = fns.qkv_rope(
             h @ params["wq"], h @ params["wk"], h @ params["wv"],
             params.get("bq"), params.get("bk"), params.get("bv"),
-            ctx["q_pos"], head_dim=cfg.head_dim, theta=cfg.rope_theta)
+            ctx["q_pos"], head_dim=cfg.head_dim, theta=cfg.rope_theta,
+            q_norm=params.get("q_norm"), k_norm=params.get("k_norm"),
+            eps=cfg.norm_eps)
         shape = (b, n, cfg.n_kv_heads, cfg.head_dim)
         return (q.reshape(b, n, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim),
                 k.reshape(shape), v.reshape(shape))
     q = L.project_q(params, h, cfg)
     k, v = L.project_kv(params, h, cfg)
+    if cfg.qk_norm:
+        q = L.head_norm(q, params["q_norm"], cfg.norm_eps)
+        k = L.head_norm(k, params["k_norm"], cfg.norm_eps)
     if cfg.pos_embed == "rope":
         q = L.rope(q, ctx["q_pos"], cfg.rope_theta)
         k = L.rope(k, ctx["q_pos"], cfg.rope_theta)
@@ -144,6 +150,19 @@ def _mlp(params, h, *, cfg: ModelConfig, ctx):
         return fns.gated_act(h @ params["wi_gate"], h @ params["wi_up"],
                              cfg.activation) @ params["wo"]
     return L.apply_mlp(params, h, cfg)
+
+
+def _moe_grouped(params, h, *, cfg: ModelConfig, ctx):
+    """The dropless grouped MoE (``moe_dispatch`` "grouped"): the experts
+    through ``elementwise_fns.moe`` where the bundle is given and covers
+    the input (on the CPU, where the wrapper takes the plain version, or
+    :func:`_fusable` tensors), the plain version otherwise."""
+    fns = ctx["elementwise_fns"]
+    fused = fns is not None and (
+        h.device.type == "cpu"
+        or _fusable(h, params["wi_gate"], params["wi_up"], params["wo"]))
+    return MO.apply_moe_grouped(params, h, cfg,
+                                experts_fn=fns.moe if fused else None)
 
 
 def _self_attention_slot(slot, h, *, cfg: ModelConfig, mixer: str, ctx):
@@ -273,7 +292,9 @@ def _apply_slot(slot, x, delta, *, cfg: ModelConfig, mixer: str, ffn: str,
         y = None
         em.update(cross_em)
     x, h = _add_norm(slot["norm2"], x, y, cfg=cfg, ctx=ctx)
-    if ffn == MOE:
+    if ffn == MOE and cfg.moe_dispatch == "grouped":
+        y, aux = _moe_grouped(slot["moe"], h, cfg=cfg, ctx=ctx)
+    elif ffn == MOE:
         y, aux = MO.apply_moe(slot["moe"], h, cfg, dropless=cache is not None,
                               moe_per_row=moe_per_row)
     elif ffn == RWKV_CM:      # after an RWKV mixer, as in every config
@@ -285,11 +306,13 @@ def _apply_slot(slot, x, delta, *, cfg: ModelConfig, mixer: str, ffn: str,
 
 
 def _run_stack(slots_params, x, *, cfg: ModelConfig, slot_kinds, n: int,
-               ctx, cache, remat: bool, moe_per_row: bool):
+               ctx, cache, remat: bool, moe_per_row: bool, emit=None):
     """The ``n`` periods of ``slot_kinds`` over ``x``, each slot's params
     (and cache leaves) stacked over the periods. Returns (x, the last
     slot's output still to add (the final norm adds it), emissions stacked
-    over periods per slot, the summed MoE aux loss)."""
+    over periods per slot, the summed MoE aux loss). ``emit(p, ems)``,
+    where given, takes period ``p``'s emissions as it makes them, and
+    none are kept (None in their place)."""
     dev = x.device
     slots = [_by_period(slot_params, n) for slot_params in slots_params]
     cache_slots = (None if cache is None
@@ -318,8 +341,13 @@ def _run_stack(slots_params, x, *, cfg: ModelConfig, slot_kinds, n: int,
                                             use_reentrant=False)
         else:
             x, delta, aux, ems = period_body(x, delta, aux, p)
+        if emit is not None:
+            emit(p, tuple(ems))
+            continue
         for i, em in enumerate(ems):
             emitted[i].append(em)
+    if emit is not None:
+        return x, delta, None, aux
     emissions = tuple({key: torch.stack([em[key] for em in ems])
                        for key in ems[0]} for ems in emitted)
     return x, delta, emissions, aux
@@ -362,7 +390,7 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
             remat: bool = False,
             logits_slice: Optional[Tuple[int, int]] = None,
             return_logits: bool = True,
-            moe_per_row: bool = False) -> ModelOutput:
+            moe_per_row: bool = False, emit=None) -> ModelOutput:
     """Run the model.
 
     tokens: (b, L) int. ``prefix_embeds`` (b, n, d): stub-frontend
@@ -404,8 +432,9 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     bias + RoPE and the gated silu / tanh-gelu activation, each taken only
     where it covers the input (rmsnorm, RoPE, a gated MLP, bf16 CUDA
     tensors with no gradient to carry) and the plain ops elsewhere
-    (layernorm, plain gelu, the recurrent mixers, MoE experts, training),
-    whatever the bundle.
+    (layernorm, plain gelu, the recurrent mixers, the capacity MoE's
+    experts, training), whatever the bundle; its ``moe`` runs the experts
+    of a ``moe_dispatch`` "grouped" config (the dropless grouped product).
     ``return_logits=False`` skips the lm_head
     (the fused-select decode reads ``hidden``); ``logits_slice=(s0, s1)``
     applies it to positions ``[s0, s1)`` only (the CDLM losses read
@@ -414,9 +443,15 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     ``jax.checkpoint`` of the period body) when grad mode is on. The MoE
     slots of a cached forward size their expert buffers by the decode's
     bounded capacity (dropless), those of a cache-less one by the
-    capacity factor, as the reference's defaults do. ``moe_per_row``
+    capacity factor, as the reference's defaults do (a "grouped" config's
+    MoE drops nothing, in every forward). ``moe_per_row``
     gives each row of the batch its own expert capacity (as in
     ``models.moe.apply_moe``): the reference's per-lane forward.
+    ``emit(p, ems)``, where given, takes each period's emissions (per slot,
+    without the period axis) as the forward makes them, say to commit
+    them (``core.cache.period_commit``), and the forward keeps none
+    (``emissions`` None): a long prefill never holds every layer's K/V
+    at once.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -471,7 +506,7 @@ def forward(params, tokens, *, cfg: ModelConfig, device="cuda",
     x, delta, emissions, aux = _run_stack(
         params["slots"], x, cfg=cfg, slot_kinds=cfg.layer_period,
         n=cfg.n_periods, ctx=ctx, cache=cache, remat=remat,
-        moe_per_row=moe_per_row)
+        moe_per_row=moe_per_row, emit=emit)
 
     hidden = _add_norm(params["final_norm"], x, delta, cfg=cfg, ctx=ctx)[1]
     if not return_logits:

@@ -90,6 +90,7 @@ tests; the CPU runs eagerly.
 from __future__ import annotations
 
 import bisect
+import functools
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -116,6 +117,7 @@ from repro_torch.core.block_loop import (
 from repro_torch.core.sampler import SAMPLERS
 from repro_torch.kernels.block_attn import flash_block_attention
 from repro_torch.kernels.elementwise import ElementwiseFns
+from repro_torch.kernels.moe import grouped_experts
 from repro_torch.models import forward, unembed_matrix
 from repro_torch.serving.api import (
     BlockEvent,
@@ -646,6 +648,15 @@ class ContinuousEngine(_RequestStepper):
         self._all_block = torch.ones((1, B), dtype=torch.bool,
                                      device=self.device)
         self._phases = Phases(PHASES)
+        # a "grouped" MoE config's device-side tally, pairs per expert then
+        # the rows the expert products computed (padding included): every
+        # forward's alignment pass adds into it on the device, inside the
+        # graphs; only moe_stats() reads it on the host
+        self._moe_tally = (torch.zeros(cfg.n_experts + 1, dtype=torch.int64,
+                                       device=self.device)
+                           if cfg.moe_dispatch == "grouped" else None)
+        self._fns = ElementwiseFns(moe=functools.partial(
+            grouped_experts, tally=self._moe_tally))
         self._reset()
 
     # -- state transitions ---------------------------------------------------
@@ -671,9 +682,9 @@ class ContinuousEngine(_RequestStepper):
         and key on the device, tau and EOS on the host), reset their cache
         rows (paged: allocate prompt + first-block pages), prefill the
         prompts under the block-causal mask through the block attention
-        kernel and commit them into those rows (the prefill runs every
-        lane, as the JAX engine's does, and commits only the admitted
-        ones), its norms, RoPE and gated activations through the fused
+        kernel and commit them into those rows, layer by layer as the
+        prefill makes them (it runs every lane, as the JAX engine's does,
+        and commits only the admitted ones), its norms, RoPE and gated activations through the fused
         elementwise passes."""
         spec, dev = self.spec, self.device
         canvas = init_canvas(torch.as_tensor(prompts, dtype=torch.int64,
@@ -693,13 +704,13 @@ class ContinuousEngine(_RequestStepper):
             if not ok[admit].all():
                 raise RuntimeError("admission outside the free-page budget: "
                                    "scheduler invariant violated")
-        out = forward(self.params, state.tokens[:, :spec.prompt_len],
-                      cfg=self.cfg, device=self.device,
-                      mode=masks.BLOCK_CAUSAL, prompt_len=spec.prompt_len,
-                      block_size=spec.block_size, return_logits=False,
-                      prefill_attention_fn=flash_block_attention,
-                      elementwise_fns=ElementwiseFns())
-        C.commit_rows(state.cache, out.emissions, 0, admit)
+        forward(self.params, state.tokens[:, :spec.prompt_len],
+                cfg=self.cfg, device=self.device, mode=masks.BLOCK_CAUSAL,
+                prompt_len=spec.prompt_len, block_size=spec.block_size,
+                return_logits=False,
+                prefill_attention_fn=flash_block_attention,
+                elementwise_fns=self._fns,
+                emit=C.period_commit(state.cache, 0, admit))
         state.blk[admit] = 0
         state.lane_nblocks[admit] = nblocks[admit]
         state.live |= admit
@@ -754,7 +765,8 @@ class ContinuousEngine(_RequestStepper):
         net, _ = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache, cfg=cfg,
             spec=self.spec, return_hidden=variant == "fused",
-            use_long_window=self._use_long_window, moe_per_row=True)
+            elementwise_fns=self._fns, use_long_window=self._use_long_window,
+            moe_per_row=True)
         if variant == "fused":
             cand, conf = D.confidence_and_candidates_fused(
                 net, unembed_matrix(self.params, cfg), bt, cfg.mask_token_id,
@@ -779,7 +791,8 @@ class ContinuousEngine(_RequestStepper):
         _, emissions = lane_block_forward(
             self.params, state.tokens, state.starts_t, state.cache,
             cfg=self.cfg, spec=self.spec, return_hidden=True,
-            use_long_window=self._use_long_window, moe_per_row=True)
+            elementwise_fns=self._fns, use_long_window=self._use_long_window,
+            moe_per_row=True)
         return emissions
 
     def _write_block_inputs(self, state: _Slots, starts, live) -> None:
@@ -857,6 +870,8 @@ class ContinuousEngine(_RequestStepper):
         self._pool_tally = _Tally()     # pages in use at each block decode
         self._lane_tally = _Tally()     # lanes decoding at each block decode
         self._phases.reset()
+        if self._moe_tally is not None:
+            self._moe_tally.zero_()
         self._preemptions = 0
         self._stall_rounds = 0
 
@@ -1161,6 +1176,22 @@ class ContinuousEngine(_RequestStepper):
         (the commit pass and the EOS read). While a profiler records, each
         phase is also a ``record_function`` range of its name."""
         return self._phases.stats()
+
+
+    def moe_stats(self) -> Dict[str, object]:
+        """A "grouped" MoE config's tally since the last reset (empty for
+        any other config): ``pairs_total`` (token, choice) pairs routed over
+        every layer of every forward, ``rows_padded_total`` the rows the
+        expert products computed for them (each expert's group padded to the
+        tile), and ``pairs_per_expert``. It reads the device-side tally,
+        which waits for the work queued before it: call it between steps,
+        as ``/metrics`` does, never inside one."""
+        if self._moe_tally is None:
+            return {}
+        t = self._moe_tally.cpu()
+        return {"pairs_total": int(t[:-1].sum()),
+                "rows_padded_total": int(t[-1]),
+                "pairs_per_expert": t[:-1].tolist()}
 
 
 def make_engine(params, cfg: ModelConfig, serve: ServeConfig,

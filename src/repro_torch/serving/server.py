@@ -34,6 +34,11 @@ repo has no tokenizer):
   ``ContinuousEngine.phase_stats``'s). These need no profiler: a rate of
   ``engine.sync`` seconds near that of ``engine.step`` says the host
   mostly waits for the device, a low one that the host sets the pace.
+  A continuous engine serving a "grouped" MoE config adds
+  ``cdlm_moe_pairs_total`` and ``cdlm_moe_rows_padded_total``
+  (``ContinuousEngine.moe_stats``: the routed pairs and the rows the expert
+  products computed for them; a read of the device-side tally, which waits
+  for the step in flight).
 
 A single scheduler thread owns the engine (the engines are not
 thread-safe): HTTP handlers enqueue requests through
@@ -118,8 +123,9 @@ class EngineDriver:
 
     def metrics(self) -> str:
         # lock-free snapshot: counters are GIL-atomic int reads and the
-        # stats methods only read host-side counters, so /metrics stays
-        # responsive while a decode step holds the scheduler lock
+        # stats methods read host-side counters (moe_stats the device-side
+        # tally, which waits for the work queued before it), so /metrics
+        # never takes the scheduler lock a decode step holds
         eng = self.engine
         lines = [
             "# TYPE cdlm_requests_total counter",
@@ -149,6 +155,11 @@ class EngineDriver:
                 lines.append(f"# TYPE {metric} counter")
                 lines += [f'{metric}{{phase="{name}"}} {s[key]}'
                           for name, s in stats.items()]
+        moe = getattr(eng, "moe_stats", lambda: {})()
+        for key in ("pairs_total", "rows_padded_total"):
+            if key in moe:
+                lines.append(f"# TYPE cdlm_moe_{key} counter")
+                lines.append(f"cdlm_moe_{key} {moe[key]}")
         return "\n".join(lines) + "\n"
 
     def shutdown(self):

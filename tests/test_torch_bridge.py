@@ -118,13 +118,23 @@ def test_seeded_init_follows_the_jax_init(name):
 
 @pytest.mark.parametrize("name", sorted(ARCHITECTURES))
 def test_configs_match_the_jax_package(name):
+    """Every config copied from the JAX package equals it field for field,
+    and leaves the port's own fields (``PORT_FIELDS``) at their defaults,
+    whole and reduced."""
     mine, theirs = get_config(name), jax_get_config(name)
-    for f in dataclasses.fields(mine):
-        assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
+    jax_fields = [f.name for f in dataclasses.fields(theirs)]
+    assert [f.name for f in dataclasses.fields(mine)
+            if f.name not in port_base.PORT_FIELDS] == jax_fields
+    defaults = {f.name: f.default for f in dataclasses.fields(mine)
+                if f.name in port_base.PORT_FIELDS}
+    assert set(defaults) == set(port_base.PORT_FIELDS)
+    for f in jax_fields:
+        assert getattr(mine, f) == getattr(theirs, f), f
     assert mine.param_count() == theirs.param_count()
     assert dataclasses.asdict(mine.reduced()) == {
-        f.name: getattr(theirs.reduced(), f.name)
-        for f in dataclasses.fields(mine)}
+        **{f: getattr(theirs.reduced(), f) for f in jax_fields}, **defaults}
+    for cfg in (mine, mine.reduced()):
+        assert {f: getattr(cfg, f) for f in defaults} == defaults
 
 
 @pytest.mark.parametrize("name", ["CDLMConfig", "TrainConfig",

@@ -718,11 +718,11 @@ def test_graph_serving_equals_eager(cuda, layout, pool):
         cached = cfg.n_layers * (calls["refine"] + calls["commit"])
         # COUNTERS order: decode, paged decode, block attention, select,
         # xent forward, xent backward, then the elementwise passes (none
-        # at fp32: the plain ops)
+        # at fp32: the plain ops) and the grouped MoE's five (no MoE)
         assert counts == [cached if layout == "dense" else 0,
                           cached if layout == "paged" else 0,
                           cfg.n_layers * calls["admit"], calls["refine"],
-                          0, 0, 0, 0, 0]
+                          0, 0, 0, 0, 0] + [0] * 5
         runs[graphs] = ({o.id: o for o in outs}, calls,
                         eng.page_pool_stats(), counts)
     (eager, e_calls, e_stats, e_counts), (graph, g_calls, g_stats, g_counts) \
@@ -827,7 +827,8 @@ def test_graph_sampled_serving_equals_eager(cuda, layout, pool, sampled):
         cached = cfg.n_layers * (calls["refine"] + calls["commit"])
         assert counts == [cached if layout == "dense" else 0,
                           cached if layout == "paged" else 0,
-                          cfg.n_layers * calls["admit"], 0, 0, 0, 0, 0, 0]
+                          cfg.n_layers * calls["admit"], 0, 0, 0, 0, 0,
+                          0] + [0] * 5
         runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
                                 o.finish_reason) for o in outs}, calls,
                         eng.page_pool_stats(), counts)
@@ -974,14 +975,15 @@ def test_static_graph_equals_eager(cuda, name, layout, case):
     assert runs[None] == runs[False]
     assert sorted(runs[None][0]) == list(range(5))
     # COUNTERS order: decode, paged decode, block attention, select, xent
-    # forward, xent backward, the elementwise passes (none at fp32)
+    # forward, xent backward, the elementwise passes (none at fp32), the
+    # grouped MoE's five (no MoE)
     counts = runs[None][2]
     assert (counts[0] > 0) == (name == "ar" or name == "cdlm"
                                and layout == "dense")
     assert (counts[1] > 0) == (name == "cdlm" and layout == "paged")
     assert (counts[2] > 0) == (name != "vanilla" or case == "greedy-fused")
     assert (counts[3] > 0) == (case == "greedy-fused" and name != "ar")
-    assert counts[4:] == [0] * 5
+    assert counts[4:] == [0] * 10
 
 
 # the recurrent-state configs: jamba (Mamba, attention, MoE) and rwkv6
@@ -1043,7 +1045,7 @@ def test_recurrent_graph_serving_equals_eager(cuda, name, layout):
         assert counts == [cached if layout == "dense" else 0,
                           cached if layout == "paged" else 0,
                           n_attn * calls["admit"], calls["refine"], 0, 0,
-                          0, 0, 0]
+                          0, 0, 0] + [0] * 5
         runs[graphs] = ({o.id: (o.tokens.tolist(), o.steps, o.gen_length,
                                 o.finish_reason) for o in outs},
                         calls, counts)
@@ -1430,10 +1432,10 @@ def test_elementwise_kernels_match_plain(cuda, arch, rows):
     single lane's 32 rows, 32 lanes' 1,024, an admission's 16,384."""
     from repro_torch.kernels.elementwise import ElementwiseFns
     cfg, t = _elementwise_inputs(cuda, arch, rows)
-    fns = ElementwiseFns()
+    fns = ElementwiseFns()[:3]      # the passes (not the grouped MoE)
     before = [f.launches for f in fns]
     with torch.no_grad():
-        got = _passes(fns, cfg, t)
+        got = _passes(ElementwiseFns(), cfg, t)
         want = _passes(_plain_fns(), cfg, t)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 1]
@@ -1453,11 +1455,11 @@ def test_elementwise_kernels_in_a_cuda_graph(cuda, arch):
     with torch.no_grad():
         eager = _passes(fns, cfg, t)
         graph = Graph(lambda: _passes(fns, cfg, t))
-        before = [f.launches for f in fns]
+        before = [f.launches for f in fns[:3]]
         for _ in range(2):
             out = graph.replay()
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(fns, before)] == [4, 2, 2]
+        assert [f.launches - b for f, b in zip(fns[:3], before)] == [4, 2, 2]
         flat = lambda o: [o[0][0], o[0][1], *o[1], o[2], o[3]]  # noqa: E731
         for g, e in zip(flat(out), flat(eager)):
             assert torch.equal(g, e)
@@ -1502,7 +1504,7 @@ def test_cached_forward_routes_through_the_elementwise_kernels(cuda):
                            generator=torch.Generator(device=cuda)
                            .manual_seed(1))
     starts = torch.tensor([64, 64, 96, 64], device=cuda)
-    fns = ElementwiseFns()
+    fns = ElementwiseFns()[:3]      # the passes (not the grouped MoE)
     out = {}
     for bundle in (KERNELS, PLAIN):
         before = [f.launches for f in fns]
@@ -1530,8 +1532,6 @@ def test_continuous_engine_kernels_equal_plain(cuda, layout, monkeypatch):
     attention round differently enough to flip choices near a tie, which
     no change of the passes' makes (the norm's at most one bf16 ulp in a
     few elements)."""
-    import functools
-
     import numpy as np
 
     from repro_torch.configs import ServeConfig
@@ -1547,16 +1547,20 @@ def test_continuous_engine_kernels_equal_plain(cuda, layout, monkeypatch):
     prompts = np.random.default_rng(0).integers(2, cfg.vocab_size - 1,
                                                 (4, P))
 
-    def plain_forward(*a, **kw):
-        kw.update(elementwise_fns=PLAIN.elementwise)
-        return forward(*a, **kw)
+    def plain(fn):
+        # the engine passes its own bundle (it carries the grouped MoE's
+        # tally): the plain run replaces it in every call
+        def call(*a, **kw):
+            kw.update(elementwise_fns=PLAIN.elementwise)
+            return fn(*a, **kw)
+        return call
 
     runs = {}
     for name in ("kernels", "plain"):
         if name == "plain":
-            monkeypatch.setattr(E, "forward", plain_forward)
-            monkeypatch.setattr(E, "lane_block_forward", functools.partial(
-                lane_block_forward, elementwise_fns=PLAIN.elementwise))
+            monkeypatch.setattr(E, "forward", plain(forward))
+            monkeypatch.setattr(E, "lane_block_forward",
+                                plain(lane_block_forward))
         eng = ContinuousEngine(params, cfg, serve, prompt_len=P, device=cuda)
         eng.warmup()
         outs, counts = _counted(lambda: eng.generate(
@@ -1565,9 +1569,115 @@ def test_continuous_engine_kernels_equal_plain(cuda, layout, monkeypatch):
                       eng.call_counts(), counts)
     assert runs["kernels"][:2] == runs["plain"][:2]
     assert runs["kernels"][2][:6] == runs["plain"][2][:6]
-    assert runs["plain"][2][6:] == [0, 0, 0]
+    # COUNTERS [6:9]: the elementwise passes; [9:]: the grouped MoE's five
+    # (no MoE)
+    assert runs["plain"][2][6:] == [0, 0, 0] + [0] * 5
     calls = runs["kernels"][1]
     forwards = calls["admit"] + calls["refine"] + calls["commit"]
     n = cfg.n_layers
     assert runs["kernels"][2][6:] == [forwards * (2 * n + 1), forwards * n,
-                                      forwards * n]
+                                      forwards * n] + [0] * 5
+
+
+# sdar-30b-a3b: qkv_rope's QK-norm instance and the grouped MoE (kernels/moe)
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 1024])
+def test_qkv_rope_qk_norm_kernel_matches_plain(cuda, rows):
+    """The QK-norm instance at sdar-30b-a3b's widths against the plain
+    version (``chip_smoke.check_qk_norm``: v bit for bit, q and k within
+    two bf16 ulps of their largest value), one launch a call."""
+    from repro_torch.kernels.elementwise import qkv_rope
+    before = qkv_rope.launches
+    _limits().check_qk_norm(torch, cuda, rows=rows)
+    assert qkv_rope.launches == before + 1
+
+
+MOE_CASES = [(64, 4, 2, 256, 256), (300, 16, 4, 256, 128),
+             (1024, 128, 8, 2048, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,d,f", MOE_CASES)
+def test_grouped_moe_kernels_match_plain(cuda, T, E, k, d, f):
+    """The five ``moe_*`` kernels against the plain version
+    (``chip_smoke.check_moe``: the layout's counts and tiles equal, the
+    output within ``MOE_REL`` of max|y|), each launched once a call."""
+    from repro_torch.graphs import COUNTERS
+    from repro_torch.kernels import moe
+    names = ("moe_align", "moe_gather", "moe_gate_up", "moe_down",
+             "moe_combine")
+    fns = [getattr(moe, n) for n in names]
+    assert all((fn, "launches") in COUNTERS for fn in fns)
+    before = [fn.launches for fn in fns]
+    _limits().check_moe(torch, cuda, T=T, E=E, k=k, d=d, f=f)
+    # check_moe calls moe_align once on its own, then the whole product
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [2, 1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_grouped_moe_in_a_cuda_graph_counts_into_the_tally(cuda):
+    """The grouped product captured in a CUDA graph: each replay equals the
+    eager call bit for bit, adds its launches, and adds the pairs of each
+    expert and the padded rows into the device-side tally."""
+    from repro_torch.graphs import Graph
+    from repro_torch.kernels.moe import grouped_experts, moe_gate_up
+    from repro_torch.kernels.moe import ref as mref
+    T, E, k = 512, 16, 4
+    x, gates, ids, w = _limits().moe_inputs(torch, cuda, T=T, E=E, k=k,
+                                            d=256, f=128)
+    tally = torch.zeros(E + 1, dtype=torch.int64, device=cuda)
+    args = (x, gates, ids, w["wi_gate"], w["wi_up"], w["wo"])
+    with torch.no_grad():
+        eager = grouped_experts(*args)
+        graph = Graph(lambda: grouped_experts(*args, tally=tally))
+        tally.zero_()
+        before = moe_gate_up.launches
+        for _ in range(3):
+            out = graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert moe_gate_up.launches == before + 3
+    counts = torch.bincount(ids.reshape(-1), minlength=E)
+    assert torch.equal(tally[:E], 3 * counts)
+    assert tally[E].item() == 3 * int(
+        ((counts + mref.BM - 1) // mref.BM * mref.BM).sum())
+
+
+@pytest.mark.cuda
+def test_sdar_engine_through_the_grouped_kernels(cuda):
+    """sdar-30b-a3b at two layers of its published widths (bf16) through
+    ``ContinuousEngine``'s graphs, paged: each forward launches the five
+    ``moe_*`` kernels once a layer and the QK-norm ``qkv_rope`` once a
+    layer; the tally counts every pair; tokens equal an eager engine's."""
+    import numpy as np
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.serving import ContinuousEngine, Request
+    cfg = get_config("sdar-30b-a3b").reduced(
+        dtype="bfloat16", n_layers=2, d_model=2048, n_heads=32,
+        n_kv_heads=4, head_dim=128, n_experts=128, experts_per_token=8,
+        moe_d_ff=768)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda, torch.bfloat16)
+    serve = ServeConfig(max_batch=4, block_size=32, gen_length=64,
+                        scheduler="continuous", cache_layout="paged",
+                        fused_select=True)
+    prompts = np.random.default_rng(0).integers(2, 500, (5, 64))
+    runs = {}
+    for graphs in (False, None):
+        eng = ContinuousEngine(params, cfg, serve, 64, device=cuda,
+                               graphs=graphs)
+        eng.warmup()
+        outs, counts = _counted(lambda: eng.generate(
+            [Request(prompt=p, id=i) for i, p in enumerate(prompts)]))
+        calls, stats = eng.call_counts(), eng.moe_stats()
+        forwards = calls["admit"] + calls["refine"] + calls["commit"]
+        # COUNTERS: ..., qkv_rope (7), gated_act (8), the moe_* five (9-13)
+        assert counts[7] == cfg.n_layers * forwards and counts[8] == 0
+        assert counts[9:] == [cfg.n_layers * forwards] * 5
+        tokens = 4 * (64 * calls["admit"]
+                      + 32 * (calls["refine"] + calls["commit"]))
+        assert stats["pairs_total"] == tokens * cfg.n_layers * 8
+        runs[graphs] = {o.id: o.tokens.tolist() for o in outs}
+    assert runs[False] == runs[None] and sorted(runs[None]) == list(range(5))

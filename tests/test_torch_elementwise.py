@@ -105,6 +105,42 @@ def test_qkv_rope_plain_equals_the_layers_chain(hd, bias, per_lane):
     assert torch.equal(v.reshape(want_v.shape), want_v)
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+def test_qkv_rope_qk_norm_plain_equals_the_layers_chain(hd, bias):
+    """A QK-norm config (sdar-30b-a3b's Qwen3 layers): the projections,
+    their biases where given, each head of q and k RMS-normed by its (hd,)
+    weight (``layers.head_norm``), then RoPE: the plain version equals that
+    chain bit for bit; the wrapper's CPU route takes it."""
+    cfg = dataclasses.replace(_qkv_cfg(hd, bias), qk_norm=True)
+    gen = torch.Generator().manual_seed(hd + 7 * bias)
+    b, n, d = 3, 6, cfg.d_model
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    p = {"wq": _randn(gen, d, nq, scale=0.05),
+         "wk": _randn(gen, d, nkv, scale=0.05),
+         "wv": _randn(gen, d, nkv, scale=0.05),
+         "q_norm": _randn(gen, hd, scale=0.1) + 1,
+         "k_norm": _randn(gen, hd, scale=0.1) + 1}
+    if bias:
+        p.update(bq=_randn(gen, nq, scale=0.1), bk=_randn(gen, nkv, scale=0.1),
+                 bv=_randn(gen, nkv, scale=0.1))
+    h = _randn(gen, b, n, d)
+    pos = torch.tensor([[0], [511], [790]]) + torch.arange(n)
+    want_q = L.rope(L.head_norm(L.project_q(p, h, cfg), p["q_norm"],
+                                cfg.norm_eps), pos, cfg.rope_theta)
+    want_k, want_v = L.project_kv(p, h, cfg)
+    want_k = L.rope(L.head_norm(want_k, p["k_norm"], cfg.norm_eps), pos,
+                    cfg.rope_theta)
+    args = (h @ p["wq"], h @ p["wk"], h @ p["wv"], p.get("bq"), p.get("bk"),
+            p.get("bv"), pos)
+    kw = dict(head_dim=hd, theta=cfg.rope_theta, q_norm=p["q_norm"],
+              k_norm=p["k_norm"], eps=cfg.norm_eps)
+    for q, k, v in (ref.qkv_rope(*args, **kw), qkv_rope(*args, **kw)):
+        assert torch.equal(q.reshape(want_q.shape), want_q)
+        assert torch.equal(k.reshape(want_k.shape), want_k)
+        assert torch.equal(v.reshape(want_v.shape), want_v)
+
+
 @pytest.mark.parametrize("kind", ["silu", "gelu"])
 def test_gated_act_plain_equals_the_layers_chain(kind):
     gen = torch.Generator().manual_seed(len(kind))
@@ -210,12 +246,14 @@ def _run(cfg, *, as_cuda: bool, dtype=BF16, cached: bool = False,
     return rec.calls
 
 
-@pytest.mark.parametrize("arch", ["dream-7b", "llada-8b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ["dream-7b", "llada-8b", "gemma-7b",
+                                  "sdar-30b-a3b"])
 @pytest.mark.parametrize("cached", [False, True], ids=["prefill", "cached"])
 def test_forward_takes_every_pass_where_it_covers_the_input(arch, cached,
                                                             monkeypatch):
     """rmsnorm, RoPE, a gated silu (dream, llada) or tanh-gelu (gemma) MLP,
-    bf16 CUDA tensors, grad off: every norm, every QKV and every MLP."""
+    bf16 CUDA tensors, grad off: every norm, every QKV (sdar's with its
+    QK-norm) and every MLP (sdar has none: its FFNs are MoE)."""
     cfg = get_config(arch).reduced(dtype="bfloat16")
     got = _run(cfg, as_cuda=True, cached=cached, monkeypatch=monkeypatch)
     assert got == _expected(cfg)

@@ -133,6 +133,42 @@ def test_commit_rows_paged_writes_only_selected_lanes():
         assert (pool[:, tc.page_table[0, 0]] == 1).all()
 
 
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_a_prefill_committed_period_by_period_equals_commit_rows(arch, paged):
+    """``forward(emit=period_commit(...))`` (the engines' admission) keeps
+    no emissions and leaves every cache leaf, K/V pools and recurrent
+    states alike, as ``commit_rows`` of the stacked emissions does."""
+    from repro_torch.bridge import init_params
+    cfg = get_config(arch).reduced(dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    params = init_params(cfg, gen, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, P), generator=gen)
+    rows = np.array([True, False, True])
+
+    def fresh():
+        if not paged:
+            return C.init_cache(cfg, 3, T, device="cpu")
+        c = C.init_paged_cache(cfg, 3, T, n_pages=3 * T // B, page_size=B,
+                               device="cpu")
+        C.alloc(c, rows, 0, P)
+        return c
+
+    kw = dict(cfg=cfg, device="cpu", mode=masks.BLOCK_CAUSAL, prompt_len=P,
+              block_size=B, return_logits=False)
+    want, got = fresh(), fresh()
+    stacked = forward(params, toks, **kw)
+    C.commit_rows(want, stacked.emissions, 0, rows)
+    out = forward(params, toks, emit=C.period_commit(got, 0, rows), **kw)
+    assert out.emissions is None
+    assert torch.equal(out.hidden, stacked.hidden)
+    slots = (lambda c: c.slots) if paged else (lambda c: c)
+    for ws, gs in zip(slots(want), slots(got)):
+        assert ws.keys() == gs.keys()
+        for key in ws:
+            assert torch.equal(ws[key], gs[key]), key
+
+
 def test_device_table_follows_the_host_table():
     tc = C.init_paged_cache(CFG, 2, T, n_pages=6, page_size=B, device="cpu")
     first = tc.device_table()
